@@ -1,0 +1,69 @@
+"""Carry a Prox-LEAD state between the reference and the port as arrays.
+
+A state crosses as a flat mapping of numpy arrays (or trees of them):
+
+    X, D, comm.H, comm.Hw, oracle.kind, oracle.ref, oracle.ref_grad, k
+
+which is what a ``repro`` ``ProxLEADState`` holds once its leaves are
+turned into numpy arrays.  Full-gradient and SGD oracles keep no reference
+point: the reference stores a 0-d integer placeholder there, the port
+``None``.  Floating arrays take the chosen dtype and device; the counter
+and the oracle tag become Python ints.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.comm import CommState
+from repro_torch.core.oracles import OracleState
+from repro_torch.core.prox_lead import ProxLEADState
+from repro_torch.tree import tree_map
+
+KEYS = ("X", "D", "comm.H", "comm.Hw", "oracle.kind", "oracle.ref",
+        "oracle.ref_grad", "k")
+
+
+def _is_placeholder(a) -> bool:
+    a = np.asarray(a)
+    return a.ndim == 0 and np.issubdtype(a.dtype, np.integer)
+
+
+def state_from_arrays(arrays: Mapping[str, Any], *, device,
+                      dtype: torch.dtype) -> ProxLEADState:
+    """Arrays (see module docstring) -> the port's state on ``device``."""
+    missing = [k for k in KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"state arrays lack {missing}")
+
+    def to_t(tree):
+        if not isinstance(tree, (dict, list, tuple)) and _is_placeholder(tree):
+            return None
+        return tree_map(lambda a: torch.as_tensor(
+            np.array(a), dtype=dtype, device=device), tree)
+
+    return ProxLEADState(
+        X=to_t(arrays["X"]), D=to_t(arrays["D"]),
+        comm=CommState(to_t(arrays["comm.H"]), to_t(arrays["comm.Hw"])),
+        oracle=OracleState(int(np.asarray(arrays["oracle.kind"])),
+                           to_t(arrays["oracle.ref"]),
+                           to_t(arrays["oracle.ref_grad"])),
+        k=int(np.asarray(arrays["k"])))
+
+
+def state_to_arrays(state: ProxLEADState) -> Dict[str, Any]:
+    """The port's state -> numpy arrays under :data:`KEYS` (``None``
+    reference points become the reference's 0-d int32 placeholder)."""
+    def to_np(tree):
+        if tree is None:
+            return np.int32(0)
+        return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+    return {"X": to_np(state.X), "D": to_np(state.D),
+            "comm.H": to_np(state.comm.H), "comm.Hw": to_np(state.comm.Hw),
+            "oracle.kind": np.int32(state.oracle.kind),
+            "oracle.ref": to_np(state.oracle.ref),
+            "oracle.ref_grad": to_np(state.oracle.ref_grad),
+            "k": np.int32(state.k)}

@@ -1,0 +1,2 @@
+from repro_torch.obs.report import RunReport  # noqa: F401
+from repro_torch.obs.trace import Span, span  # noqa: F401

@@ -1,0 +1,50 @@
+"""Minimal pytrees over tensors: a leaf, or dicts, lists and tuples of them.
+
+Dicts flatten in sorted key order, as JAX's pytrees do, so leaf ``j`` of a
+port tree is leaf ``j`` of the reference tree (per-leaf noise is drawn in
+that order).  NamedTuples are not trees here: state containers are walked
+field by field by the code that owns them.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+
+def flatten(tree) -> Tuple[List[Any], Any]:
+    """-> (leaves in order, treedef); the treedef is the tree with every
+    leaf replaced by None."""
+    out: List[Any] = []
+
+    def rec(t):
+        if isinstance(t, dict):
+            return {k: rec(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(rec(v) for v in t)
+        out.append(t)
+        return None
+
+    return out, rec(tree)
+
+
+def unflatten(treedef, leaves) -> Any:
+    it = iter(leaves)
+
+    def rec(d):
+        if isinstance(d, dict):
+            return {k: rec(v) for k, v in d.items()}
+        if isinstance(d, (list, tuple)):
+            return type(d)(rec(v) for v in d)
+        return next(it)
+
+    return rec(treedef)
+
+
+def leaves(tree) -> List[Any]:
+    return flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    """``fn`` applied leafwise across trees of one structure."""
+    ls, treedef = flatten(tree)
+    others = [flatten(r)[0] for r in rest]
+    return unflatten(treedef, [fn(*xs) for xs in zip(ls, *others)])
