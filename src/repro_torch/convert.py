@@ -1,6 +1,8 @@
-"""Carry a Prox-LEAD state between the reference and the port as arrays.
+"""Carry states and parameters between the reference and the port as
+numpy arrays, so both packages start from one state.
 
-A state crosses as a flat mapping of numpy arrays (or trees of them):
+A Prox-LEAD state crosses as a flat mapping of numpy arrays (or trees of
+them):
 
     X, D, comm.H, comm.Hw, oracle.kind, oracle.ref, oracle.ref_grad, k
 
@@ -9,6 +11,15 @@ turned into numpy arrays.  Full-gradient and SGD oracles keep no reference
 point: the reference stores a 0-d integer placeholder there, the port
 ``None``.  Floating arrays take the chosen dtype and device; the counter
 and the oracle tag become Python ints.
+
+A trainer state (``repro.optim.decentralized.TrainState``) crosses as
+
+    X, D, comm.H, comm.Hw, k, step, precond.m, precond.v
+
+with the parameter trees (nested dicts) as they are; without the Adam
+preconditioner the reference stores a 0-d integer placeholder under
+``precond.m`` and ``precond.v``, the port ``None``.  :func:`tree_to_torch`
+and :func:`tree_to_numpy` carry a bare parameter tree.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch
 from repro_torch.core.comm import CommState
 from repro_torch.core.oracles import OracleState
 from repro_torch.core.prox_lead import ProxLEADState
+from repro_torch.optim.decentralized import TrainState
 from repro_torch.tree import tree_map
 
 KEYS = ("X", "D", "comm.H", "comm.Hw", "oracle.kind", "oracle.ref",
@@ -67,3 +79,48 @@ def state_to_arrays(state: ProxLEADState) -> Dict[str, Any]:
             "oracle.ref": to_np(state.oracle.ref),
             "oracle.ref_grad": to_np(state.oracle.ref_grad),
             "k": np.int32(state.k)}
+
+
+TRAIN_KEYS = ("X", "D", "comm.H", "comm.Hw", "k", "step", "precond.m",
+              "precond.v")
+
+
+def tree_to_torch(tree, *, device, dtype: torch.dtype = None):
+    """A tree of numpy arrays -> torch tensors on ``device`` (in ``dtype``
+    when given, else each array's own)."""
+    return tree_map(lambda a: torch.as_tensor(np.array(a), dtype=dtype,
+                                              device=device), tree)
+
+
+def tree_to_numpy(tree):
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def trainstate_from_arrays(arrays: Mapping[str, Any], *, device,
+                           dtype: torch.dtype = None) -> TrainState:
+    """Arrays under :data:`TRAIN_KEYS` -> the port's TrainState."""
+    missing = [k for k in TRAIN_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"trainer state arrays lack {missing}")
+    to_t = lambda k: tree_to_torch(arrays[k], device=device,  # noqa: E731
+                                   dtype=dtype)
+    precond = (None if _is_placeholder(arrays["precond.m"])
+               else (to_t("precond.m"), to_t("precond.v")))
+    plead = ProxLEADState(to_t("X"), to_t("D"),
+                          CommState(to_t("comm.H"), to_t("comm.Hw")),
+                          OracleState(0, None, None),
+                          int(np.asarray(arrays["k"])))
+    return TrainState(plead, int(np.asarray(arrays["step"])), precond)
+
+
+def trainstate_to_arrays(state: TrainState) -> Dict[str, Any]:
+    """The port's TrainState -> numpy arrays under :data:`TRAIN_KEYS`."""
+    p = state.plead
+    m, v = state.precond if state.precond is not None else (None, None)
+    placeholder = lambda x: np.int32(0) if x is None else \
+        tree_to_numpy(x)                                      # noqa: E731
+    return {"X": tree_to_numpy(p.X), "D": tree_to_numpy(p.D),
+            "comm.H": tree_to_numpy(p.comm.H),
+            "comm.Hw": tree_to_numpy(p.comm.Hw), "k": np.int32(p.k),
+            "step": np.int32(state.step), "precond.m": placeholder(m),
+            "precond.v": placeholder(v)}

@@ -11,10 +11,14 @@ run's device.
     randint(n, high)  -> (n,) int64 in [0, high)   batch index per node
     bernoulli(p)      -> () bool                   L-SVRG reference refresh
     uniform(shape)    -> shape float32 in [0, 1)   stochastic-rounding noise
+
+``uniform(shape, out=view)`` fills ``view`` (of ``shape``, f32, any
+strides) in place and returns it: the neighbor-gossip backend draws each
+leaf's noise straight into its bucket group's row table.
 """
 from __future__ import annotations
 
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,8 +33,16 @@ class Draws:
     def bernoulli(self, p: float) -> torch.Tensor:
         raise NotImplementedError
 
-    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+    def uniform(self, shape: Sequence[int],
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
+
+
+def _check_out(out: torch.Tensor, shape) -> None:
+    if tuple(out.shape) != tuple(int(s) for s in shape) or \
+            out.dtype != torch.float32:
+        raise ValueError(f"out must be f32 of shape {tuple(shape)}, got "
+                         f"{out.dtype} {tuple(out.shape)}")
 
 
 class GeneratorDraws(Draws):
@@ -48,9 +60,12 @@ class GeneratorDraws(Draws):
     def bernoulli(self, p):
         return torch.rand((), generator=self.gen, device=self.device) < p
 
-    def uniform(self, shape):
-        return torch.rand(tuple(shape), generator=self.gen,
-                          device=self.device, dtype=torch.float32)
+    def uniform(self, shape, out=None):
+        if out is None:
+            return torch.rand(tuple(shape), generator=self.gen,
+                              device=self.device, dtype=torch.float32)
+        _check_out(out, shape)
+        return out.uniform_(0.0, 1.0, generator=self.gen)
 
 
 class ReplayDraws(Draws):
@@ -89,13 +104,16 @@ class ReplayDraws(Draws):
             raise ValueError(f"replayed bernoulli has {a.numel()} elements")
         return a.reshape(()).to(torch.bool)
 
-    def uniform(self, shape):
+    def uniform(self, shape, out=None):
         a = self._pop("uniform").to(torch.float32)
         shape = tuple(int(s) for s in shape)
         if a.numel() != int(np.prod(shape, dtype=np.int64)):
             raise ValueError(f"replayed uniform has shape {tuple(a.shape)}, "
                              f"the call wants {shape}")
-        return a.reshape(shape)
+        if out is None:
+            return a.reshape(shape)
+        _check_out(out, shape)
+        return out.copy_(a.reshape(shape))
 
 
 class RecordingDraws(Draws):
@@ -116,5 +134,8 @@ class RecordingDraws(Draws):
     def bernoulli(self, p):
         return self._keep(self.inner.bernoulli(p))
 
-    def uniform(self, shape):
-        return self._keep(self.inner.uniform(shape))
+    def uniform(self, shape, out=None):
+        t = self.inner.uniform(shape, out=out)
+        # a copy: an ``out`` view may be overwritten after the call
+        self.record.append(t.clone())
+        return t

@@ -3,8 +3,8 @@
 The port's own copy of the numpy half of ``repro.core.topology``: a mixing
 matrix W is symmetric, W1 = 1, w_ij = 0 for non-edges, and
 -1 < lambda_n <= ... <= lambda_2 < lambda_1 = 1.  kappa_g is the network
-condition number lambda_max(I-W) / lambda_min+(I-W).  Exchange plans (the
-sharded gossip backend) arrive with the wire slice.
+condition number lambda_max(I-W) / lambda_min+(I-W).  ``compile_plan``
+turns a static W into the hops of the neighbor-gossip backend.
 """
 from __future__ import annotations
 
@@ -165,6 +165,162 @@ def expander(n: int, degree: int = 4, seed: int = 0) -> Topology:
             A[i, j] = A[j, i] = 1.0
     W = _metropolis(A)
     return Topology("expander", W, _neighbors_from_W(W))
+
+
+# ---------------------------------------------------------------------------
+# Exchange plans: compile a (schedule of) mixing matrices into exchange hops
+# for the neighbor-gossip backend (repro_torch.optim backend="neighbor").
+#
+# A Hop is one exchange round through the ``pp(x, pairs)`` seam (the
+# semantics of a ppermute): a set of directed (src, dst) pairs in which
+# every node appears at most once as a source and at most once as a
+# destination, plus the weight each receiver
+# applies to the payload it got — tabulated per schedule round, so one
+# static set of hops serves a whole time-varying cycle (weights of an edge
+# that is inactive at round t are 0; the payload still moves, which is what
+# a real network would do absent per-round reconfiguration, and is what the
+# bits-on-wire accounting reports).
+#
+# Compilation: circulant supports (ring, exponential graph, any
+# shift-structured W) produce exactly one hop per nonzero offset; general
+# sparse supports (2-D torus in row-major order, random matchings, stars)
+# are decomposed by greedy bipartite edge coloring (<= 2*deg - 1 hops,
+# typically deg or deg + 1).
+# ---------------------------------------------------------------------------
+
+_EDGE_EPS = 1e-12
+
+
+@dataclasses.dataclass(frozen=True)
+class Hop:
+    """One exchange round (one ``pp`` call per wire buffer) of a plan.
+
+    ``pairs``    — directed (src, dst) index pairs, each node at most once
+                   per side.
+    ``weights``  — (T, n) array: the weight receiver ``dst`` applies at
+                   schedule round ``t`` (0 when the edge is inactive that
+                   round, or when ``dst`` receives nothing in this hop).
+    ``shift``    — circulant offset when the hop is one (metadata).
+    """
+    pairs: tuple
+    weights: "np.ndarray"
+    shift: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangePlan:
+    """Compiled gossip plan: W_k X == self-term + sum over hops of
+    weighted exchanged payloads, for every round k of the cycle."""
+    name: str
+    n: int
+    hops: tuple                     # tuple of Hop
+    T_cycle: int = 1                # explicit: hops may be empty (W_k == I)
+
+    @property
+    def T(self) -> int:
+        """Schedule cycle length (1 for a static topology)."""
+        return self.T_cycle
+
+    @property
+    def pairs_per_round(self) -> int:
+        """Directed payloads every round physically moves (union support)."""
+        return sum(len(h.pairs) for h in self.hops)
+
+    def active_pairs(self) -> np.ndarray:
+        """(T,) directed payloads with nonzero mixing weight per round."""
+        out = np.zeros(self.T, np.int64)
+        for h in self.hops:
+            w = np.asarray(h.weights)
+            for (_, dst) in h.pairs:
+                out += (np.abs(w[:, dst]) > _EDGE_EPS).astype(np.int64)
+        return out
+
+    def self_weights(self, dtype=np.float32) -> np.ndarray:
+        """(T, n) diagonal weights, computed as 1 - sum(hop weights) in
+        ``dtype`` so every row of the reconstructed W_k sums to 1 exactly
+        in that dtype (same drift-avoidance as ``comm._exact_stochastic``).
+        """
+        total = np.zeros((self.T, self.n), np.dtype(dtype))
+        for h in self.hops:
+            total += np.asarray(h.weights, total.dtype)
+        return (np.asarray(1.0, total.dtype) - total).astype(total.dtype)
+
+    def as_matrices(self) -> np.ndarray:
+        """Reconstruct the (T, n, n) mixing-matrix stack the plan encodes."""
+        W = np.zeros((self.T, self.n, self.n))
+        for h in self.hops:
+            for (src, dst) in h.pairs:
+                W[:, dst, src] += h.weights[:, dst]
+        for t in range(self.T):
+            np.fill_diagonal(W[t], 1.0 - W[t].sum(axis=1))
+        return W
+
+    def validate(self, W_stack: np.ndarray) -> None:
+        R = self.as_matrices()
+        Wk = np.asarray(W_stack)
+        if Wk.ndim == 2:
+            Wk = Wk[None]
+        if R.shape != Wk.shape or not np.allclose(R, Wk, atol=1e-10):
+            raise ValueError(
+                f"plan {self.name!r} does not reconstruct its W stack "
+                f"(max err {np.abs(R - Wk).max() if R.shape == Wk.shape else 'shape mismatch'})")
+
+
+def _circulant_offsets(support: np.ndarray) -> Optional[list]:
+    """Nonzero offsets s (node i linked to (i+s) % n) if the 0/1 support
+    matrix is circulant, else None."""
+    n = support.shape[0]
+    offsets = [s for s in range(1, n) if support[0, s % n]]
+    for s in range(1, n):
+        want = support[0, s]
+        for i in range(n):
+            if support[i, (i + s) % n] != want:
+                return None
+    return offsets
+
+
+def compile_plan(W_stack, name: str = "plan") -> ExchangePlan:
+    """Compile a (n, n) mixing matrix or a (T, n, n) schedule stack into an
+    ExchangePlan over the UNION support.  Validated on exit."""
+    Wk = np.asarray(W_stack, np.float64)
+    if Wk.ndim == 2:
+        Wk = Wk[None]
+    T, n, _ = Wk.shape
+    support = (np.abs(Wk) > _EDGE_EPS).any(axis=0)
+    np.fill_diagonal(support, False)
+    if not np.array_equal(support, support.T):
+        raise ValueError("mixing support must be symmetric (Assumption 1)")
+
+    hops = []
+    offsets = _circulant_offsets(support)
+    if offsets is not None:
+        for s in offsets:
+            pairs = tuple((i, (i + s) % n) for i in range(n))
+            w = np.stack([[Wk[t, d, (d - s) % n] for d in range(n)]
+                          for t in range(T)])
+            hops.append(Hop(pairs, w, shift=s))
+    else:
+        # greedy bipartite edge coloring of the directed union edges
+        colors = []                      # [(srcs_used, dsts_used, pairs)]
+        for dst in range(n):
+            for src in range(n):
+                if not support[dst, src]:
+                    continue
+                for srcs, dsts, pairs in colors:
+                    if src not in srcs and dst not in dsts:
+                        srcs.add(src), dsts.add(dst), pairs.append((src, dst))
+                        break
+                else:
+                    colors.append(({src}, {dst}, [(src, dst)]))
+        for _, _, pairs in colors:
+            w = np.zeros((T, n))
+            for (src, dst) in pairs:
+                w[:, dst] = Wk[:, dst, src]
+            hops.append(Hop(tuple(pairs), w))
+
+    plan = ExchangePlan(name, n, tuple(hops), T_cycle=T)
+    plan.validate(Wk)
+    return plan
 
 
 registry.register_topology("ring")(ring)

@@ -1,12 +1,20 @@
-"""Last-dim blockwise QInf over tensors of any rank, on top of B1/B2.
+"""Last-dim blockwise QInf over tensors of any rank, wire packing, and the
+fused wire ops, on top of kernels B1-B4.
 
-The port of the rank-generic half of ``repro.kernels.ops``: the last axis
-is cut into ``block``-wide blocks (zero-padded), leading axes pass through,
-and every block is one row of the (R, block) kernels in
+The port of ``repro.kernels.ops``: the last axis is cut into
+``block``-wide blocks (zero-padded), leading axes pass through, and every
+block is one row of the (R, block) kernels in
 :mod:`repro_torch.kernels.quantize`.  The noise ``u`` is an input, drawn by
 the caller with the shape :func:`blockwise_shape` gives, exactly as the
 reference draws it.  A CUDA tensor goes through the kernels; a CPU tensor
 through their plain versions.
+
+``pack_codes_lastdim`` / ``pack_codes`` turn int8 sign-magnitude codes into
+the uint8 wire format of the per-leaf wire path (offset codes
+``c + 2^{b-1}``, two to a byte for b <= 3 in PAIRS order: byte k = code 2k
+| code 2k+1 << 4).  The fused ops ``qinf_quantize_pack`` /
+``qinf_unpack_dequant_mix`` (kernels B3/B4) pack in HALVES order instead;
+both orders carry the same bytes per block.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import quantize as qk
+from repro_torch.kernels import ref
 
 
 def blockwise_shape(shape: Sequence[int], block: int) -> Tuple[int, ...]:
@@ -63,3 +72,83 @@ def qinf_dequantize_lastdim(codes: torch.Tensor, scales: torch.Tensor, shape,
     flat = xb.reshape(*codes.shape[:-2], codes.shape[-2] * block)
     out = flat[..., :D].reshape(shape)
     return out if direct else out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Wire packing (per-leaf wire path): int8 codes -> uint8 payload.
+# ---------------------------------------------------------------------------
+
+def pack_codes_lastdim(codes: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """(..., B) int8 -> (..., B/2) uint8 in PAIRS order for bits <= 3;
+    offset bytes (..., B) otherwise.  B must be even for bits <= 3."""
+    u = (codes.to(torch.int16) + 2 ** (bits - 1)).to(torch.uint8)
+    if ref.wire_bits_per_element(bits) == 4:
+        pairs = u.reshape(*u.shape[:-1], u.shape[-1] // 2, 2)
+        return pairs[..., 0] | (pairs[..., 1] << 4)
+    return u
+
+
+def unpack_codes_lastdim(packed: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes_lastdim` -> int8 codes."""
+    offset = 2 ** (bits - 1)
+    if ref.wire_bits_per_element(bits) == 4:
+        lo = (packed & 0x0F).to(torch.int16)
+        hi = ((packed >> 4) & 0x0F).to(torch.int16)
+        inter = torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+    else:
+        inter = packed.to(torch.int16)
+    return (inter - offset).to(torch.int8)
+
+
+def pack_codes(codes: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Flat packing: every code of ``codes`` (flattened) into a 1-D uint8
+    payload, PAIRS order for bits <= 3 (an odd count pads one zero nibble)."""
+    flat = (codes.to(torch.int16) + 2 ** (bits - 1)).to(torch.uint8
+                                                        ).reshape(-1)
+    if ref.wire_bits_per_element(bits) == 4:
+        if flat.numel() % 2:
+            flat = F.pad(flat, (0, 1))
+        pairs = flat.reshape(-1, 2)
+        return pairs[:, 0] | (pairs[:, 1] << 4)
+    return flat
+
+
+def unpack_codes(packed: torch.Tensor, *, bits: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes`: uint8 payload -> int8 codes of
+    length ``n``."""
+    offset = 2 ** (bits - 1)
+    if ref.wire_bits_per_element(bits) == 4:
+        lo = (packed & 0x0F).to(torch.int16)
+        hi = ((packed >> 4) & 0x0F).to(torch.int16)
+        inter = torch.stack([lo, hi], dim=-1).reshape(-1)[:n]
+    else:
+        inter = packed.to(torch.int16)[:n]
+    return (inter - offset).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Fused wire-path ops (bucketed gossip backend): kernels B3 and B4.
+# ---------------------------------------------------------------------------
+
+def qinf_quantize_pack(xrows: torch.Tensor, urows: torch.Tensor, *,
+                       bits: int, block: int):
+    """Fused quantize + wire-pack of (R, block) f32 rows for any R (no row
+    padding: the card's kernel has no row tile).  Returns (packed u8
+    (R, W), scales f32 (R, 1)), W = ``packed_width(block, bits)``."""
+    if xrows.shape[-1] != block:
+        raise ValueError(f"rows of width {xrows.shape[-1]} != block {block}")
+    return qk.qinf_quantize_pack_blocks(xrows, urows, bits)
+
+
+def qinf_unpack_dequant_mix(packed: torch.Tensor, scales: torch.Tensor,
+                            w: torch.Tensor, *, bits: int, block: int,
+                            out_dtype=torch.float32):
+    """Fused unpack + dequantize + weighted mix across the (1 + hops)
+    payloads of one bucket group, for every node: packed (N, S, R, W) u8,
+    scales (N, S, R, 1) f32, w (N, T, S) -> (mix (N, T, R, block), qself
+    (N, R, block)) in ``out_dtype``, node n mixing with its own weights."""
+    if qk.packed_width(block, bits) != packed.shape[-1]:
+        raise ValueError(f"payload width {packed.shape[-1]} != packed width "
+                         f"of block {block} at {bits} bits")
+    return qk.qinf_unpack_dequant_mix_blocks(packed, scales, w, bits,
+                                             out_dtype)

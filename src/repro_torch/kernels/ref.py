@@ -80,23 +80,41 @@ def qinf_quantize_pack_blocks_ref(xb: torch.Tensor, ub: torch.Tensor,
 
 
 def weighted_mix_ref(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """out[t] = sum_s w[t, s] * q[s] in f32, as one contraction over the
-    sender axis.  ``w`` (T, S), ``q`` (S, ...) -> (T, ...)."""
-    return torch.tensordot(w.to(torch.float32), q.to(torch.float32),
-                           dims=([1], [0]))
+    """out[n, t] = sum_s w[n, t, s] * q[s, n] in f32, accumulated in sender
+    order: out = w[:, :, 0] q[0], then out = out + w[:, :, s] q[s] for
+    s = 1..S-1, each product and sum one rounded f32 operation (what kernel
+    B4 computes).  ``w`` (N, T, S), ``q`` (S, N, ...) -> (N, T, ...)."""
+    w = w.to(torch.float32)
+    N, T, S = w.shape
+    bshape = (N, T) + (1,) * (q.dim() - 2)
+    out = None
+    for s in range(S):
+        term = w[:, :, s].reshape(bshape) * q[s].to(torch.float32)[:, None]
+        out = term if out is None else out + term
+    return out
 
 
 def qinf_unpack_dequant_mix_blocks_ref(packed: torch.Tensor,
                                        scales: torch.Tensor,
                                        w: torch.Tensor, bits: int,
                                        out_dtype=torch.float32):
-    """Unpack + dequantize + weighted mix across senders.
+    """Unpack + dequantize + weighted mix across senders, per node.
 
-    ``packed`` (S, R, W) uint8 (sender 0 is self), ``scales`` (S, R, 1) f32,
-    ``w`` (T, S).  Returns (mix (T, R, B), qself (R, B)) in ``out_dtype``;
-    each Q_s rounds through ``out_dtype`` before the f32 accumulation."""
-    codes = unpack_codes_halves_ref(packed, bits).to(torch.float32)
-    q = codes * scales.to(torch.float32)
-    q = q.to(out_dtype).to(torch.float32)
-    mix = weighted_mix_ref(w, q)
-    return mix.to(out_dtype), q[0].to(out_dtype)
+    ``packed`` (N, S, R, W) uint8 (sender 0 is self), ``scales``
+    (N, S, R, 1) f32, ``w`` (N, T, S).  Returns (mix (N, T, R, B), qself
+    (N, R, B)) in ``out_dtype``; each Q_s rounds through ``out_dtype``
+    before the f32 accumulation.  One sender is decoded at a time, so the
+    plain version never holds all S dequantized payloads."""
+    w = w.to(torch.float32)
+    N, T, S = w.shape
+    mix = qself = None
+    for s in range(S):
+        q = (unpack_codes_halves_ref(packed[:, s], bits).to(torch.float32)
+             * scales[:, s].to(torch.float32))
+        q = q.to(out_dtype).to(torch.float32)               # (N, R, B)
+        if s == 0:
+            qself = q.to(out_dtype)
+        term = w[:, :, s, None, None] * q[:, None]
+        mix = term if mix is None else mix + term
+        del q, term
+    return mix.to(out_dtype), qself

@@ -10,33 +10,34 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 
+def _flatten(t, out: List[Any]):
+    if isinstance(t, dict):
+        return {k: _flatten(t[k], out) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_flatten(v, out) for v in t)
+    out.append(t)
+    return None
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
     """-> (leaves in order, treedef); the treedef is the tree with every
-    leaf replaced by None."""
+    leaf replaced by None.  (Module-level recursion, no self-referencing
+    closure: such a closure is a reference cycle that would keep every
+    leaf alive until the cyclic garbage collector runs.)"""
     out: List[Any] = []
+    return out, _flatten(tree, out)
 
-    def rec(t):
-        if isinstance(t, dict):
-            return {k: rec(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(rec(v) for v in t)
-        out.append(t)
-        return None
 
-    return out, rec(tree)
+def _unflatten(d, it):
+    if isinstance(d, dict):
+        return {k: _unflatten(v, it) for k, v in d.items()}
+    if isinstance(d, (list, tuple)):
+        return type(d)(_unflatten(v, it) for v in d)
+    return next(it)
 
 
 def unflatten(treedef, leaves) -> Any:
-    it = iter(leaves)
-
-    def rec(d):
-        if isinstance(d, dict):
-            return {k: rec(v) for k, v in d.items()}
-        if isinstance(d, (list, tuple)):
-            return type(d)(rec(v) for v in d)
-        return next(it)
-
-    return rec(treedef)
+    return _unflatten(treedef, iter(leaves))
 
 
 def leaves(tree) -> List[Any]:

@@ -1,7 +1,9 @@
 """The port stands alone: no JAX and no ``repro`` import anywhere in
 ``src/repro_torch`` or ``chip_smoke.py``; its entry point runs on the card
-unless asked for the CPU; its specs read the reference's golden JSON."""
+unless asked for the CPU, for both of its engines; its specs read the
+reference's golden JSON."""
 import ast
+import dataclasses
 import json
 import pathlib
 
@@ -74,16 +76,70 @@ def test_build_on_cpu_runs():
     assert runner.bits_per_step() == 2 * 2 * (16 * 2 + 32)
 
 
+def _neighbor_spec():
+    return tapi.ExperimentSpec.load(
+        ROOT / "tests" / "golden_specs" / "trainer_neighbor_bucketed_8x1.json")
+
+
+def test_sharded_build_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.build(_neighbor_spec())
+
+
+def test_sharded_build_on_cpu_runs():
+    """The golden neighbor spec (exponential graph of 8, bucketed wire)
+    runs 3 steps on the CPU; the plain versions stand in for B3/B4 and no
+    kernel is launched."""
+    from repro_torch.kernels import quantize as qk
+    runner = tapi.build(_neighbor_spec(), device="cpu")
+    qk.reset_launch_counts()
+    state, logs = runner.run(
+        num_steps=3, log_every=1,
+        callback=lambda st, m, t: (float(m["loss"]), float(m["consensus"])))
+    assert all(v == 0 for v in qk.launch_counts().values())
+    assert state.step == 3 and state.plead.k == 4 and len(logs) == 3
+    assert all(torch.isfinite(torch.tensor(v)).all() for v in logs)
+    rep = runner.last_report
+    assert rep.engine == "sharded" and rep.device == "cpu"
+    assert rep.extra["meters"]["wire/collectives_per_step"] == 2 * 5
+    assert rep.extra["meters"]["wire/exchanges"] == 3
+
+
 @pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)
 def test_golden_specs_read_or_name_their_slice(path):
-    """Dense specs parse to the same JSON; the rest are refused with the
-    slice that brings their engine."""
+    """Dense specs and sharded specs on a static schedule parse to the same
+    JSON; the rest (netsim, sweep, time-varying schedules) are refused with
+    the slice that brings them."""
     d = json.loads(path.read_text())
     engine = "sweep" if "base" in d else d["execution"]["engine"]
-    if engine != "dense":
+    if engine not in ("dense", "sharded") or \
+            d["topology"]["schedule"] != "static":
         with pytest.raises(ValueError, match="slice"):
             tapi.ExperimentSpec.from_json(path.read_text())
         return
     spec = tapi.ExperimentSpec.from_json(path.read_text())
     assert json.loads(spec.to_json()) == d
     assert tapi.ExperimentSpec.from_json(spec.to_json()) == spec
+
+
+@pytest.mark.parametrize("knob", sorted(tapi.LATER_TRAINER_FIELDS))
+def test_later_trainer_knobs_name_their_slice(knob):
+    """A reference trainer knob that no ported path reads parses at its
+    default and is refused, naming its slice, at any other value."""
+    default, _ = tapi.LATER_TRAINER_FIELDS[knob]
+    spec = _neighbor_spec()
+
+    def with_knob(value):
+        if knob == "allow_biased":
+            return dataclasses.replace(spec, algorithm=dataclasses.replace(
+                spec.algorithm, params={knob: value}))
+        return dataclasses.replace(spec, execution=dataclasses.replace(
+            spec.execution, params={knob: value}))
+
+    tcfg = tapi.trainer_config_from_spec(with_knob(default))
+    assert not hasattr(tcfg, knob)
+    other = (not default if isinstance(default, bool)
+             else type(default)(default + 1))
+    with pytest.raises(NotImplementedError, match="slice"):
+        tapi.trainer_config_from_spec(with_knob(other))

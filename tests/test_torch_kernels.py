@@ -113,7 +113,9 @@ def test_cpu_path_launches_nothing():
                                    torch.zeros((8, 256)), 2)
     tq.qinf_dequantize_blocks(c, s)
     assert tq.launch_counts() == {"qinf_quantize_blocks": 0,
-                                  "qinf_dequantize_blocks": 0}
+                                  "qinf_dequantize_blocks": 0,
+                                  "qinf_quantize_pack_blocks": 0,
+                                  "qinf_unpack_dequant_mix_blocks": 0}
 
 
 @pytest.mark.parametrize("shape,bits,block", [
@@ -170,9 +172,9 @@ def test_wire_halves_pack_roundtrip_matches_reference():
 
 @pytest.mark.parametrize("bits", [2, 4])
 def test_wire_quantize_pack_and_mix_match_reference(bits):
-    """The wire-path plain versions (for the later slice's kernels B3/B4):
-    packed bytes and scales exact, the f32 mix to a stated 1e-6 relative
-    (a sender-axis contraction whose summation order is BLAS's)."""
+    """The wire-path plain versions (of kernels B3/B4): packed bytes and
+    scales exact, the f32 mix to a stated 1e-6 relative (the port sums the
+    senders in order, the reference contracts them with a dot)."""
     x, u = _x_u(6, "f32", seed=bits)
     pj, sj = kref.qinf_quantize_pack_blocks_ref(x, u, bits)
     pt, st = tref.qinf_quantize_pack_blocks_ref(_to_torch(x, torch.float32),
@@ -185,11 +187,11 @@ def test_wire_quantize_pack_and_mix_match_reference(bits):
     w = np.array([[0.5, 0.25, 0.25], [1 / 3, 1 / 3, 1 / 3]], np.float32)
     mj, qj = kref.qinf_unpack_dequant_mix_blocks_ref(
         jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(w), bits)
-    mt, qt = tref.qinf_unpack_dequant_mix_blocks_ref(
-        torch.from_numpy(packed), torch.from_numpy(scales),
-        torch.from_numpy(w), bits)
-    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
-    np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-6,
+    mt, qt = tref.qinf_unpack_dequant_mix_blocks_ref(      # one node
+        torch.from_numpy(packed)[None], torch.from_numpy(scales)[None],
+        torch.from_numpy(w)[None], bits)
+    np.testing.assert_array_equal(qt[0].numpy(), np.asarray(qj))
+    np.testing.assert_allclose(mt[0].numpy(), np.asarray(mj), rtol=1e-6,
                                atol=1e-7)
 
 
