@@ -12,15 +12,18 @@ Phases, in order; any failure exits non-zero before the result lines:
 2. Build: compiles ``src/repro_torch/kernels/csrc/qinf.cu`` (kernels B1
    quantize, B2 dequantize) and ``qinf_wire.cu`` (B3 quantize+pack, B4
    unpack+dequantize+mix) with nvcc for sm_90a, one compiler per source,
-   both started together.
+   both started together, and prints each kernel's registers, spills and
+   resident warps per SM from ``ptxas -v``.
 3. B1/B2 against their plain PyTorch versions on the card, same x and u:
    bits {1,2,3,4,7}, x in f32 and bf16, at the main path's shape
    (8 nodes x 7840 -> (8*31, 256) blocks), ragged last dims (3, 7, 11) and
    (129,), a block of zeros, and (8, 12_582_912) (8 nodes x one 2048x6144
-   matrix, ~400 MB per f32 operand).  Codes, scales and dequantized values
-   must be exactly equal.  Each kernel, its plain version and, where one
-   exists, the single PyTorch call computing the same function are timed
-   with CUDA events at the main path's shape and at the large shape.
+   matrix, ~400 MB per f32 operand); B2's vector and row variants at
+   widths 256, 128, 100 and 3 and on a view off the 16-byte alignment.
+   Codes, scales and dequantized values must be exactly equal.  Each
+   kernel, its plain version and, where one exists, the single PyTorch
+   call computing the same function are timed with CUDA events at the
+   main path's shape (MAIN_SHAPE_ITERS calls) and at the large shape.
 4. The dense main path: ``repro_torch.api.build(spec)`` on the card for the
    quickstart spec at MNIST scale (8 nodes x 7500 samples, 784 features,
    10 classes, f32).  First 20 steps, each started from the card's state
@@ -33,10 +36,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    launch once per step), an objective f + lam ||x||_1 that must fall, a
    consensus error that must shrink, finite values.
 5. B3/B4 against their plain versions on the card: bits {1,2,3,4,7},
-   blocks 128 and 256, S (senders) in {1, 3}, T (rounds) in {1, 3}, f32,
-   bf16 and f64 out, 2 nodes, a ragged row count, a block of zeros.
-   Packed bytes, scales and qself must be exactly equal; the mix within
-   (S + 1) eps_f32 sum_s |w Q_s| (+ one bf16 ulp for bf16 out).  The same
+   blocks 128 and 256, S (senders) in {1, 3, 4}, T (rounds) in {1, 3},
+   f32, bf16 and f64 out, 2 nodes, a ragged row count, a block of zeros
+   (B4's vector variant), and B4's row variant on payload rows that are
+   not whole 16-byte chunks, on a payload off the 16-byte alignment and at
+   S = 5 and 9.  Packed bytes, scales, qself and the mix must be exactly
+   equal (kernel and plain version sum the senders in one order).  The same
    checks at the shapes the trainer below gives them: its block-256 group
    (8 nodes x 700,456 rows of 256) and its block-128 q_norm/k_norm group
    (8 nodes x 4 rows of 128), 2 bits, ring payloads (S = 3), T = 1; both
@@ -57,14 +62,14 @@ Phases, in order; any failure exits non-zero before the result lines:
 7. Bucketed against per-leaf wire on the card, at the slice's widths, on
    the leaves ``blocks/w_gate`` (whole), ``embed`` and ``blocks/q_norm``:
    the same diffs and noise through both exchanges; codes, scales and
-   qself equal, the mix within the bound of phase 5.
+   qself equal, the mix within (S + 1) eps_f32 max|Q| max_n sum_s |w|.
 8. Card against CPU for the trainer at a small size (qwen3 reduced to 1
    layer, d_model 256, 8 nodes): REPLAY_STEPS_SLICE steps, each started
    from the card's state, the CPU path drawing and the card replaying the
    same noise; X, D, H and Hw within 1e-4 x max of each array on all but
    0.1 % of elements.
-9. Result lines: ``{"kernels": [...]}`` (B1-B4), the nvidia-smi line, and
-   last ``{"ok": true, "device": {...}}``.  Everything is also written to
+9. Result lines: ``{"kernels": [...]}`` (B1-B4), the nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.  Everything is also written to
    ``chiprun_out/chip_smoke.json``.
 
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -87,6 +92,7 @@ REPLAY_STEPS = 20        # steps held against the plain CPU path
 REPLAY_ELEM_TOL = 1e-4   # an element of X agrees within this x max|X| ...
 REPLAY_MAX_OFF = 1e-3    # ... except at most this fraction of X per step
 LARGE = (8, 12_582_912)  # 8 nodes x 2048*6144 parameters
+MAIN_SHAPE_ITERS = 200   # back-to-back calls timed at the main path's shape
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 B1_OPS_PER_ELEMENT = 10     # |x|, max, mul, div, add, floor, min, sign, mul, cvt
@@ -146,6 +152,39 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# --- phase 2 -------------------------------------------------------------------
+
+_PTX_TYPES = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
+
+
+def ptxas_report(text: str):
+    """Registers, spill bytes and resident warps per SM (256-thread blocks,
+    65,536 registers an SM allocated 256 at a time per warp, at most 64
+    warps) of every kernel in one source's ``nvcc -Xptxas=-v`` output."""
+    import re
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"(qinf_[a-z_]+_kernel)(I.*)?", m[1])
+            args = [_PTX_TYPES.get(a, a[2:-1]) for a in re.findall(
+                r"13__nv_bfloat16|Li\d+E|(?<=[IE_])[fd](?=[EL])",
+                name[2] or "")]
+            cur = {"kernel": name[1] + (f"<{','.join(args)}>" if args
+                                        else ""), "spill_bytes": 0}
+            rows.append(cur)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m[1])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            regs = int(m[1])
+            warp_regs = -(-regs * 32 // 256) * 256
+            blocks = 65536 // (warp_regs * 8)
+            cur.update(registers=regs, resident_warps=min(64, blocks * 8))
+    return rows
+
+
 # --- phase 3 -------------------------------------------------------------------
 
 def check_kernels(torch, ops, qk, ref, errs):
@@ -190,13 +229,50 @@ def check_kernels(torch, ops, qk, ref, errs):
                             "an all-zero block must give scale 0, codes 0")
                 n_checked += 1
             del x, u, xb, ck, sk, cp, sp
+    n_checked += check_b2_variants(torch, qk, ref, errs)
     torch.cuda.synchronize()
     return n_checked
 
 
-def time_kernels(torch, qk, ref, shape):
+def check_b2_variants(torch, qk, ref, errs, device="cuda"):
+    """B2's vector and row variants against the plain version (the cases
+    of tests/test_torch_kernels.py::test_cuda_dequantize_variants_match_
+    plain): widths 256 and 128 (vector), 100 and 3 (row), and a contiguous
+    view one row into its buffer (width 100: off the 16-byte alignment,
+    row variant; width 256: still aligned, vector), f32/bf16/f64 out.
+    Outputs must be exactly equal, and each case must take the variant
+    named."""
+    g = torch.Generator(device=device).manual_seed(5)
+    R, n = 8 * 31 + 5, 0
+    for block, offset_rows, vector in ((256, 0, True), (128, 0, True),
+                                       (100, 0, False), (3, 0, False),
+                                       (100, 1, False), (256, 1, True)):
+        buf = torch.randint(-4, 5, (R + offset_rows, block), generator=g,
+                            device=device, dtype=torch.int8)
+        codes = buf[offset_rows:]
+        scales = torch.rand((R, 1), generator=g, device=device) * 3
+        scales[7] = 0
+        for out in (torch.float32, torch.bfloat16, torch.float64):
+            dk = qk.qinf_dequantize_blocks(codes, scales, out)
+            require(device != "cuda" or qk.uses_vector_variant(
+                "qinf_dequantize_blocks", codes.data_ptr(), dk.data_ptr(),
+                block) is vector, f"B2 at width {block}, offset "
+                f"{offset_rows} rows, must take the "
+                f"{'vector' if vector else 'row'} variant")
+            dp = ref.qinf_dequantize_blocks_ref(codes, scales, out)
+            e2 = float((dk.double() - dp.double()).abs().max())
+            errs["qinf_dequantize_blocks"] = max(
+                errs["qinf_dequantize_blocks"], e2)
+            require(torch.equal(dk, dp), f"B2 != plain at width {block}, "
+                    f"offset {offset_rows} rows, {out} (max diff {e2})")
+            n += 1
+    return n
+
+
+def time_kernels(torch, qk, ref, shape, iters: int = 20):
     """Times of B1/B2, their plain versions and the library call, f32 x,
-    bits=2, at ``shape`` viewed as (R, 256) rows."""
+    bits=2, at ``shape`` viewed as (R, 256) rows, each over ``iters``
+    back-to-back calls."""
     g = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(shape, generator=g, device="cuda").reshape(-1, 256)
     u = torch.rand(x.shape, generator=g, device="cuda")
@@ -211,19 +287,23 @@ def time_kernels(torch, qk, ref, shape):
     res = {
         "qinf_quantize_blocks": {
             "rows": list(x.shape),
-            "ms": cuda_ms(torch, lambda: qk.qinf_quantize_blocks(x, u, 2)),
+            "ms": cuda_ms(torch, lambda: qk.qinf_quantize_blocks(x, u, 2),
+                          iters),
             "plain_ms": cuda_ms(
-                torch, lambda: ref.qinf_quantize_blocks_ref(x, u, 2)),
+                torch, lambda: ref.qinf_quantize_blocks_ref(x, u, 2), iters),
             "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
             "library_ms": None},
         "qinf_dequantize_blocks": {
             "rows": list(x.shape),
             "ms": cuda_ms(torch, lambda: qk.qinf_dequantize_blocks(codes,
-                                                                   scales)),
+                                                                   scales),
+                          iters),
             "plain_ms": cuda_ms(
-                torch, lambda: ref.qinf_dequantize_blocks_ref(codes, scales)),
+                torch, lambda: ref.qinf_dequantize_blocks_ref(codes, scales),
+                iters),
             "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
-            "library_ms": cuda_ms(torch, lambda: torch.mul(codes, scales))},
+            "library_ms": cuda_ms(torch, lambda: torch.mul(codes, scales),
+                                  iters)},
     }
     del x, u, codes, scales, out, lib
     return res
@@ -389,15 +469,6 @@ def b4_ops_per_element(S: int, T: int) -> int:
     return S * (6 + 2 * T)
 
 
-def mix_bound(torch, w, q_abs, S: int, out_dtype):
-    """(S + 1) eps_f32 sum_s |w[t, s] Q_s| (+ one ulp of a bf16 output);
-    ``w`` (N, T, S), ``q_abs`` (N, S, R, B) -> (N, T, R, B)."""
-    eps = (S + 1) * torch.finfo(torch.float32).eps
-    if out_dtype == torch.bfloat16:
-        eps += torch.finfo(torch.bfloat16).eps
-    return eps * torch.einsum("nts,nsrb->ntrb", w.abs(), q_abs)
-
-
 def check_b3(torch, ref, x, u, bits, got, errs, what: str) -> None:
     """Kernel B3's (packed, scales) against its plain version on the same
     inputs: both equal; the largest difference goes into ``errs``."""
@@ -411,66 +482,78 @@ def check_b3(torch, ref, x, u, bits, got, errs, what: str) -> None:
             f"B3 != plain {what} (max diff {e3})")
 
 
-def check_b4(torch, ref, P, Sc, w, bits, out, got, errs, what: str) -> bool:
+def check_b4(torch, ref, P, Sc, w, bits, out, got, errs, what: str) -> None:
     """Kernel B4's (mix, qself) against its plain version on the same
-    inputs, node by node (so the bound's |Q_s| table is one node's size):
-    qself equal, mix within :func:`mix_bound`; the largest mix difference
-    goes into ``errs``.  Returns whether the mix was bit-equal."""
+    inputs, node by node (so the plain version's temporaries are one
+    node's size): both exactly equal (kernel and plain version sum the
+    senders in one order, one rounding per operation); the largest mix
+    difference goes into ``errs``."""
     mk, qk_ = got
-    N, S = P.shape[:2]
-    exact = True
-    for n in range(N):
+    for n in range(P.shape[0]):
         nd = slice(n, n + 1)
         mr, qr = ref.qinf_unpack_dequant_mix_blocks_ref(P[nd], Sc[nd], w[nd],
                                                         bits, out)
-        require(torch.equal(qk_[nd], qr),
-                f"B4 qself != plain {what} (node {n})")
-        q_abs = torch.stack([ref.qinf_unpack_dequant_mix_blocks_ref(
-            P[nd, s:s + 1], Sc[nd, s:s + 1],
-            torch.ones((1, 1, 1), device=P.device), bits, out
-        )[1].float().abs() for s in range(S)], 1)
-        diff = (mk[nd].float() - mr.float()).abs()
-        e4 = float(diff.max())
+        e4 = float((mk[nd].double() - mr.double()).abs().max())
         errs["qinf_unpack_dequant_mix_blocks"] = max(
             errs["qinf_unpack_dequant_mix_blocks"], e4)
-        require(bool((diff <= mix_bound(torch, w[nd], q_abs, S, out)).all()),
-                f"B4 mix outside its bound {what} (node {n}, max diff {e4})")
-        exact &= bool(torch.equal(mk[nd], mr))
-        del mr, qr, q_abs, diff
-    return exact
+        require(torch.equal(qk_[nd], qr),
+                f"B4 qself != plain {what} (node {n})")
+        require(torch.equal(mk[nd], mr),
+                f"B4 mix != plain {what} (node {n}, max diff {e4})")
+        del mr, qr
+
+
+# (bits, block, S, payload offset in bytes, B4 variant is the vector one):
+# every bits x block at S = 1, 3, 4 (4: exponential-8's self + 3 hops) on
+# the vector variant, then the row variant's shapes -- payload rows that
+# are not whole 16-byte chunks, a payload off the 16-byte alignment, more
+# senders than the vector variant holds (5, one past its 4, and 9; the
+# cases of
+# tests/test_torch_wire_kernels.py's cuda tests)
+WIRE_CASES = ([(bits, block, S, 0, True) for bits in (1, 2, 3, 4, 7)
+               for block in (128, 256) for S in (1, 3, 4)]
+              + [(2, 40, 3, 0, False), (4, 24, 3, 0, False),
+                 (2, 256, 3, 8, False), (4, 128, 4, 4, False),
+                 (2, 256, 5, 0, False), (2, 128, 9, 0, False)])
 
 
 def check_wire_kernels(torch, qk, ref, errs, n_nodes=2, rows=8 * 31 + 5,
                        device="cuda"):
-    """B3/B4 vs their plain versions on every case; records the largest
-    difference per kernel in ``errs``."""
+    """B3/B4 vs their plain versions on every case of :data:`WIRE_CASES`,
+    T (rounds) 1 and 3, f32/bf16/f64 out, a ragged row count, a block of
+    zeros; records the largest difference per kernel in ``errs``.  Returns
+    (B4 cases, of which on the vector variant)."""
     g = torch.Generator(device=device).manual_seed(2)
-    n_checked, n_exact_mix = 0, 0
-    for bits in (1, 2, 3, 4, 7):
-        for block in (128, 256):
-            S_max = 3
-            x = torch.randn((n_nodes * S_max * rows, block), generator=g,
-                            device=device) * 3
-            x[5] = 0
-            u = torch.rand(x.shape, generator=g, device=device)
-            pk, sk = qk.qinf_quantize_pack_blocks(x, u, bits)
-            check_b3(torch, ref, x, u, bits, (pk, sk), errs,
-                     f"at bits={bits} block={block}")
-            require(float(sk[5]) == 0.0, "an all-zero block needs scale 0")
-            P = pk.reshape(n_nodes, S_max, rows, -1)
-            Sc = sk.reshape(n_nodes, S_max, rows, 1)
-            for S, T in ((1, 1), (3, 1), (1, 3), (3, 3)):
-                Ps, Ss = P[:, :S].contiguous(), Sc[:, :S].contiguous()
-                w = torch.randn((n_nodes, T, S), generator=g, device=device)
-                for out in (torch.float32, torch.bfloat16, torch.float64):
-                    got = qk.qinf_unpack_dequant_mix_blocks(Ps, Ss, w, bits,
-                                                            out)
-                    n_exact_mix += check_b4(
-                        torch, ref, Ps, Ss, w, bits, out, got, errs,
-                        f"at bits={bits} block={block} S={S} T={T} {out}")
-                    n_checked += 1
-            del x, u, pk, sk, P, Sc
-    return n_checked, n_exact_mix
+    n_checked = n_vector = 0
+    for bits, block, S, offset, vector in WIRE_CASES:
+        what = f"at bits={bits} block={block} S={S} offset={offset}"
+        x = torch.randn((n_nodes * S * rows, block), generator=g,
+                        device=device) * 3
+        x[5] = 0
+        u = torch.rand(x.shape, generator=g, device=device)
+        pk, sk = qk.qinf_quantize_pack_blocks(x, u, bits)
+        check_b3(torch, ref, x, u, bits, (pk, sk), errs, what)
+        require(float(sk[5]) == 0.0, "an all-zero block needs scale 0")
+        buf = torch.empty(pk.numel() + offset, dtype=torch.uint8,
+                          device=device)
+        P = buf[offset:].view(n_nodes, S, rows, -1)
+        P.copy_(pk.view(n_nodes, S, rows, -1))
+        Sc = sk.reshape(n_nodes, S, rows, 1)
+        for T in (1, 3):
+            w = torch.randn((n_nodes, T, S), generator=g, device=device)
+            for out in (torch.float32, torch.bfloat16, torch.float64):
+                got = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, bits, out)
+                require(device != "cuda" or qk.uses_vector_variant(
+                    "qinf_unpack_dequant_mix_blocks", P.data_ptr(),
+                    got[0].data_ptr(), got[1].data_ptr(), P.shape[-1], S)
+                        is vector, f"B4 {what} must take the "
+                        f"{'vector' if vector else 'row'} variant")
+                check_b4(torch, ref, P, Sc, w, bits, out, got, errs,
+                         f"{what} T={T} {out}")
+                n_checked += 1
+                n_vector += vector
+        del x, u, pk, sk, buf, P, Sc
+    return n_checked, n_vector
 
 
 def ring_payloads(torch, packed, scales, n_nodes: int, group_rows: int):
@@ -492,8 +575,8 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
     (n_nodes x group_rows rows) and the block-128 q_norm/k_norm group
     (n_nodes x small_rows rows), bits 2, ring payloads (S = 3: self + 2
     hops), T = 1, weights 1/3, f32 out.  B3's bytes and scales and B4's
-    qself must be equal, B4's mix within its bound; the largest
-    differences go into ``errs``.  Times are of the block-256 group.  No
+    qself and mix must be equal; the largest differences go into
+    ``errs``.  Times are of the block-256 group.  No
     single PyTorch call computes either function (library: none)."""
     g = torch.Generator(device=device).manual_seed(3)
     w = torch.full((n_nodes, 1, 3), 1.0 / 3.0, device=device)
@@ -519,10 +602,14 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
         P, Sc = ring_payloads(torch, packed, scales, n_nodes, rows_)
         del packed, scales
         mix, qself = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, 2)
-        exact = check_b4(torch, ref, P, Sc, w, 2, torch.float32,
-                         (mix, qself), errs, what)
+        require(device != "cuda" or qk.uses_vector_variant(
+            "qinf_unpack_dequant_mix_blocks", P.data_ptr(), mix.data_ptr(),
+            qself.data_ptr(), P.shape[-1], 3),
+            f"B4 {what} must take the vector variant")
+        check_b4(torch, ref, P, Sc, w, 2, torch.float32, (mix, qself), errs,
+                 what)
         checked.append({"block": block, "rows": [n_nodes, 3, rows_, block],
-                        "mix_bit_equal": exact})
+                        "mix_bit_equal": True})
         if block == 256:
             b4 = {"rows": [n_nodes, 3, rows_, 256],
                   "ms": cuda_ms(torch, lambda: qk.qinf_unpack_dequant_mix_blocks(
@@ -895,12 +982,21 @@ def main() -> int:
         print(f"[build] {', '.join(v.name for v in libs.values())} in "
               f"{build_s:.1f} s", flush=True)
         result["phases"]["build_s"] = build_s
+        ptxas = {name: ptxas_report(qk.build_log(name).read_text())
+                 for name in libs}
+        result["ptxas"] = ptxas
+        for name, rows in ptxas.items():
+            for r in rows:
+                print(f"[build] {name}: {r['kernel']}: {r['registers']} "
+                      f"registers, {r['spill_bytes']} B spilled, "
+                      f"{r['resident_warps']} resident warps/SM", flush=True)
 
         # 3. kernels against their plain versions
         errs = {k: 0.0 for k in qk.LAUNCHES}
         t0 = time.perf_counter()
         n = check_kernels(torch, ops, qk, ref, errs)
-        times = {"main": time_kernels(torch, qk, ref, (8, 31 * 256)),
+        times = {"main": time_kernels(torch, qk, ref, (8, 31 * 256),
+                                      iters=MAIN_SHAPE_ITERS),
                  "large": time_kernels(torch, qk, ref, LARGE)}
         print(f"[kernels] {n} cases bit-equal to the plain versions in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -937,19 +1033,19 @@ def main() -> int:
 
         # 5. B3/B4 against their plain versions, timed at the slice's shape
         t0 = time.perf_counter()
-        n, n_exact = check_wire_kernels(torch, qk, ref, errs)
+        n, n_vector = check_wire_kernels(torch, qk, ref, errs)
         wtimes, at_slice = wire_kernels_at_slice_shape(torch, qk, ref, errs)
-        print(f"[wire] {n} B4 cases (and their B3 inputs) against the plain "
-              f"versions, B3 bytes/scales and B4 qself equal, B4 mix within "
-              f"its bound ({n_exact} of {n} bit-equal); the same checks at "
-              f"the trainer's groups {[c['rows'] for c in at_slice]} (mix "
-              f"bit-equal: {[c['mix_bit_equal'] for c in at_slice]}); "
+        print(f"[wire] {n} B4 cases ({n_vector} on the vector variant, "
+              f"{n - n_vector} on the row variant) and their B3 inputs "
+              f"against the plain versions: B3 bytes/scales, B4 qself and "
+              f"mix bit-equal; the same at the trainer's groups "
+              f"{[c['rows'] for c in at_slice]}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for k, v in wtimes.items():
             print(f"[wire] {k} @ {v['rows']}: {v['ms']:.4f} ms (plain "
                   f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} by "
                   f"{v['bound_by']}, library none) | {smi}", flush=True)
-        result["wire_kernels"] = {"cases": n, "mix_bit_equal": n_exact,
+        result["wire_kernels"] = {"cases": n, "vector_cases": n_vector,
                                   "at_slice_shape": at_slice,
                                   "times": wtimes}
 
@@ -994,6 +1090,7 @@ def main() -> int:
         print(f"[slice] card vs CPU, {cc['steps']} steps of {cc['spec']}: "
               f"worst off fraction {cc['worst_off_fraction']:.2e}, worst "
               f"|diff|/max {cc['worst_rel_max']:.2e}", flush=True)
+
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,9 +1,10 @@
 // Wire-path QInf kernels of the neighbor-gossip backend, for Hopper, sm_90a.
 //
-// B3  qinf_quantize_pack_kernel       replaces src/repro/kernels/quantize.py::
+// B3  qinf_quantize_pack_kernel  replaces src/repro/kernels/quantize.py::
 //     qinf_quantize_pack_blocks (Pallas body _quantize_pack_kernel).
-// B4  qinf_unpack_dequant_mix_kernel  replaces src/repro/kernels/quantize.py::
-//     qinf_unpack_dequant_mix_blocks (Pallas body _unpack_dequant_mix_kernel).
+// B4  qinf_unpack_dequant_mix_vec_kernel / _row_kernel replace
+//     src/repro/kernels/quantize.py::qinf_unpack_dequant_mix_blocks (Pallas
+//     body _unpack_dequant_mix_kernel).
 //
 // B3 is B1 (qinf.cu) fused with the wire encoding: each code c becomes the
 // offset byte c + 2^(b-1); for b <= 3 two codes share a byte in HALVES
@@ -22,43 +23,69 @@
 // ~4 S + 2 T S operations.  At 67 TFLOP/s (f32, no tensor cores) against
 // 3.35 TB/s the operations cost a fraction of the bytes.
 //
-// Design.  One warp owns one row (block) as in B1: the row's max |x| is a
-// shuffle butterfly, and lane k then handles the element pairs (k, k + B/2)
-// and writes their byte directly, so B = 128 and B = 256 (the two widths
-// of a transformer's bucket layout) and any even B work.  B4 takes a
-// leading node dim: packed (N, S, R, W), scales (N, S, R), weights
-// (N, T, S), and one warp owns one (node, row); each node applies its own
-// receiver-indexed weights, so per node the function is exactly the TPU
-// kernel's, and all N nodes of one bucket group take one launch.  No row
-// padding: the TPU's R % 8 rule is gone.  Loads are one element a lane
-// (no vector loads, no TMA): a simple kernel first.
+// B3 design.  One warp owns one row (block) as in B1: the row's max |x| is
+// a shuffle butterfly, and lane k then handles the element pairs
+// (k, k + B/2) and writes their byte directly, so B = 128 and B = 256 (the
+// two widths of a transformer's bucket layout) and any even B work.  No row
+// padding: the TPU's R % 8 rule is gone.
+//
+// B4 design.  B4 takes a leading node dim: packed (N, S, R, W), scales
+// (N, S, R), weights (N, T, S); each node applies its own receiver-indexed
+// weights, so per node the function is exactly the TPU kernel's, and all N
+// nodes of one bucket group take one launch.  Its cost is the 8 B an
+// element it writes (mix and qself at T = 1, f32), so the vector variant
+// is built around wide, contiguous stores and few registers.  A thread
+// owns G = 16 B / sizeof(out) payload bytes k0..k0+G-1 of one (node, row)
+// for every sender (4 for f32, 8 for bf16, 2 for f64).  It issues the S
+// payload loads (G bytes each, every byte read once) and the S scale loads
+// together before any arithmetic and holds them in registers (at most
+// kMaxSenders).  Per output half (low nibbles: elements k0..; high
+// nibbles: B/2+k0..; byte packing has one half) it decodes each Q_s once,
+// writes qself, and for each round t loads the node's S weights of t and
+// writes mix[t], one 16-byte store per output.  Neighbouring lanes own
+// neighbouring bytes, so every warp load is one contiguous run and every
+// warp store one contiguous 512 B run.  Stores are streaming (evict-first):
+// the outputs of a bucket group far exceed the 50 MB L2.  A thread block
+// holds whole rows and blockIdx.x counts (node, row group), so there is no
+// 64-bit division.  Why not 16 payload bytes a thread: each warp store's
+// 16-byte pieces would land 64 B apart, half-filling every sector they
+// touch, and holding all 32 decoded elements of every sender lets the
+// compiler hoist the decode out of the round loop at over 250 registers;
+// on an H100 that stays under half the bytes bound.  __launch_bounds__
+// caps it at 64 registers (32 resident warps an SM).  The vector variant
+// needs a payload row of whole 16-byte chunks (W % 16 == 0), a 16-byte
+// aligned payload and outputs and S <= kMaxSenders = 4 (a ring's self + 2
+// hops, exponential-8's self + 3); every other shape takes the row
+// variant, one warp per (node, row), one element a lane.  The launcher picks the variant from
+// the shape and the alignment (qinf_unpack_dequant_mix_blocks_vector).
 //
 // Exactness.  B3's codes must equal the reference bit for bit: the code
 // argument is __fmul_rn(levels, |x|), then __fdiv_rn(., safe), then
 // __fadd_rn(., u), in the reference's order, with no FMA contraction and
 // IEEE division.  B4 accumulates in sender order s = 0..S-1 with __fmul_rn
 // and __fadd_rn (acc = w0 q0, then acc += ws qs), which is what the plain
-// version (src/repro_torch/kernels/ref.py::weighted_mix_ref) computes.
-// Build without --use_fast_math.
+// version (src/repro_torch/kernels/ref.py::weighted_mix_ref) computes, so
+// both variants are bit-equal to it.  Build without --use_fast_math.
 //
-// Plain C interface (no PyTorch headers); src/repro_torch/kernels/
-// quantize.py loads it with ctypes, allocates every output and passes raw
-// pointers and the current stream.  Each launcher returns
-// cudaGetLastError() so a refused launch raises in Python.
+// Plain C interface (no PyTorch headers): csrc/binding.cpp allocates
+// every output and calls each launcher with raw pointers, the device index
+// and the current stream.  Each launcher returns cudaGetLastError() so a
+// refused launch raises in Python.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-// dtype tags shared with quantize.py::_DTYPE_TAG
-constexpr int kF32 = 0;
-constexpr int kF64 = 1;
-constexpr int kBF16 = 2;
+using qinf::kBF16;
+using qinf::kVecBytes;
+using qinf::kF32;
+using qinf::kF64;
+using qinf::kThreads;
+using qinf::kWarpsPerBlock;
+using qinf::from_f32;
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = 256;
+constexpr int kMaxSenders = 4;  // senders the B4 vector variant holds
+constexpr bool kStreamStores = true;  // B4's outputs far exceed the L2
 
 __device__ __forceinline__ int qinf_code(float v, float uu, float levels,
                                          float safe) {
@@ -120,15 +147,82 @@ __device__ __forceinline__ float round_through<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ double from_f32<double>(float v) { return (double)v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// B4, vector variant: packed (N, S, R, W) u8 with W % 16 == 0, scales
+// (N, S, R) f32, w (N, T, S) f32 -> mix (N, T, R, B), qself (N, R, B) of
+// TOut.  A thread owns G = Vec16<TOut>::kN payload bytes of one (node, row)
+// for every sender (S <= kMaxSenders); ``upr`` = W / G units a row,
+// ``groups`` row groups a node along blockIdx.x.  The register cap (64)
+// keeps 32 warps an SM resident.
+template <typename TOut>
+__global__ void __launch_bounds__(kThreads, 4)
+qinf_unpack_dequant_mix_vec_kernel(const uint8_t* __restrict__ packed,
+                                   const float* __restrict__ scales,
+                                   const float* __restrict__ w,
+                                   TOut* __restrict__ mix,
+                                   TOut* __restrict__ qself, long long R,
+                                   int S, int T, int block, int W, int offset,
+                                   int nibble, int upr, int rpb,
+                                   unsigned groups) {
+  constexpr int G = qinf::Vec16<TOut>::kN;
+  using Word = typename qinf::Bytes<G>::type;
+  const unsigned n = blockIdx.x / groups;
+  long long r;
+  int unit;
+  if (!qinf::row_unit(upr, rpb, R, blockIdx.x - n * groups, &r, &unit))
+    return;
+  const long long srow0 = (long long)n * S * R + r;  // sender 0's row
+
+  // every sender's payload word and scale, all loads issued together
+  Word p[kMaxSenders];
+  float sc[kMaxSenders];
+#pragma unroll
+  for (int s = 0; s < kMaxSenders; ++s) {
+    if (s < S) {
+      const long long row = srow0 + s * R;
+      p[s] = __ldg(reinterpret_cast<const Word*>(packed + row * W) + unit);
+      sc[s] = __ldg(scales + row);
+    }
+  }
+
+  const float* wn = w + (long long)n * T * S;
+  TOut* qdst = qself + ((long long)n * R + r) * block + unit * G;
+  TOut* mdst = mix + ((long long)n * T * R + r) * block + unit * G;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // low nibbles, then high (nibble packing)
+    if (h == 1 && !nibble) break;
+    const int off = h * (block >> 1);
+    // Q_s of this half, each decoded and rounded once
+    float q[kMaxSenders][G];
+#pragma unroll
+    for (int s = 0; s < kMaxSenders; ++s) {
+      if (s < S) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const uint32_t byte = qinf::byte_of(p[s], j);
+          const int code =
+              (int)(nibble ? (h ? byte >> 4 : byte & 0x0Fu) : byte) - offset;
+          q[s][j] = round_through<TOut>(__fmul_rn((float)code, sc[s]));
+        }
+      }
+    }
+    qinf::store_vec16<kStreamStores>(qdst + off, q[0]);
+    for (int t = 0; t < T; ++t) {
+      float acc[G];
+#pragma unroll
+      for (int s = 0; s < kMaxSenders; ++s) {
+        if (s < S) {
+          const float ws = __ldg(wn + t * S + s);  // round t's weights
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            const float term = __fmul_rn(ws, q[s][j]);
+            acc[j] = s == 0 ? term : __fadd_rn(acc[j], term);
+          }
+        }
+      }
+      qinf::store_vec16<kStreamStores>(mdst + (long long)t * R * block + off,
+                                       acc);
+    }
+  }
 }
 
 // The dequantized element e of sender s's row.
@@ -145,17 +239,17 @@ __device__ __forceinline__ float dequant(const uint8_t* __restrict__ prow,
   return __fmul_rn((float)code, scale);
 }
 
-// B4: packed (N, S, R, W) u8, scales (N, S, R) f32, w (N, T, S) f32 ->
-// mix (N, T, R, B), qself (N, R, B) of T_out.
+// B4, row variant (any width, alignment and S): one warp per (node, row),
+// one element a lane.
 template <typename TOut>
 __global__ void __launch_bounds__(kThreads)
-qinf_unpack_dequant_mix_kernel(const uint8_t* __restrict__ packed,
-                               const float* __restrict__ scales,
-                               const float* __restrict__ w,
-                               TOut* __restrict__ mix,
-                               TOut* __restrict__ qself, long long nodes,
-                               int S, int T, long long R, int block, int W,
-                               int offset, int nibble) {
+qinf_unpack_dequant_mix_row_kernel(const uint8_t* __restrict__ packed,
+                                   const float* __restrict__ scales,
+                                   const float* __restrict__ w,
+                                   TOut* __restrict__ mix,
+                                   TOut* __restrict__ qself, long long nodes,
+                                   int S, int T, long long R, int block, int W,
+                                   int offset, int nibble) {
   const int lane = threadIdx.x & 31;
   const long long gid =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -185,6 +279,28 @@ qinf_unpack_dequant_mix_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+template <typename TOut>
+void launch_mix(const uint8_t* packed, const float* scales, const float* w,
+                TOut* mix, TOut* qself, long long nodes, int S, int T,
+                long long R, int block, int W, int offset, int nibble, int vec,
+                cudaStream_t st) {
+  if (vec) {
+    const int upr = W / qinf::Vec16<TOut>::kN;
+    const int rpb = qinf::rows_per_block(upr);
+    const unsigned groups = (unsigned)qinf::row_groups(upr, R);
+    const dim3 grid = qinf::row_unit_grid(upr, R, nodes);
+    qinf_unpack_dequant_mix_vec_kernel<TOut><<<grid, kThreads, 0, st>>>(
+        packed, scales, w, mix, qself, R, S, T, block, W, offset, nibble, upr,
+        rpb, groups);
+  } else {
+    const long long warps = nodes * R;
+    const dim3 grid((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+    qinf_unpack_dequant_mix_row_kernel<TOut><<<grid, kThreads, 0, st>>>(
+        packed, scales, w, mix, qself, nodes, S, T, R, block, W, offset,
+        nibble);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -192,8 +308,10 @@ extern "C" {
 int qinf_quantize_pack_blocks_launch(const float* x, const float* u,
                                      uint8_t* packed, float* scales,
                                      long long rows, int block, int bits,
-                                     void* stream) {
+                                     int device, void* stream) {
   if (rows <= 0) return (int)cudaSuccess;
+  qinf::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const float levels = (float)(1 << (bits - 1));
   const int nibble = bits + 1 <= 4 ? 1 : 0;
   const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
@@ -202,34 +320,46 @@ int qinf_quantize_pack_blocks_launch(const float* x, const float* u,
   return (int)cudaGetLastError();
 }
 
+// Whether B4 takes its vector variant: payload rows of whole 16-byte
+// chunks (width W), at most kMaxSenders senders, 16-byte aligned payload,
+// mix and qself.
+int qinf_unpack_dequant_mix_blocks_vector(const void* packed, const void* mix,
+                                          const void* qself, int width,
+                                          int senders) {
+  return width % kVecBytes == 0 && senders <= kMaxSenders &&
+         qinf::aligned16(packed) && qinf::aligned16(mix) &&
+         qinf::aligned16(qself);
+}
+
 int qinf_unpack_dequant_mix_blocks_launch(const uint8_t* packed,
                                           const float* scales, const float* w,
                                           void* mix, void* qself,
                                           int out_dtype, long long nodes,
                                           int S, int T, long long R,
-                                          int block, int bits, void* stream) {
-  const long long warps = nodes * R;
-  if (warps <= 0) return (int)cudaSuccess;
+                                          int block, int bits, int device,
+                                          void* stream) {
+  if (nodes * R <= 0 || block <= 0) return (int)cudaSuccess;  // no output
   const int nibble = bits + 1 <= 4 ? 1 : 0;
   const int W = nibble ? block / 2 : block;
   const int offset = 1 << (bits - 1);
-  const dim3 grid((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const int vec = qinf_unpack_dequant_mix_blocks_vector(packed, mix, qself, W,
+                                                        S);
+  qinf::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   cudaStream_t st = (cudaStream_t)stream;
   switch (out_dtype) {
     case kF32:
-      qinf_unpack_dequant_mix_kernel<float><<<grid, kThreads, 0, st>>>(
-          packed, scales, w, (float*)mix, (float*)qself, nodes, S, T, R, block,
-          W, offset, nibble);
+      launch_mix(packed, scales, w, (float*)mix, (float*)qself, nodes, S, T, R,
+                 block, W, offset, nibble, vec, st);
       break;
     case kF64:
-      qinf_unpack_dequant_mix_kernel<double><<<grid, kThreads, 0, st>>>(
-          packed, scales, w, (double*)mix, (double*)qself, nodes, S, T, R,
-          block, W, offset, nibble);
+      launch_mix(packed, scales, w, (double*)mix, (double*)qself, nodes, S, T,
+                 R, block, W, offset, nibble, vec, st);
       break;
     case kBF16:
-      qinf_unpack_dequant_mix_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          packed, scales, w, (__nv_bfloat16*)mix, (__nv_bfloat16*)qself, nodes,
-          S, T, R, block, W, offset, nibble);
+      launch_mix(packed, scales, w, (__nv_bfloat16*)mix,
+                 (__nv_bfloat16*)qself, nodes, S, T, R, block, W, offset,
+                 nibble, vec, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -3,43 +3,70 @@
 ``csrc/qinf.cu`` holds B1 (quantize) and B2 (dequantize), ``csrc/
 qinf_wire.cu`` B3 (quantize + wire pack) and B4 (unpack + dequantize +
 mix): the Hopper versions of the Pallas kernels in
-``repro.kernels.quantize``.  Each source has a plain C interface:
-:func:`build` compiles every source with ``nvcc`` for ``sm_90a``, one
-compiler process per source, all started together, into ``_build/`` next
-to this file (keyed by a hash of the source and flags, so an unchanged
-source builds once), and ctypes loads the libraries.  Nothing is compiled
-at import, and any build or launch failure raises.
+``repro.kernels.quantize``.  Both include ``csrc/common.cuh`` and have a
+plain C interface.  ``csrc/binding.cpp`` is a small CPython module (no
+device code) through which every launch goes: it checks the inputs,
+allocates a kernel's outputs with ``at::empty`` and calls the kernel's C
+launcher.  :func:`build`
+compiles the two kernel sources with ``nvcc`` for ``sm_90a`` and the
+binding with the host C++ compiler against PyTorch's headers, one compiler
+process per source, all started together, into ``_build/`` next to this
+file (keyed by a hash of the sources, flags and PyTorch version, so an
+unchanged source builds once); ctypes loads the kernel libraries and hands
+the launchers' addresses to the binding.  Nothing is compiled at import,
+and any build or launch failure raises.
 
 The wrappers dispatch on the device of their input: a CUDA tensor
-launches the kernel (and counts the launch in :data:`LAUNCHES`), a CPU
-tensor runs the plain version from :mod:`repro_torch.kernels.ref`, and any
-other device raises.  There is no fallback from the card to the plain
-version.
+launches the kernel, a CPU tensor runs the plain version from
+:mod:`repro_torch.kernels.ref`, and any other device raises.  There is no
+fallback from the card to the plain version.
+
+One launch path, :func:`_launch`, serves all four kernels and keeps the
+host's share of a call small (the main path's B1/B2 calls do a few
+microseconds of device work): for a CUDA tensor the wrapper hands its
+arguments straight to the binding -- a CPython ``METH_FASTCALL`` function
+-- which checks dtypes, shapes, bits, device and contiguity and raises
+TypeError or ValueError naming the fault, allocates the outputs on the
+C++ side and launches on the inputs' device and its current PyTorch
+stream.  The wrappers' own checks serve the CPU path only.  The C
+launcher switches device only if the tensors live on another one than the
+current and returns ``cudaGetLastError()``; the binding raises on any
+error, and :func:`_launch` counts the launch in :data:`LAUNCHES`.  B2 and
+B4 have a vector and a row variant; their C launchers pick one from the
+shape and the 16-byte alignment of inputs and outputs
+(:func:`uses_vector_variant` asks them).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sys
+import sysconfig
 import tempfile
-from typing import Dict
+from typing import Callable, Dict, List
 
 import torch
 
 from repro_torch.kernels import ref as kref
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SOURCES = {"qinf": _HERE / "csrc" / "qinf.cu",
-           "qinf_wire": _HERE / "csrc" / "qinf_wire.cu"}
+_CSRC = _HERE / "csrc"
+#: the kernel libraries (nvcc) and the binding that launches them (C++)
+SOURCES = {"qinf": _CSRC / "qinf.cu", "qinf_wire": _CSRC / "qinf_wire.cu",
+           "binding": _CSRC / "binding.cpp"}
+HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
-# dtype tags shared with csrc/*.cu
+# dtype tags shared with csrc/common.cuh and csrc/binding.cpp
 _DTYPE_TAG = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 #: launches of each kernel since the last :func:`reset_launch_counts`;
@@ -75,21 +102,52 @@ def _nvcc() -> str:
                        "kernels cannot be built")
 
 
+def _command(name: str, out: str) -> List[str]:
+    """The compiler command that builds source ``name`` into ``out``."""
+    src = str(SOURCES[name])
+    if name != "binding":
+        return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+    from torch.utils import cpp_extension
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler found (set CXX); the kernel "
+                           "binding cannot be built")
+    libdir = cpp_extension.library_paths()[0]
+    cuda_include = os.path.join(os.path.dirname(os.path.dirname(_nvcc())),
+                                "include")
+    return [cxx, *CXX_FLAGS,
+            f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            *(f"-I{p}" for p in cpp_extension.include_paths()),
+            f"-I{cuda_include}", f"-I{sysconfig.get_paths()['include']}",
+            "-o", out, src, f"-L{libdir}", f"-Wl,-rpath,{libdir}", "-lc10",
+            "-lc10_cuda", "-ltorch", "-ltorch_cpu", "-ltorch_python"]
+
+
 def _lib_path(name: str) -> pathlib.Path:
-    tag = hashlib.sha256(SOURCES[name].read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
+    h.update(" ".join(_command(name, "")).encode())
+    h.update(f"{torch.__version__} {sys.version}".encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> pathlib.Path:
+    """What the compiler printed while building source ``name`` (for the
+    kernel sources ``ptxas``'s registers, shared memory and spills of
+    every kernel)."""
+    return _lib_path(name).with_suffix(".log")
 
 
 def build() -> Dict[str, pathlib.Path]:
     """Compile every source of :data:`SOURCES` that was not built yet, one
-    ``nvcc`` per source, all started together; returns name -> shared
-    library path.  Raises on any compiler error."""
+    compiler per source, all started together; returns name -> shared
+    library path and leaves the compiler's output in :func:`build_log`.
+    Raises on any compiler error."""
     libs = {name: _lib_path(name) for name in SOURCES}
     todo = [name for name, lib in libs.items() if not lib.exists()]
     if not todo:
         return libs
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to private names, then rename: a concurrent build never
     # loads a half-written library
@@ -99,15 +157,16 @@ def build() -> Dict[str, pathlib.Path]:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             jobs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                _command(name, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
         failed = []
         for name, (tmp, proc) in jobs.items():
             out, err = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}) on "
+                failed.append(f"{proc.args[0]} failed ({proc.returncode}) on "
                               f"{SOURCES[name]}:\n{out}\n{err}")
             else:
+                build_log(name).write_text(out + err)
                 os.replace(tmp, libs[name])
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -122,104 +181,92 @@ def build() -> Dict[str, pathlib.Path]:
 
 
 @functools.lru_cache(maxsize=None)
-def _libs() -> Dict[str, ctypes.CDLL]:
-    libs = {name: ctypes.CDLL(str(path)) for name, path in build().items()}
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    q, w = libs["qinf"], libs["qinf_wire"]
-    signatures = (
-        (q.qinf_quantize_blocks_launch, [vp, i32, vp, vp, vp, i64, i32, i32,
-                                         vp]),
-        (q.qinf_dequantize_blocks_launch, [vp, vp, vp, i32, i64, i32, vp]),
-        (w.qinf_quantize_pack_blocks_launch, [vp, vp, vp, vp, i64, i32, i32,
-                                              vp]),
-        (w.qinf_unpack_dequant_mix_blocks_launch, [vp, vp, vp, vp, vp, i32,
-                                                   i64, i32, i32, i64, i32,
-                                                   i32, vp]))
-    for fn, argtypes in signatures:
-        fn.argtypes, fn.restype = argtypes, i32
-    q.qinf_error_string.argtypes = [i32]
-    q.qinf_error_string.restype = ctypes.c_char_p
-    return libs
+def _libs() -> Dict[str, object]:
+    """Builds what is missing, loads the kernel libraries and the binding,
+    and hands the binding the kernels' C launchers."""
+    paths = build()
+    q, w = (ctypes.CDLL(str(paths[n])) for n in ("qinf", "qinf_wire"))
+    spec = importlib.util.spec_from_file_location("_qinf_binding",
+                                                  paths["binding"])
+    binding = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(binding)
+
+    def addr(fn) -> int:
+        return ctypes.cast(fn, ctypes.c_void_p).value
+
+    binding.set_launchers(addr(q.qinf_quantize_blocks_launch),
+                          addr(q.qinf_dequantize_blocks_launch),
+                          addr(w.qinf_quantize_pack_blocks_launch),
+                          addr(w.qinf_unpack_dequant_mix_blocks_launch),
+                          addr(q.qinf_error_string))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    q.qinf_dequantize_blocks_vector.argtypes = [vp, vp, i32]
+    w.qinf_unpack_dequant_mix_blocks_vector.argtypes = [vp, vp, vp, i32, i32]
+    for kernel in LAUNCHES:
+        _LAUNCHERS[kernel] = getattr(binding, kernel)
+    return {"qinf": q, "qinf_wire": w, "binding": binding}
 
 
-def _lib() -> ctypes.CDLL:
-    return _libs()["qinf"]
+#: kernel name -> its binding call, filled by the first :func:`_libs`
+_LAUNCHERS: Dict[str, Callable] = {}
 
 
-def _wire_lib() -> ctypes.CDLL:
-    return _libs()["qinf_wire"]
+def _launch(kernel: str, *args):
+    """Launches ``kernel`` through the binding with ``args`` (its inputs as
+    ``csrc/binding.cpp`` takes them), counts the launch and returns the
+    outputs the binding allocated.  The binding raises, launching nothing,
+    on inputs the kernel does not take, and raises on any CUDA error."""
+    if not _LAUNCHERS:
+        _libs()
+    out = _LAUNCHERS[kernel](*args)
+    LAUNCHES[kernel] += 1
+    return out
 
 
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
-                           f"({_lib().qinf_error_string(err).decode()})")
+def uses_vector_variant(kernel: str, *args) -> bool:
+    """Whether the C launcher of B2 (``args``: codes and output pointers,
+    block) or B4 (payload, mix and qself pointers, payload width, senders)
+    takes its vector variant: the choice the launcher makes at every
+    launch, asked by the tests and ``chip_smoke.py``."""
+    libs = _libs()
+    if kernel == "qinf_dequantize_blocks":
+        return bool(libs["qinf"].qinf_dequantize_blocks_vector(*args))
+    return bool(libs["qinf_wire"].qinf_unpack_dequant_mix_blocks_vector(*args))
 
 
-def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ("cuda", "cpu"):
+def _plain_device(t: torch.Tensor) -> None:
+    """The plain versions run on the CPU only; any other device raises."""
+    if t.device.type != "cpu":
         raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
 
 
 def qinf_quantize_blocks(x: torch.Tensor, u: torch.Tensor, bits: int):
     """B1: quantize (R, block) rows -> (codes int8 (R, block), scales f32
     (R, 1)).  ``x`` f32, f64 or bf16; ``u`` f32 U[0,1) noise of x's shape;
     1 <= bits <= 7 (codes are int8 in [-2^{b-1}, 2^{b-1}])."""
-    if x.dim() != 2 or tuple(u.shape) != tuple(x.shape):
+    if x.is_cuda:
+        return _launch("qinf_quantize_blocks", x, u, bits)
+    if x.dim() != 2 or u.shape != x.shape:
         raise ValueError(f"want x and u of one (R, block) shape, got "
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
     if not 1 <= bits <= 7:
         raise ValueError(f"bits must be in 1..7, got {bits}")
-    if _device_kind(x) == "cpu":
-        return kref.qinf_quantize_blocks_ref(x, u, bits)
-    if x.dtype not in _DTYPE_TAG or u.dtype != torch.float32:
-        raise TypeError(f"kernel takes x f32/f64/bf16 and u f32, got "
-                        f"{x.dtype} and {u.dtype}")
-    if u.device != x.device or not (x.is_contiguous() and u.is_contiguous()):
-        raise ValueError("x and u must be contiguous on one device")
-    R, block = x.shape
-    codes = torch.empty((R, block), dtype=torch.int8, device=x.device)
-    scales = torch.empty((R, 1), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.qinf_quantize_blocks_launch(
-            x.data_ptr(), _DTYPE_TAG[x.dtype], u.data_ptr(),
-            codes.data_ptr(), scales.data_ptr(), R, block, bits,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _check(err, "qinf_quantize_blocks")
-    LAUNCHES["qinf_quantize_blocks"] += 1
-    return codes, scales
+    _plain_device(x)
+    return kref.qinf_quantize_blocks_ref(x, u, bits)
 
 
 def qinf_dequantize_blocks(codes: torch.Tensor, scales: torch.Tensor,
                            out_dtype=torch.float32) -> torch.Tensor:
     """B2: codes (R, block) int8 times scales (R, 1) f32, computed in f32
     and written as ``out_dtype`` (f32, f64 or bf16)."""
-    if codes.dim() != 2 or tuple(scales.shape) != (codes.shape[0], 1):
+    if codes.is_cuda:
+        return _launch("qinf_dequantize_blocks", codes, scales,
+                       _DTYPE_TAG.get(out_dtype, -1))
+    if codes.dim() != 2 or scales.shape != (codes.shape[0], 1):
         raise ValueError(f"want codes (R, block) and scales (R, 1), got "
                          f"{tuple(codes.shape)} and {tuple(scales.shape)}")
-    if _device_kind(codes) == "cpu":
-        return kref.qinf_dequantize_blocks_ref(codes, scales, out_dtype)
-    if (codes.dtype != torch.int8 or scales.dtype != torch.float32
-            or out_dtype not in _DTYPE_TAG):
-        raise TypeError(f"kernel takes int8 codes, f32 scales and an "
-                        f"f32/f64/bf16 output, got {codes.dtype}, "
-                        f"{scales.dtype} -> {out_dtype}")
-    if scales.device != codes.device or not (codes.is_contiguous()
-                                             and scales.is_contiguous()):
-        raise ValueError("codes and scales must be contiguous on one device")
-    R, block = codes.shape
-    out = torch.empty((R, block), dtype=out_dtype, device=codes.device)
-    lib = _lib()
-    with torch.cuda.device(codes.device):
-        err = lib.qinf_dequantize_blocks_launch(
-            codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            _DTYPE_TAG[out_dtype], R, block,
-            torch.cuda.current_stream(codes.device).cuda_stream)
-    _check(err, "qinf_dequantize_blocks")
-    LAUNCHES["qinf_dequantize_blocks"] += 1
-    return out
+    _plain_device(codes)
+    return kref.qinf_dequantize_blocks_ref(codes, scales, out_dtype)
 
 
 def qinf_quantize_pack_blocks(x: torch.Tensor, u: torch.Tensor, bits: int):
@@ -228,31 +275,20 @@ def qinf_quantize_pack_blocks(x: torch.Tensor, u: torch.Tensor, bits: int):
     ``c + 2^{b-1}``, two to a byte in HALVES order for bits <= 3 (so an
     even block), one byte each otherwise; ``u`` f32 U[0,1) noise of x's
     shape; 1 <= bits <= 7."""
-    if x.dim() != 2 or tuple(u.shape) != tuple(x.shape):
+    if x.is_cuda:
+        return _launch("qinf_quantize_pack_blocks", x, u, bits)
+    if x.dim() != 2 or u.shape != x.shape:
         raise ValueError(f"want x and u of one (R, block) shape, got "
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
     if not 1 <= bits <= 7:
         raise ValueError(f"bits must be in 1..7, got {bits}")
-    R, block = x.shape
-    if block % 2 and kref.wire_bits_per_element(bits) == 4:
+    if x.shape[1] % 2 and kref.wire_bits_per_element(bits) == 4:
         raise ValueError(f"nibble packing (bits <= 3) needs an even block, "
-                         f"got {block}")
+                         f"got {x.shape[1]}")
     if x.dtype != torch.float32 or u.dtype != torch.float32:
         raise TypeError(f"B3 takes f32 x and u, got {x.dtype} and {u.dtype}")
-    if _device_kind(x) == "cpu":
-        return kref.qinf_quantize_pack_blocks_ref(x, u, bits)
-    if u.device != x.device or not (x.is_contiguous() and u.is_contiguous()):
-        raise ValueError("x and u must be contiguous on one device")
-    packed = torch.empty((R, packed_width(block, bits)), dtype=torch.uint8,
-                         device=x.device)
-    scales = torch.empty((R, 1), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _wire_lib().qinf_quantize_pack_blocks_launch(
-            x.data_ptr(), u.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            R, block, bits, torch.cuda.current_stream(x.device).cuda_stream)
-    _check(err, "qinf_quantize_pack_blocks")
-    LAUNCHES["qinf_quantize_pack_blocks"] += 1
-    return packed, scales
+    _plain_device(x)
+    return kref.qinf_quantize_pack_blocks_ref(x, u, bits)
 
 
 def qinf_unpack_dequant_mix_blocks(packed: torch.Tensor, scales: torch.Tensor,
@@ -262,16 +298,20 @@ def qinf_unpack_dequant_mix_blocks(packed: torch.Tensor, scales: torch.Tensor,
     bucket group (sender 0 is self), for every node at once.
 
     ``packed`` (N, S, R, W) uint8, ``scales`` (N, S, R, 1) f32, ``w``
-    (N, T, S) f32 -> (mix (N, T, R, B), qself (N, R, B)) in ``out_dtype``
-    (f32, f64 or bf16): node n mixes with its own weights, mix[n, t] =
-    sum_s w[n, t, s] Q_s accumulated in f32 in sender order, each Q_s
-    rounded through ``out_dtype`` first.  One launch covers all nodes."""
+    (N, T, S) f32 with S, T >= 1 -> (mix (N, T, R, B), qself (N, R, B)) in
+    ``out_dtype`` (f32, f64 or bf16): node n mixes with its own weights,
+    mix[n, t] = sum_s w[n, t, s] Q_s accumulated in f32 in sender order,
+    each Q_s rounded through ``out_dtype`` first.  One launch covers all
+    nodes."""
+    if packed.is_cuda:
+        return _launch("qinf_unpack_dequant_mix_blocks", packed, scales, w,
+                       bits, _DTYPE_TAG.get(out_dtype, -1))
     if packed.dim() != 4:
         raise ValueError(f"want packed (N, S, R, W), got "
                          f"{tuple(packed.shape)}")
     N, S, R, W = packed.shape
-    if (tuple(scales.shape) != (N, S, R, 1) or w.dim() != 3
-            or tuple(w.shape[::2]) != (N, S)):
+    if (scales.shape != (N, S, R, 1) or w.dim() != 3
+            or w.shape[::2] != (N, S) or min(S, w.shape[1]) < 1):
         raise ValueError(f"shapes disagree: packed {tuple(packed.shape)}, "
                          f"scales {tuple(scales.shape)}, w {tuple(w.shape)}")
     if not 1 <= bits <= 7:
@@ -281,27 +321,6 @@ def qinf_unpack_dequant_mix_blocks(packed: torch.Tensor, scales: torch.Tensor,
         raise TypeError(f"B4 takes uint8 payloads, f32 scales and weights "
                         f"and an f32/f64/bf16 output, got {packed.dtype}, "
                         f"{scales.dtype}, {w.dtype} -> {out_dtype}")
-    T = w.shape[1]
-    block = W * 2 if kref.wire_bits_per_element(bits) == 4 else W
-    if _device_kind(packed) == "cpu":
-        mix, qself = kref.qinf_unpack_dequant_mix_blocks_ref(
-            packed, scales, w, bits, out_dtype)
-    else:
-        if not (scales.device == w.device == packed.device
-                and packed.is_contiguous() and scales.is_contiguous()
-                and w.is_contiguous()):
-            raise ValueError("packed, scales and w must be contiguous on one "
-                             "device")
-        mix = torch.empty((N, T, R, block), dtype=out_dtype,
-                          device=packed.device)
-        qself = torch.empty((N, R, block), dtype=out_dtype,
-                            device=packed.device)
-        with torch.cuda.device(packed.device):
-            err = _wire_lib().qinf_unpack_dequant_mix_blocks_launch(
-                packed.data_ptr(), scales.data_ptr(), w.data_ptr(),
-                mix.data_ptr(), qself.data_ptr(), _DTYPE_TAG[out_dtype], N, S,
-                T, R, block, bits,
-                torch.cuda.current_stream(packed.device).cuda_stream)
-        _check(err, "qinf_unpack_dequant_mix_blocks")
-        LAUNCHES["qinf_unpack_dequant_mix_blocks"] += 1
-    return mix, qself
+    _plain_device(packed)
+    return kref.qinf_unpack_dequant_mix_blocks_ref(packed, scales, w, bits,
+                                                   out_dtype)

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX and no ``repro`` import anywhere in
-``src/repro_torch`` or ``chip_smoke.py``; its entry point runs on the card
-unless asked for the CPU, for both of its engines; its specs read the
-reference's golden JSON."""
+``src/repro_torch``, ``chip_smoke.py`` or ``launch_cost.py``; its entry
+point runs on the card unless asked for the CPU, for both of its engines;
+its specs read the reference's golden JSON."""
 import ast
 import dataclasses
 import json
@@ -14,7 +14,7 @@ from repro_torch import api as tapi
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "launch_cost.py"]
 GOLDEN = sorted((ROOT / "tests" / "golden_specs").glob("*.json"))
 
 
@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_no_repro(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("src/repro_torch/api.py", "src/repro_torch/convert.py",
-                 "src/repro_torch/kernels/quantize.py", "chip_smoke.py"):
+                 "src/repro_torch/kernels/quantize.py", "chip_smoke.py",
+                 "launch_cost.py"):
         assert must in names
 
 

@@ -219,3 +219,148 @@ def test_cuda_kernels_match_plain(bits, dtype):
     assert after["qinf_quantize_blocks"] == before["qinf_quantize_blocks"] + 1
     assert after["qinf_dequantize_blocks"] == \
         before["qinf_dequantize_blocks"] + 3
+
+
+# ---------------------------------------------------------------------------
+# The launch path and B2's variant choice (host-side logic, on the CPU).
+# ---------------------------------------------------------------------------
+
+def test_c_constants_match_the_wrapper():
+    """The dtype tags and the kernel names are written in csrc/ and in
+    quantize.py; they must agree."""
+    import re
+    csrc = tq.SOURCES["qinf"].parent
+    common = (csrc / "common.cuh").read_text()
+    wire = (csrc / "qinf_wire.cu").read_text()
+    kernels = tq.SOURCES["qinf"].read_text() + wire
+    binding = tq.SOURCES["binding"].read_text()
+
+    def const(text, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert {torch.float32: const(common, "kF32"),
+            torch.float64: const(common, "kF64"),
+            torch.bfloat16: const(common, "kBF16")} == tq._DTYPE_TAG
+    assert "tag == 1 ? at::kDouble : tag == 2 ? at::kBFloat16 : at::kFloat" \
+        in binding
+    assert set(re.findall(r'\{"(qinf_\w+)"', binding)) == set(tq.LAUNCHES)
+    for kernel in tq.LAUNCHES:
+        assert f"int {kernel}_launch(" in kernels
+    for header in tq.HEADERS:
+        assert header.is_file()
+
+
+def test_launch_helper_counts_only_launches(monkeypatch):
+    """_launch hands its arguments to the binding call and returns its
+    outputs; it counts a launch, not a call the binding refuses (inputs
+    the kernel does not take) nor one that raises a CUDA error."""
+    calls = []
+
+    def fake(*args):
+        calls.append(args)
+        return "outputs"
+
+    def failing(*args):
+        raise RuntimeError("qinf_dequantize_blocks launch failed: CUDA "
+                           "error 700 (an illegal memory access)")
+
+    monkeypatch.setattr(tq, "_LAUNCHERS", {"qinf_dequantize_blocks": fake})
+    tq.reset_launch_counts()
+    assert tq._launch("qinf_dequantize_blocks", 11, 22) == "outputs"
+    assert calls == [(11, 22)]
+    assert tq.launch_counts()["qinf_dequantize_blocks"] == 1
+    def refusing(*args):
+        raise TypeError("kernel takes int8 codes, f32 scales and an output "
+                        "tag 0 (f32), 1 (f64) or 2 (bf16), got Float, Float "
+                        "and 0")
+
+    monkeypatch.setattr(tq, "_LAUNCHERS", {"qinf_dequantize_blocks": refusing})
+    with pytest.raises(TypeError, match="int8 codes"):
+        tq._launch("qinf_dequantize_blocks", 11, 22)
+    monkeypatch.setattr(tq, "_LAUNCHERS", {"qinf_dequantize_blocks": failing})
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tq._launch("qinf_dequantize_blocks", 11, 22)
+    assert tq.launch_counts()["qinf_dequantize_blocks"] == 1
+    tq.reset_launch_counts()
+
+
+def test_wrappers_refuse_other_devices_and_launch_nothing():
+    """A tensor that is neither on the card nor on the CPU raises, and the
+    CPU path never reaches a launcher."""
+    meta = torch.empty((8, 256), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tq.qinf_quantize_blocks(meta, torch.empty((8, 256), device="meta"),
+                                2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tq.qinf_dequantize_blocks(meta.to(torch.int8),
+                                  torch.empty((8, 1), device="meta"))
+    tq.reset_launch_counts()
+    for block in (256, 100, 3):
+        codes = torch.randint(-2, 3, (5, block), dtype=torch.int8)
+        out = tq.qinf_dequantize_blocks(codes[1:], torch.ones((4, 1)))
+        assert torch.equal(out, codes[1:].float())
+    assert sum(tq.launch_counts().values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,offset_rows,vector", [
+    (256, 0, True), (128, 0, True), (100, 0, False), (3, 0, False),
+    (100, 1, False), (256, 1, True)])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16,
+                                 torch.float64])
+def test_cuda_dequantize_variants_match_plain(block, offset_rows, vector,
+                                              out):
+    """B2's vector and row variants on the card against the plain version:
+    widths 256 and 128 (vector), 100 and 3 (row), and a contiguous view
+    one row into its buffer (width 100 breaks the 16-byte alignment, width
+    256 keeps it).  Outputs exactly equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(block)
+    R = 8 * 31 + 5
+    buf = torch.randint(-4, 5, (R + offset_rows, block), generator=g,
+                        device="cuda", dtype=torch.int8)
+    codes = buf[offset_rows:]
+    scales = torch.rand((R, 1), generator=g, device="cuda") * 3
+    scales[7] = 0
+    before = tq.launch_counts()["qinf_dequantize_blocks"]
+    got = tq.qinf_dequantize_blocks(codes, scales, out)
+    assert tq.uses_vector_variant("qinf_dequantize_blocks", codes.data_ptr(),
+                                  got.data_ptr(), block) is vector
+    assert torch.equal(got, tref.qinf_dequantize_blocks_ref(codes, scales,
+                                                            out))
+    assert tq.launch_counts()["qinf_dequantize_blocks"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_binding_names_each_fault():
+    """On the card the binding alone checks the inputs: a wrong shape,
+    bits, dtype, output dtype, device or layout raises the error that
+    names it, and nothing launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x = torch.zeros((8, 256), device="cuda")
+    codes = torch.zeros((8, 256), dtype=torch.int8, device="cuda")
+    scales = torch.ones((8, 1), device="cuda")
+    before = tq.launch_counts()
+    with pytest.raises(ValueError, match="one \\(R, block\\) shape"):
+        tq.qinf_quantize_blocks(x, x[:, :128].contiguous(), 2)
+    with pytest.raises(ValueError, match="bits must be in 1..7"):
+        tq.qinf_quantize_blocks(x, x, 8)
+    with pytest.raises(TypeError, match="x f32/f64/bf16 and u f32"):
+        tq.qinf_quantize_blocks(x.half(), x, 2)
+    with pytest.raises(ValueError, match="contiguous on one CUDA device"):
+        tq.qinf_quantize_blocks(x, x.cpu(), 2)
+    with pytest.raises(ValueError, match="contiguous on one CUDA device"):
+        tq.qinf_quantize_blocks(x.t().contiguous().t(), x, 2)
+    with pytest.raises(ValueError, match="scales \\(R, 1\\)"):
+        tq.qinf_dequantize_blocks(codes, scales[:4])
+    with pytest.raises(TypeError, match="int8 codes"):
+        tq.qinf_dequantize_blocks(codes.float(), scales)
+    with pytest.raises(TypeError, match="int8 codes"):
+        tq.qinf_dequantize_blocks(codes, scales, torch.float16)
+    with pytest.raises(ValueError, match="contiguous on one CUDA device"):
+        tq.qinf_dequantize_blocks(codes, scales.cpu())
+    with pytest.raises(ValueError, match="contiguous on one CUDA device"):
+        tq.qinf_dequantize_blocks(codes[:, ::2], scales)
+    assert tq.launch_counts() == before

@@ -232,3 +232,134 @@ def test_cuda_wire_kernels_match_plain(bits, block):
         before["qinf_quantize_pack_blocks"] + 1
     assert after["qinf_unpack_dequant_mix_blocks"] == \
         before["qinf_unpack_dequant_mix_blocks"] + 6
+
+
+def test_b4_wrapper_validates_before_any_launch():
+    """Shapes, S and T >= 1, bits, dtypes and devices are checked on every
+    path; the CPU path launches nothing."""
+    P = torch.zeros((2, 3, 5, 64), dtype=torch.uint8)
+    Sc = torch.ones((2, 3, 5, 1))
+    with pytest.raises(ValueError):                     # T = 0
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, torch.ones((2, 0, 3)), 2)
+    with pytest.raises(ValueError):                     # S = 0
+        tq.qinf_unpack_dequant_mix_blocks(P[:, :0], Sc[:, :0],
+                                          torch.ones((2, 1, 0)), 2)
+    with pytest.raises(ValueError):                     # scales shape
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc[..., 0], torch.ones((2, 1, 3)),
+                                          2)
+    with pytest.raises(ValueError):                     # bits
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, torch.ones((2, 1, 3)), 8)
+    with pytest.raises(TypeError):                      # weights dtype
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, torch.ones((2, 1, 3),
+                                                            dtype=torch.int32),
+                                          2)
+    with pytest.raises(TypeError):                      # output dtype
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, torch.ones((2, 1, 3)), 2,
+                                          torch.float16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tq.qinf_unpack_dequant_mix_blocks(
+            P.to("meta"), Sc.to("meta"), torch.ones((2, 1, 3), device="meta"),
+            2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tq.qinf_quantize_pack_blocks(torch.zeros((4, 8), device="meta"),
+                                     torch.zeros((4, 8), device="meta"), 2)
+    tq.reset_launch_counts()
+    mix, qself = tq.qinf_unpack_dequant_mix_blocks(P, Sc,
+                                                   torch.ones((2, 1, 3)), 2)
+    assert mix.shape == (2, 1, 5, 128) and qself.shape == (2, 5, 128)
+    assert sum(tq.launch_counts().values()) == 0
+
+
+def _cuda_payloads(N, S, R, block, bits, g, offset_bytes=0):
+    """(packed (N, S, R, W), scales (N, S, R, 1)) from B3 on the card, the
+    payload optionally a contiguous view ``offset_bytes`` into a buffer."""
+    x = torch.randn((N * S * R, block), generator=g, device="cuda") * 3
+    x[3] = 0
+    u = torch.rand(x.shape, generator=g, device="cuda")
+    pk, sk = tq.qinf_quantize_pack_blocks(x, u, bits)
+    buf = torch.empty(pk.numel() + offset_bytes, dtype=torch.uint8,
+                      device="cuda")
+    P = buf[offset_bytes:].view(N, S, R, -1)
+    P.copy_(pk.view(N, S, R, -1))
+    return P, sk.reshape(N, S, R, 1)
+
+
+def _cuda_mix_cases(P, Sc, bits, g, vector):
+    """B4 on the card against its plain version at T 1 and 3, f32, bf16
+    and f64 out: qself and mix exactly equal, one launch each."""
+    N, S = P.shape[:2]
+    for T in (1, 3):
+        w = torch.randn((N, T, S), generator=g, device="cuda")
+        for out in (torch.float32, torch.bfloat16, torch.float64):
+            before = tq.launch_counts()["qinf_unpack_dequant_mix_blocks"]
+            mk, qk_ = tq.qinf_unpack_dequant_mix_blocks(P, Sc, w, bits, out)
+            assert tq.uses_vector_variant(
+                "qinf_unpack_dequant_mix_blocks", P.data_ptr(),
+                mk.data_ptr(), qk_.data_ptr(), P.shape[-1], S) is vector
+            mr, qr = tref.qinf_unpack_dequant_mix_blocks_ref(P, Sc, w, bits,
+                                                             out)
+            assert torch.equal(qk_, qr) and torch.equal(mk, mr), (T, out)
+            assert tq.launch_counts()["qinf_unpack_dequant_mix_blocks"] == \
+                before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("S", [1, 3, 4])
+def test_cuda_b4_vector_variant_matches_plain(bits, block, S):
+    """B4's vector variant (nibble packing at 2 bits, bytes at 4) at the
+    trainer's two widths, S = 1, 3 and 4 (exponential-8's self + 3 hops),
+    3 nodes of 37 rows (the last thread block is not full)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(bits * 100 + block + S)
+    P, Sc = _cuda_payloads(3, S, 37, block, bits, g)
+    _cuda_mix_cases(P, Sc, bits, g, vector=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block,S,offset_bytes", [
+    (2, 40, 3, 0), (4, 24, 3, 0), (2, 256, 3, 8), (4, 128, 4, 4),
+    (2, 256, 5, 0), (2, 128, 9, 0)])
+def test_cuda_b4_row_variant_matches_plain(bits, block, S, offset_bytes):
+    """B4's row variant: payload rows that are not whole 16-byte chunks
+    (blocks 40 at 2 bits, 24 at 4), payloads a contiguous view off the
+    16-byte alignment, and more senders than the vector variant holds
+    (S = 5, one past its four, and 9)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(block + S + offset_bytes)
+    P, Sc = _cuda_payloads(2, S, 37, block, bits, g, offset_bytes)
+    _cuda_mix_cases(P, Sc, bits, g, vector=False)
+
+
+@pytest.mark.cuda
+def test_cuda_b3_b4_binding_names_each_fault():
+    """On the card the binding alone checks B3's and B4's inputs: each
+    fault raises the error that names it, and nothing launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x = torch.zeros((8, 256), device="cuda")
+    P = torch.zeros((2, 3, 5, 64), dtype=torch.uint8, device="cuda")
+    Sc = torch.ones((2, 3, 5, 1), device="cuda")
+    w = torch.ones((2, 1, 3), device="cuda")
+    before = tq.launch_counts()
+    with pytest.raises(ValueError, match="even block"):
+        tq.qinf_quantize_pack_blocks(x[:, :255].contiguous(),
+                                     x[:, :255].contiguous(), 2)
+    with pytest.raises(TypeError, match="f32 x and u"):
+        tq.qinf_quantize_pack_blocks(x.double(), x, 2)
+    with pytest.raises(ValueError, match="contiguous on one CUDA device"):
+        tq.qinf_quantize_pack_blocks(x, x.cpu(), 2)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, w[:, :0], 2)
+    with pytest.raises(ValueError, match="bits must be in 1..7"):
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, w, 8)
+    with pytest.raises(TypeError, match="uint8 payloads"):
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, w.int(), 2)
+    with pytest.raises(TypeError, match="uint8 payloads"):
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, w, 2, torch.float16)
+    with pytest.raises(ValueError, match="contiguous on one CUDA device"):
+        tq.qinf_unpack_dequant_mix_blocks(P, Sc, w.cpu(), 2)
+    assert tq.launch_counts() == before
