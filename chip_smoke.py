@@ -15,15 +15,26 @@ Phases, in order; any failure exits non-zero before the result lines:
    both started together, and prints each kernel's registers, spills and
    resident warps per SM from ``ptxas -v``.
 3. B1/B2 against their plain PyTorch versions on the card, same x and u:
-   bits {1,2,3,4,7}, x in f32 and bf16, at the main path's shape
-   (8 nodes x 7840 -> (8*31, 256) blocks), ragged last dims (3, 7, 11) and
-   (129,), a block of zeros, and (8, 12_582_912) (8 nodes x one 2048x6144
-   matrix, ~400 MB per f32 operand); B2's vector and row variants at
-   widths 256, 128, 100 and 3 and on a view off the 16-byte alignment.
-   Codes, scales and dequantized values must be exactly equal.  Each
-   kernel, its plain version and, where one exists, the single PyTorch
-   call computing the same function are timed with CUDA events at the
-   main path's shape (MAIN_SHAPE_ITERS calls) and at the large shape.
+   B1 through ``ops.qinf_quantize_lastdim``, which hands it the leaf
+   unpadded (the kernel reads the ragged last block in place), against
+   the plain version on the zero-padded rows, and B2 on its codes; bits
+   {1,2,3,4,7}, x in f32, bf16 and f64, on the leaves of B1_CASES: the
+   main path's (8 nodes x 7840 -> 8 x 31 blocks of 256), block 128, ragged
+   last dims (129,) and (3, 7, 11), a block of zeros, a last block of
+   zeros before the pad, rows cut from wider ones, rows off the 16-byte
+   alignment (5, 129), a view one element into its buffer, a block of 2048
+   (wider than the vector variant holds) and (8, 12_582_912) (8 nodes x one
+   2048x6144 matrix, ~400 MB per f32 operand); each leaf must take the B1
+   variant it names.  B2's vector and row variants at widths 256, 128, 100
+   and 3 and on a view off the 16-byte alignment.  Codes, scales and
+   dequantized values must be exactly equal.  Each kernel, its plain
+   version and, where one exists, the single PyTorch call computing the
+   same function are timed with CUDA events on (R, 256) rows at the main
+   path's shape (MAIN_SHAPE_ITERS calls) and at the large shape; B1 also
+   as the main path calls it, on the (8, 7840) leaf, and device time a
+   call from ``torch.profiler`` (median of MAIN_SHAPE_ITERS calls) of
+   that call, of B1 on (248, 256) rows and of ``zero_`` on 248 floats
+   (the launch floor).
 4. The dense main path: ``repro_torch.api.build(spec)`` on the card for the
    quickstart spec at MNIST scale (8 nodes x 7500 samples, 784 features,
    10 classes, f32).  First 20 steps, each started from the card's state
@@ -34,7 +45,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    another order on the card).  Then a run of STEPS steps with the launch
    counters zeroed just before and read just after (B1 and B2 must each
    launch once per step), an objective f + lam ||x||_1 that must fall, a
-   consensus error that must shrink, finite values.
+   consensus error that must shrink, finite values.  A ``torch.profiler``
+   window of PROFILE_STEPS steps lists every device operation of a step
+   by name; B1 must run once a step with no pad kernel (fill, copy) just
+   before it.
 5. B3/B4 against their plain versions on the card: bits {1,2,3,4,7},
    blocks 128 and 256, S (senders) in {1, 3, 4}, T (rounds) in {1, 3},
    f32, bf16 and f64 out, 2 nodes, a ragged row count, a block of zeros
@@ -80,6 +94,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +121,12 @@ SLICE_GROUP_ROWS = 700_456  # block-256 rows per node at the slice's widths
 SLICE_SMALL_GROUP_ROWS = 4  # block-128 rows per node (q_norm, k_norm x 2)
 SLICE_BITS_PER_STEP = 2 * 739_683_712   # 2 hops x the per-edge payload
 REPLAY_STEPS_SLICE = 5      # small trainer steps held against the CPU
+
+
+# kernel B1 in a profile, and the fill and copy kernels of a pad (F.pad's
+# constant_pad_nd) or any device copy
+B1_KERNEL = re.compile(r"qinf_quantize_(vec_|row_)?kernel")
+PAD_KERNEL = re.compile(r"FillFunctor|copy", re.IGNORECASE)
 
 
 class SmokeFailure(Exception):
@@ -161,7 +182,6 @@ def ptxas_report(text: str):
     """Registers, spill bytes and resident warps per SM (256-thread blocks,
     65,536 registers an SM allocated 256 at a time per warp, at most 64
     warps) of every kernel in one source's ``nvcc -Xptxas=-v`` output."""
-    import re
     rows, cur = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -187,26 +207,72 @@ def ptxas_report(text: str):
 
 # --- phase 3 -------------------------------------------------------------------
 
-def check_kernels(torch, ops, qk, ref, errs):
-    """Kernel vs plain version on every case; records the largest
+# B1's leaves (label, shape, block, storage offset in elements, row stride
+# or None, first zeroed element of the last axis or None, B1 takes its
+# vector variant): the main path's leaf, ragged leaves, a block of zeros, an
+# 8 x 2048x6144 leaf, and the leaves that pick each variant -- the cases of
+# tests/test_torch_kernels.py::test_cuda_lastdim_matches_plain.  Vector:
+# every block starts 16-byte aligned and holds at most 1024 elements; row:
+# rows that break the alignment, a view off it, a wider block.
+B1_CASES = [("main", (8, 7840), 256, 0, None, None, True),
+            ("block128", (8, 7840), 128, 0, None, None, True),
+            ("ragged1d", (129,), 256, 0, None, None, True),
+            ("zero_block", (8, 256), 256, 0, None, None, True),
+            ("zero_tail", (4, 320), 256, 0, None, 256, True),
+            ("row_stride", (8, 7840), 256, 0, 8000, None, True),
+            ("large", LARGE, 256, 0, None, None, True),
+            ("ragged3d", (3, 7, 11), 256, 0, None, None, False),
+            ("unaligned_rows", (5, 129), 256, 0, None, None, False),
+            ("offset_view", (8, 7840), 256, 1, None, None, False),
+            ("wide_block", (8, 7840), 2048, 0, None, None, False)]
+
+
+def b1_leaf(torch, shape, offset, row_stride, zero_from, dtype, g,
+            device="cuda"):
+    """A leaf of ``shape``: ``offset`` elements into its buffer, rows
+    ``row_stride`` apart (a view of wider rows), its last axis zero from
+    ``zero_from`` on."""
+    lead, D = shape[:-1], shape[-1]
+    width = row_stride or D
+    buf = torch.randn(offset + math.prod(lead) * width, generator=g,
+                      device=device) * 3
+    x = buf.to(dtype)[offset:].view(*lead, width)[..., :D]
+    if zero_from is not None:
+        x[..., zero_from:] = 0
+    return x
+
+
+def check_kernels(torch, ops, qk, ref, errs, cases=B1_CASES, device="cuda"):
+    """B1 through ``ops.qinf_quantize_lastdim`` (the leaf unpadded, its
+    ragged tail read in place) and B2 on its codes, against the plain
+    versions on the zero-padded rows, bits {1,2,3,4,7}, x f32/bf16/f64;
+    each case must take the B1 variant it names.  Records the largest
     difference per kernel in ``errs`` and fails on any."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    cases = {"main": (8, 7840), "ragged3d": (3, 7, 11), "ragged1d": (129,),
-             "zero_block": (8, 256), "large": LARGE}
-    n_checked = 0
-    for label, shape in cases.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+    g = torch.Generator(device=device).manual_seed(0)
+    n_checked = n_vector = 0
+    for label, shape, block, offset, row_stride, zero_from, vector in cases:
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            x = b1_leaf(torch, shape, offset, row_stride, zero_from, dtype, g,
+                        device)
             if label == "zero_block":
                 x[3] = 0
-            u = torch.rand(ops.blockwise_shape(shape, 256), generator=g,
-                           device="cuda")
-            xb = ops.blockwise_lastdim(x, block=256).reshape(-1, 256)
+            u = torch.rand(ops.blockwise_shape(shape, block), generator=g,
+                           device=device)
+            require(device != "cuda" or qk.uses_vector_variant(
+                "qinf_quantize_blocks", x, u) is vector,
+                f"B1 at {label} {dtype} must take the "
+                f"{'vector' if vector else 'row'} variant")
+            xb = ops.blockwise_lastdim(x, block=block).reshape(-1, block)
             for bits in (1, 2, 3, 4, 7):
-                ck, sk = ops.qinf_quantize_lastdim(x, u, bits=bits, block=256)
-                cp, sp = ref.qinf_quantize_blocks_ref(xb, u.reshape(-1, 256),
-                                                      bits)
-                ck, sk = ck.reshape(-1, 256), sk.reshape(-1, 1)
+                ck, sk = ops.qinf_quantize_lastdim(x, u, bits=bits,
+                                                   block=block)
+                require(ck.shape == u.shape
+                        and sk.shape == u.shape[:-1] + (1,),
+                        f"B1 at {label}: codes {tuple(ck.shape)}, scales "
+                        f"{tuple(sk.shape)} for noise {tuple(u.shape)}")
+                cp, sp = ref.qinf_quantize_blocks_ref(
+                    xb, u.reshape(-1, block), bits)
+                ck, sk = ck.reshape(-1, block), sk.reshape(-1, 1)
                 e1 = max(float((ck.int() - cp.int()).abs().max()),
                          float((sk - sp).abs().max()))
                 errs["qinf_quantize_blocks"] = max(
@@ -217,21 +283,28 @@ def check_kernels(torch, ops, qk, ref, errs):
                 for out in {torch.float32, dtype}:
                     dk = qk.qinf_dequantize_blocks(ck, sk, out)
                     dp = ref.qinf_dequantize_blocks_ref(cp, sp, out)
-                    e2 = float((dk.float() - dp.float()).abs().max())
+                    e2 = float((dk.double() - dp.double()).abs().max())
                     errs["qinf_dequantize_blocks"] = max(
                         errs["qinf_dequantize_blocks"], e2)
                     require(torch.equal(dk, dp),
                             f"B2 != plain at {label} {dtype}->{out} "
                             f"bits={bits} (max diff {e2})")
-                if label == "zero_block":
-                    require(float(sk[3].abs().max()) == 0.0
-                            and int(ck[3].abs().max()) == 0,
-                            "an all-zero block must give scale 0, codes 0")
+                if label == "zero_block":        # node 3's one block
+                    zc, zs = ck[3], sk[3]
+                elif label == "zero_tail":       # each row's second block
+                    zc, zs = ck.view(-1, 2, block)[:, 1], sk.view(-1, 2)[:, 1]
+                if label in ("zero_block", "zero_tail"):
+                    require(float(zs.abs().max()) == 0.0
+                            and int(zc.abs().max()) == 0,
+                            f"an all-zero block must give scale 0, codes 0 "
+                            f"({label})")
                 n_checked += 1
+                n_vector += vector
             del x, u, xb, ck, sk, cp, sp
-    n_checked += check_b2_variants(torch, qk, ref, errs)
-    torch.cuda.synchronize()
-    return n_checked
+    n_checked += check_b2_variants(torch, qk, ref, errs, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return n_checked, n_vector
 
 
 def check_b2_variants(torch, qk, ref, errs, device="cuda"):
@@ -309,6 +382,81 @@ def time_kernels(torch, qk, ref, shape, iters: int = 20):
     return res
 
 
+def device_us(torch, fn, calls: int = MAIN_SHAPE_ITERS):
+    """Device time of one call of ``fn`` under ``torch.profiler`` over
+    ``calls`` back-to-back calls, each launching the same device
+    operations: for every operation name, its median duration times its
+    launches a call, summed (us); with the operations a call makes and
+    their names.  (The profiler may drop an event at the window's edge,
+    so calls are not cut from the event stream one by one.)"""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            by_name.setdefault(e["name"], []).append(e["dur"])
+    per = {k: round(len(v) / calls) for k, v in by_name.items()}
+    require(bool(by_name) and all(per.values()),
+            f"device operations in {calls} calls: "
+            f"{ {k[:60]: len(v) for k, v in by_name.items()} }")
+    us = sum(sorted(v)[len(v) // 2] * per[k] for k, v in by_name.items())
+    return {"us": us, "ops_per_call": sum(per.values()),
+            "names": [k[:90] for k in by_name]}
+
+
+def b1_at_main_path(torch, ops, qk, ref, iters: int = MAIN_SHAPE_ITERS):
+    """B1 as the dense main path calls it: ``ops.qinf_quantize_lastdim`` on
+    the (8, 7840) f32 leaf, 2 bits, timed with CUDA events over ``iters``
+    back-to-back calls beside its plain version (pad + plain B1) and its
+    bytes bound; and device time per call from ``torch.profiler`` (median
+    of ``iters`` calls) of that call, of B1 on (248, 256) rows, and of a
+    one-kernel PyTorch op on 248 floats (``zero_``), the launch floor."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((8, 7840), generator=g, device="cuda")
+    u = torch.rand(ops.blockwise_shape(x.shape, 256), generator=g,
+                   device="cuda")
+    codes, scales = ops.qinf_quantize_lastdim(x, u, bits=2)
+
+    def plain():
+        return ref.qinf_quantize_blocks_ref(
+            ops.blockwise_lastdim(x, block=256).reshape(-1, 256),
+            u.reshape(-1, 256), 2)
+
+    cp, sp = plain()
+    require(torch.equal(codes.reshape(-1, 256), cp)
+            and torch.equal(scales.reshape(-1, 1), sp),
+            "B1 on the main path's leaf != plain")
+    rows = ops.blockwise_lastdim(x, block=256).reshape(-1, 256)
+    urows = u.reshape(-1, 256)
+    floor = torch.empty(248, device="cuda")
+    res = {"leaf": list(x.shape),
+           "ms": cuda_ms(torch, lambda: ops.qinf_quantize_lastdim(x, u,
+                                                                  bits=2),
+                         iters),
+           "plain_ms": cuda_ms(torch, plain, iters)}
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        nbytes(x, u, codes, scales), B1_OPS_PER_ELEMENT * x.numel())
+    res["device_us"] = {
+        "lastdim_leaf": device_us(
+            torch, lambda: ops.qinf_quantize_lastdim(x, u, bits=2), iters),
+        "b1_248x256": device_us(
+            torch, lambda: qk.qinf_quantize_blocks(rows, urows, 2), iters),
+        "launch_floor_zero_248": device_us(torch, floor.zero_, iters)}
+    return res
+
+
 # --- phase 4 -------------------------------------------------------------------
 
 def mnist_spec(api, steps: int):
@@ -332,7 +480,9 @@ def mnist_spec(api, steps: int):
 def profile_steps(torch, runner, st, draws, steps: int = PROFILE_STEPS):
     """Where a step's time goes: ``torch.profiler`` over ``steps`` steps;
     device time is the sum of the kernel, memcpy and memset spans of the
-    exported trace, the busy share that sum over the fenced wall time."""
+    exported trace, the busy share that sum over the fenced wall time;
+    every device operation by name (time and count a step), B1's launches
+    a step and the operations that ran just before them."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -349,18 +499,23 @@ def profile_steps(torch, runner, st, draws, steps: int = PROFILE_STEPS):
               if e.get("ph") == "X" and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
     require(bool(device), "the profiler saw no device work in the main path")
+    device.sort(key=lambda e: e["ts"])
     by_name = {}
     for e in device:
         ms, n = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    b1 = [i for i, e in enumerate(device) if B1_KERNEL.search(e["name"])]
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": busy_ms / steps,
             "busy_share": busy_ms / wall_ms,
             "device_ops_per_step": len(device) / steps,
-            "top": [{"name": k[:80], "ms_per_step": ms / steps,
-                     "per_step": n / steps} for k, (ms, n) in top]}
+            "b1_per_step": len(b1) / steps,
+            "before_b1": sorted({device[i - 1]["name"] for i in b1 if i}),
+            "names": [{"name": k[:90], "us_per_step": ms * 1e3 / steps,
+                       "per_step": n / steps}
+                      for k, (ms, n) in sorted(by_name.items(),
+                                               key=lambda kv: -kv[1][0])]}
 
 
 def main_path(torch, api, convert, draws_mod, metrics, qk):
@@ -446,6 +601,10 @@ def main_path(torch, api, convert, draws_mod, metrics, qk):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t1) / 100 * 1e3
     profile = profile_steps(torch, runner, st, d)
+    require(profile["b1_per_step"] == 1,
+            f"the profile saw {profile['b1_per_step']} B1 launches a step")
+    require(not any(PAD_KERNEL.search(n) for n in profile["before_b1"]),
+            f"a pad kernel runs just before B1: {profile['before_b1']}")
     return {
         "spec": spec.name, "steps": STEPS, "dtype": "float32",
         "data_mb_on_device": data_mb, "launches": launches,
@@ -994,18 +1153,29 @@ def main() -> int:
         # 3. kernels against their plain versions
         errs = {k: 0.0 for k in qk.LAUNCHES}
         t0 = time.perf_counter()
-        n = check_kernels(torch, ops, qk, ref, errs)
+        n, n_vector = check_kernels(torch, ops, qk, ref, errs)
         times = {"main": time_kernels(torch, qk, ref, (8, 31 * 256),
                                       iters=MAIN_SHAPE_ITERS),
                  "large": time_kernels(torch, qk, ref, LARGE)}
-        print(f"[kernels] {n} cases bit-equal to the plain versions in "
+        b1_main = b1_at_main_path(torch, ops, qk, ref)
+        print(f"[kernels] {n} cases bit-equal to the plain versions (B1 "
+              f"through the leaf route: {n_vector} on its vector variant, "
+              f"the rest on its row variant) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for where, tt in times.items():
             for k, v in tt.items():
                 print(f"[kernels] {k} @ {where} {v['rows']}: "
-                      f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
-                      f"{v['bound_ms']:.4f}, library {v['library_ms']}) "
+                      f"{v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, bound "
+                      f"{v['bound_ms']:.5f}, library {v['library_ms']}) "
                       f"| {smi}", flush=True)
+        print(f"[kernels] qinf_quantize_lastdim @ leaf {b1_main['leaf']}: "
+              f"{b1_main['ms']:.5f} ms (plain: pad + plain B1 "
+              f"{b1_main['plain_ms']:.5f}, bound {b1_main['bound_ms']:.5f}) "
+              f"| {smi}", flush=True)
+        for k, v in b1_main["device_us"].items():
+            print(f"[kernels] device time a call, {k}: {v['us']:.3f} us "
+                  f"(median of {MAIN_SHAPE_ITERS}), {v['ops_per_call']} "
+                  f"device op(s): {v['names']} | {smi}", flush=True)
 
         # 4. the main path
         mp = main_path(torch, api, convert, draws_mod, metrics, qk)
@@ -1027,9 +1197,10 @@ def main() -> int:
               f"{pf['device_ms_per_step']:.3f} ms/step on the device "
               f"(busy {pf['busy_share']:.1%}), "
               f"{pf['device_ops_per_step']:.0f} device ops/step", flush=True)
-        for t in pf["top"]:
-            print(f"[main]   {t['ms_per_step'] * 1e3:8.1f} us/step "
+        for t in pf["names"]:
+            print(f"[main]   {t['us_per_step']:8.2f} us/step "
                   f"x{t['per_step']:.0f}  {t['name']}", flush=True)
+        print(f"[main] just before B1: {pf['before_b1']}", flush=True)
 
         # 5. B3/B4 against their plain versions, timed at the slice's shape
         t0 = time.perf_counter()
@@ -1108,6 +1279,8 @@ def main() -> int:
         if name_ in times["main"]:     # B1/B2: the dense main path
             m, launches = times["main"][name_], mp["launches"][name_]
             extra = {"large": times["large"][name_]}
+            if name_ == "qinf_quantize_blocks":
+                extra["main_path_leaf"] = b1_main
         else:                          # B3/B4: the trainer path
             m, launches = wtimes[name_], sp["launches"][name_]
             extra = {}

@@ -4,26 +4,34 @@ the PyTorch port, on one NVIDIA card.
 
     python3 launch_cost.py [--tree DIR] [--iters 20 200] [--label NAME]
 
-Imports ``repro_torch.kernels.quantize`` from ``DIR/src`` (default: this
-checkout), so that one yardstick -- the functions below and
-``chip_smoke.cuda_ms`` of this checkout -- times this tree and another, for
-example the parent commit unpacked with ``git archive``.  Run each tree in
-its own process, alternating (parent, change, change, parent) within one
-machine.  At the main path's (248, 256) f32 rows, 2 bits, it measures:
+Imports ``repro_torch.kernels.quantize`` and ``ops`` from ``DIR/src``
+(default: this checkout), so that one yardstick -- the functions below
+and ``chip_smoke.cuda_ms`` and ``device_us`` of this checkout -- times
+this tree and another, for example the parent commit unpacked with ``git
+archive``.  Run each tree in its own process, alternating (parent,
+change, change, parent) within one machine.  At the main path's (248, 256) f32 rows, 2 bits, and on its
+(8, 7840) f32 leaf, it measures:
 
 1. ``cuda_ms``: CUDA-event milliseconds per call over N back-to-back calls
-   (each N of ``--iters``) of B1's and B2's wrappers and of
-   ``torch.mul(codes, scales)``, which computes B2's function.  At this
-   size the device work is a few microseconds, so this reads how fast the
-   host issues the calls; compare two trees only at one N.
+   (each N of ``--iters``) of B1's and B2's wrappers, of
+   ``torch.mul(codes, scales)``, which computes B2's function, and of
+   ``ops.qinf_quantize_lastdim`` on the leaf, the call the main path makes
+   (in a tree that pads on the card: the pad, then B1).  At this size the
+   device work is a few microseconds, so this reads how fast the host
+   issues the calls; compare two trees only at one N.
 2. ``host_us``: host microseconds per call over 10,000 calls
    (``time.perf_counter_ns``, fenced by ``torch.cuda.synchronize``) of the
-   same three.
-3. ``profile``: ``torch.profiler`` with Python stacks over 1,000 calls of
-   B2's wrapper, microseconds per call by host event (Python function,
-   ATen op, CUDA runtime call), inclusive, the 15 largest below the
-   call: where its host time goes.  Last, because the Python tracer leaves the process
-   slower.
+   same four.
+3. ``device_us``: device time a call from ``torch.profiler``
+   (``chip_smoke.device_us``: the median over the largest N of
+   ``--iters`` calls of the summed durations of the device operations a
+   call makes) of B1's wrapper on the rows, of the leaf call, and of
+   ``zero_`` on 248 floats, the launch floor.
+4. ``profile``: ``torch.profiler`` with Python stacks over 1,000 calls of
+   B2's wrapper and of the leaf call, microseconds per call by host event
+   (Python function, ATen op, CUDA runtime call), inclusive, the 15
+   largest below the call: where its host time goes.  Last, because the
+   Python tracer leaves the process slower.
 
 Prints the card's line from ``nvidia-smi`` and one JSON object, also
 written to ``chiprun_out/launch_cost_<label>.json``.  Exits non-zero without a CUDA device.  Imports nothing of JAX
@@ -40,6 +48,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 SHAPE = (8 * 31, 256)      # the dense main path's B1/B2 rows
+LEAF = (8, 7840)           # the dense main path's leaf: 8 nodes x 784x10
 HOST_CALLS = 10_000
 PROFILE_CALLS = 1_000
 
@@ -101,7 +110,8 @@ def main() -> int:
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(1, str(ROOT))
-    from chip_smoke import cuda_ms, smi_line
+    from chip_smoke import cuda_ms, device_us, smi_line
+    from repro_torch.kernels import ops
     from repro_torch.kernels import quantize as qk
     imported = pathlib.Path(qk.__file__).resolve()
     if tree not in imported.parents:
@@ -119,16 +129,27 @@ def main() -> int:
         print("launch_cost: FAIL: B2 != torch.mul(codes, scales)",
               file=sys.stderr)
         return 1
+    leaf = torch.randn(LEAF, generator=g, device="cuda")
+    uleaf = torch.rand(ops.blockwise_shape(LEAF, SHAPE[1]), generator=g,
+                       device="cuda")
+    floor = torch.empty(SHAPE[0], device="cuda")
     calls = {"B1 wrapper": lambda: qk.qinf_quantize_blocks(x, u, 2),
              "B2 wrapper": lambda: qk.qinf_dequantize_blocks(codes, scales),
-             "torch.mul(codes, scales)": lambda: torch.mul(codes, scales)}
+             "torch.mul(codes, scales)": lambda: torch.mul(codes, scales),
+             "lastdim leaf": lambda: ops.qinf_quantize_lastdim(leaf, uleaf,
+                                                               bits=2)}
     res = {"label": args.label, "tree": str(tree), "card": smi,
-           "shape": list(SHAPE),
+           "shape": list(SHAPE), "leaf": list(LEAF),
            "cuda_ms": {str(n): {k: cuda_ms(torch, f, iters=n)
                                 for k, f in calls.items()}
                        for n in args.iters},
-           "host_us": {k: host_us(torch, f) for k, f in calls.items()}}
-    res["profile"] = profile_us(torch, calls["B2 wrapper"])
+           "host_us": {k: host_us(torch, f) for k, f in calls.items()},
+           "device_us": {k: device_us(torch, f, max(args.iters)) for k, f in (
+               ("B1 wrapper", calls["B1 wrapper"]),
+               ("lastdim leaf", calls["lastdim leaf"]),
+               ("zero_ on 248 floats", floor.zero_))}}
+    res["profile"] = {k: profile_us(torch, calls[k])
+                      for k in ("B2 wrapper", "lastdim leaf")}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"launch_cost_{args.label}.json").write_text(
         json.dumps(res, indent=1))

@@ -3,7 +3,8 @@
 // Each function checks that its inputs are what the kernel takes and
 // raises the fault it finds (TypeError for a dtype, ValueError for a shape,
 // the bits, an odd block under nibble packing, or tensors that are not
-// contiguous on one CUDA device), allocates the kernel's outputs with
+// contiguous on one CUDA device -- B1's x need only have rows of unit
+// stride, see leaf_rows), allocates the kernel's outputs with
 // at::empty on the inputs' device (PyTorch's caching allocator, on the C++
 // side), calls the kernel's C launcher from csrc/qinf.cu or
 // csrc/qinf_wire.cu with raw pointers, the device index and that device's
@@ -23,6 +24,7 @@
 #include <cstddef>
 #include <cstdio>
 #include <initializer_list>
+#include <vector>
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -33,8 +35,8 @@
 namespace {
 
 // the C launchers (their signatures in csrc/qinf.cu and csrc/qinf_wire.cu)
-using QuantizeFn = int (*)(const void*, int, const void*, void*, void*,
-                           long long, int, int, int, void*);
+using QuantizeFn = int (*)(const void*, int, long long, long long, long long,
+                           const void*, void*, void*, int, int, int, void*);
 using DequantizeFn = int (*)(const void*, const void*, void*, int, long long,
                              int, int, void*);
 using PackFn = int (*)(const void*, const void*, void*, void*, long long, int,
@@ -100,11 +102,12 @@ const char* dtype(const at::Tensor& t) { return c10::toString(t.scalar_type()); 
 // this module under the CUDA 12.8 build of PyTorch 2.11.
 struct Shape {
   char text[128];
-  explicit Shape(const at::Tensor& t) {
+  explicit Shape(const at::Tensor& t) : Shape(t.sizes()) {}
+  explicit Shape(c10::IntArrayRef sizes) {
     int n = snprintf(text, sizeof text, "[");
-    for (int64_t i = 0; i < t.dim() && n < (int)sizeof text; ++i)
+    for (size_t i = 0; i < sizes.size() && n < (int)sizeof text; ++i)
       n += snprintf(text + n, sizeof text - n, i ? ", %lld" : "%lld",
-                    (long long)t.size(i));
+                    (long long)sizes[i]);
     if (n < (int)sizeof text) snprintf(text + n, sizeof text - n, "]");
   }
 };
@@ -160,8 +163,49 @@ PyObject* wrap2(const at::Tensor& a, const at::Tensor& b) {
   return pair;
 }
 
-// (x (R, B), u (R, B), bits) -> (codes int8 (R, B), scales f32 (R, 1));
-// x f32/f64/bf16, u f32
+// The noise shape of leaf x (..., D) in blocks of B:
+// blockwise_shape(x.shape, B) = (..., ceil(D / B), B), a 0-d x counting
+// as (1,).
+std::vector<int64_t> blocked_shape(const at::Tensor& x, int64_t B) {
+  std::vector<int64_t> s(x.sizes().begin(), x.sizes().end());
+  const int64_t D = s.empty() ? 1 : s.back();
+  if (!s.empty()) s.pop_back();
+  s.push_back((D + B - 1) / B);
+  s.push_back(B);
+  return s;
+}
+
+// Leaf x (..., D) as L rows of D elements, ``*ldx`` elements apart: true
+// when the last axis has unit stride and the leading axes collapse to one
+// row stride (any contiguous tensor, a view with a storage offset, rows
+// cut from wider ones), which is what kernel B1 reads in place.
+bool leaf_rows(const at::Tensor& x, int64_t* L, int64_t* ldx) {
+  const int64_t d = x.dim();
+  const int64_t D = d ? x.size(d - 1) : 1;
+  *L = D ? x.numel() / D : 1;
+  *ldx = D;
+  if (d == 0 || x.numel() == 0) return true;
+  if (D > 1 && x.stride(d - 1) != 1) return false;
+  bool first = true;
+  int64_t span = 0;  // elements spanned by the axes below axis i
+  for (int64_t i = d - 2; i >= 0; --i) {
+    if (x.size(i) == 1) continue;
+    if (first) {
+      *ldx = x.stride(i);
+      first = false;
+    } else if (x.stride(i) != span) {
+      return false;
+    }
+    span = x.stride(i) * x.size(i);
+  }
+  return true;
+}
+
+// (x (..., D), u, bits) -> (codes int8 in u's shape, scales f32 in u's
+// shape with a last axis of 1): the leaf x in blocks of B = u's last axis,
+// its ragged last block read in place.  u is the leaf's blocked noise
+// (blocked_shape), or x's own shape when D = B (the (R, B) call).  x
+// f32/f64/bf16 with rows of unit stride (leaf_rows), u f32 contiguous.
 PyObject* quantize_blocks(PyObject*, PyObject* const* args, Py_ssize_t n) {
   HANDLE_TH_ERRORS
   if (!parse(args, n, 3, 2, "qinf_quantize_blocks")) return nullptr;
@@ -170,21 +214,33 @@ PyObject* quantize_blocks(PyObject*, PyObject* const* args, Py_ssize_t n) {
   const long bits = as_long(args[2]);
   if (PyErr_Occurred()) return nullptr;
   const int tag = in_tag(x);
-  int device;
-  if (x.dim() != 2 || u.sizes() != x.sizes())
-    return raise(PyExc_ValueError, "want x and u of one (R, block) shape, "
-                "got %s and %s", Shape(x).text, Shape(u).text);
+  int64_t L, ldx;
+  const int64_t D = x.dim() ? x.size(-1) : 1;
+  const int64_t B = u.dim() ? u.size(-1) : 0;
+  if (B < 1 || B > (1 << 30))
+    return raise(PyExc_ValueError, "noise shape %s has no block axis for x "
+                 "%s", Shape(u).text, Shape(x).text);
+  const std::vector<int64_t> want = blocked_shape(x, B);
+  if (!u.sizes().equals(want) &&
+      !(x.dim() >= 1 && D == B && u.sizes().equals(x.sizes())))
+    return raise(PyExc_ValueError, "noise shape %s != blocked shape %s",
+                 Shape(u).text, Shape(want).text);
   if (!bits_ok(bits)) return nullptr;
   if (tag < 0 || u.scalar_type() != at::kFloat)
     return raise(PyExc_TypeError, "kernel takes x f32/f64/bf16 and u f32, "
                 "got %s and %s", dtype(x), dtype(u));
-  if (!one_device({&x, &u}, "x and u", &device)) return nullptr;
-  const int64_t R = x.size(0), B = x.size(1);
-  at::Tensor codes = at::empty({R, B}, x.options().dtype(at::kChar));
-  at::Tensor scales = at::empty({R, 1}, x.options().dtype(at::kFloat));
-  const int err = g_quantize(x.data_ptr(), tag, u.data_ptr(), codes.data_ptr(),
-                             scales.data_ptr(), R, (int)B, (int)bits, device,
-                             stream_of(device));
+  if (!x.is_cuda() || !u.is_cuda() || x.get_device() != u.get_device() ||
+      !u.is_contiguous() || !leaf_rows(x, &L, &ldx))
+    return raise(PyExc_ValueError, "x must have rows of unit stride and u "
+                 "must be contiguous on one CUDA device");
+  const int device = x.get_device();
+  std::vector<int64_t> scale_shape(u.sizes().begin(), u.sizes().end());
+  scale_shape.back() = 1;
+  at::Tensor codes = at::empty(u.sizes(), u.options().dtype(at::kChar));
+  at::Tensor scales = at::empty(scale_shape, u.options());
+  const int err = g_quantize(x.data_ptr(), tag, L, D, ldx, u.data_ptr(),
+                             codes.data_ptr(), scales.data_ptr(), (int)B,
+                             (int)bits, device, stream_of(device));
   return launched("qinf_quantize_blocks", err, wrap2(codes, scales));
   END_HANDLE_TH_ERRORS
 }

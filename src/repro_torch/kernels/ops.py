@@ -7,7 +7,9 @@ block is one row of the (R, block) kernels in
 :mod:`repro_torch.kernels.quantize`.  The noise ``u`` is an input, drawn by
 the caller with the shape :func:`blockwise_shape` gives, exactly as the
 reference draws it.  A CUDA tensor goes through the kernels; a CPU tensor
-through their plain versions.
+through their plain versions.  On the card the quantizer pads nothing:
+kernel B1 takes the leaf as it lies and reads its ragged last block in
+place, the padding counting as zeros.
 
 ``pack_codes_lastdim`` / ``pack_codes`` turn int8 sign-magnitude codes into
 the uint8 wire format of the per-leaf wire path (offset codes
@@ -48,7 +50,20 @@ def qinf_quantize_lastdim(x: torch.Tensor, u: torch.Tensor, *, bits: int = 2,
                           block: int = 256):
     """Blockwise quantize along the last axis with noise ``u`` of shape
     ``blockwise_shape(x.shape, block)``.  Returns (codes int8
-    (..., nb, block), scales f32 (..., nb, 1))."""
+    (..., nb, block), scales f32 (..., nb, 1)).
+
+    A CUDA ``x`` goes to kernel B1 unpadded and uncast (f32, f64 and bf16
+    are read as they are; another dtype is first cast to f32, as the plain
+    path does): one launch, no pad and no reshape on the card.  Its last
+    axis must have unit stride and its leading axes collapse to one row
+    stride (any contiguous tensor does); the binding raises otherwise."""
+    if x.is_cuda:
+        if u.shape[-1:] != (block,) or u.dim() != max(x.dim(), 1) + 1:
+            raise ValueError(f"noise shape {tuple(u.shape)} != blocked shape "
+                             f"{blockwise_shape(x.shape, block)}")
+        if x.dtype not in qk._DTYPE_TAG:
+            x = x.float()
+        return qk.qinf_quantize_blocks(x, u, bits)
     xb = blockwise_lastdim(x, block=block)
     if tuple(u.shape) != tuple(xb.shape):
         raise ValueError(f"noise shape {tuple(u.shape)} != blocked shape "

@@ -31,9 +31,9 @@ C++ side and launches on the inputs' device and its current PyTorch
 stream.  The wrappers' own checks serve the CPU path only.  The C
 launcher switches device only if the tensors live on another one than the
 current and returns ``cudaGetLastError()``; the binding raises on any
-error, and :func:`_launch` counts the launch in :data:`LAUNCHES`.  B2 and
-B4 have a vector and a row variant; their C launchers pick one from the
-shape and the 16-byte alignment of inputs and outputs
+error, and :func:`_launch` counts the launch in :data:`LAUNCHES`.  B1, B2
+and B4 have a vector and a row variant; their C launchers pick one from
+the shape and the 16-byte alignment of inputs and outputs
 (:func:`uses_vector_variant` asks them).
 """
 from __future__ import annotations
@@ -199,7 +199,8 @@ def _libs() -> Dict[str, object]:
                           addr(w.qinf_quantize_pack_blocks_launch),
                           addr(w.qinf_unpack_dequant_mix_blocks_launch),
                           addr(q.qinf_error_string))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    q.qinf_quantize_blocks_vector.argtypes = [vp, i32, i64, i64, vp, i32]
     q.qinf_dequantize_blocks_vector.argtypes = [vp, vp, i32]
     w.qinf_unpack_dequant_mix_blocks_vector.argtypes = [vp, vp, vp, i32, i32]
     for kernel in LAUNCHES:
@@ -224,11 +225,21 @@ def _launch(kernel: str, *args):
 
 
 def uses_vector_variant(kernel: str, *args) -> bool:
-    """Whether the C launcher of B2 (``args``: codes and output pointers,
-    block) or B4 (payload, mix and qself pointers, payload width, senders)
-    takes its vector variant: the choice the launcher makes at every
-    launch, asked by the tests and ``chip_smoke.py``."""
+    """Whether the C launcher of B1 (``args``: the leaf x and its noise u,
+    tensors), B2 (codes and output pointers, block) or B4 (payload, mix and
+    qself pointers, payload width, senders) takes its vector variant: the
+    choice the launcher makes at every launch, asked by the tests and
+    ``chip_smoke.py``."""
     libs = _libs()
+    if kernel == "qinf_quantize_blocks":
+        x, u = args
+        D = x.shape[-1] if x.dim() else 1
+        # the row stride: that of the innermost leading axis longer than 1
+        ldx = next((x.stride(i) for i in reversed(range(x.dim() - 1))
+                    if x.shape[i] > 1), D)
+        return bool(libs["qinf"].qinf_quantize_blocks_vector(
+            x.data_ptr(), _DTYPE_TAG.get(x.dtype, -1), x.numel() // max(D, 1),
+            ldx, u.data_ptr(), u.shape[-1]))
     if kernel == "qinf_dequantize_blocks":
         return bool(libs["qinf"].qinf_dequantize_blocks_vector(*args))
     return bool(libs["qinf_wire"].qinf_unpack_dequant_mix_blocks_vector(*args))
@@ -243,7 +254,13 @@ def _plain_device(t: torch.Tensor) -> None:
 def qinf_quantize_blocks(x: torch.Tensor, u: torch.Tensor, bits: int):
     """B1: quantize (R, block) rows -> (codes int8 (R, block), scales f32
     (R, 1)).  ``x`` f32, f64 or bf16; ``u`` f32 U[0,1) noise of x's shape;
-    1 <= bits <= 7 (codes are int8 in [-2^{b-1}, 2^{b-1}])."""
+    1 <= bits <= 7 (codes are int8 in [-2^{b-1}, 2^{b-1}]).
+
+    On the card the kernel also takes a whole leaf x (..., D) with its
+    blocked noise u (..., ceil(D / block), block) and reads the ragged last
+    block in place (codes in u's shape, scales with its last axis 1), as
+    :func:`repro_torch.kernels.ops.qinf_quantize_lastdim` calls it; the
+    (R, block) call is the case D = block."""
     if x.is_cuda:
         return _launch("qinf_quantize_blocks", x, u, bits)
     if x.dim() != 2 or u.shape != x.shape:

@@ -343,7 +343,7 @@ def test_cuda_binding_names_each_fault():
     codes = torch.zeros((8, 256), dtype=torch.int8, device="cuda")
     scales = torch.ones((8, 1), device="cuda")
     before = tq.launch_counts()
-    with pytest.raises(ValueError, match="one \\(R, block\\) shape"):
+    with pytest.raises(ValueError, match="noise shape"):
         tq.qinf_quantize_blocks(x, x[:, :128].contiguous(), 2)
     with pytest.raises(ValueError, match="bits must be in 1..7"):
         tq.qinf_quantize_blocks(x, x, 8)
@@ -364,3 +364,194 @@ def test_cuda_binding_names_each_fault():
     with pytest.raises(ValueError, match="contiguous on one CUDA device"):
         tq.qinf_dequantize_blocks(codes[:, ::2], scales)
     assert tq.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# B1 on a whole leaf: the card route of ops.qinf_quantize_lastdim hands the
+# unpadded leaf and its blocked noise to the kernel, which reads the ragged
+# last block in place.
+# ---------------------------------------------------------------------------
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that answers ``is_cuda`` as a card tensor does: what
+    the wrappers route on."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((8, 7840), 256), ((3, 7, 11), 256), ((129,), 256), ((), 256),
+    ((5, 129), 128), ((4, 300), 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64, torch.float16])
+def test_lastdim_card_route_hands_the_leaf_to_b1(monkeypatch, shape, block,
+                                                 dtype):
+    """On the card route the leaf goes to _launch("qinf_quantize_blocks")
+    unpadded, unreshaped and, for the dtypes the kernel reads, uncast (any
+    other dtype as f32, what the plain path reads), with the blocked noise
+    as drawn; nothing is padded and the launcher's outputs come back."""
+    calls = []
+
+    def fake(*args):
+        calls.append(args)
+        return "codes", "scales"
+
+    def no_pad(*args, **kwargs):
+        raise AssertionError("the card route pads nothing")
+
+    monkeypatch.setattr(tq, "_LAUNCHERS", {"qinf_quantize_blocks": fake})
+    monkeypatch.setattr(tops, "blockwise_lastdim", no_pad)
+    tq.reset_launch_counts()
+    x = (torch.randn(shape, generator=torch.Generator().manual_seed(3))
+         .to(dtype).as_subclass(_OnCard))
+    u = torch.rand(tops.blockwise_shape(shape, block))
+    assert tops.qinf_quantize_lastdim(x, u, bits=3, block=block) == (
+        "codes", "scales")
+    (xa, ua, bits), = calls
+    assert ua is u and bits == 3
+    if dtype == torch.float16:
+        assert xa.dtype == torch.float32 and xa.shape == x.shape
+        assert torch.equal(xa.as_subclass(torch.Tensor),
+                           x.as_subclass(torch.Tensor).float())
+    else:
+        assert xa is x
+    assert tq.launch_counts()["qinf_quantize_blocks"] == 1
+    tq.reset_launch_counts()
+
+
+@pytest.mark.parametrize("bad", [(8, 31, 128), (8, 7936), (248, 256)])
+def test_lastdim_card_route_refuses_noise_of_another_block(monkeypatch, bad):
+    """A noise whose last axis is not the block, or which is not blocked
+    (one axis more than the leaf), raises before any launch."""
+    monkeypatch.setattr(tq, "_LAUNCHERS", {"qinf_quantize_blocks": None})
+    tq.reset_launch_counts()
+    x = torch.zeros((8, 7840)).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="noise shape"):
+        tops.qinf_quantize_lastdim(x, torch.zeros(bad), block=256)
+    assert sum(tq.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((8, 7840), 256), ((3, 7, 11), 256), ((129,), 256), ((), 256),
+    ((5, 129), 128), ((4, 300), 8), ((2, 3, 520), 256)])
+def test_lastdim_cpu_route_keeps_the_blocked_shapes(shape, block):
+    """The CPU route is unchanged: codes in the blocked shape, scales with
+    its last axis 1, the padded tail's codes 0, equal to the plain version
+    on the zero-padded rows."""
+    g = torch.Generator().manual_seed(len(shape) + block)
+    x = torch.randn(shape, generator=g) * 3
+    want = tops.blockwise_shape(shape, block)
+    u = torch.rand(want, generator=g)
+    codes, scales = tops.qinf_quantize_lastdim(x, u, bits=2, block=block)
+    assert tuple(codes.shape) == want and codes.dtype == torch.int8
+    assert tuple(scales.shape) == want[:-1] + (1,)
+    D = shape[-1] if shape else 1
+    tail = -D % block
+    if tail:
+        assert int(codes[..., -1, block - tail:].abs().max()) == 0
+    cr, sr = tref.qinf_quantize_blocks_ref(
+        tops.blockwise_lastdim(x, block=block).reshape(-1, block),
+        u.reshape(-1, block), 2)
+    assert torch.equal(codes.reshape(-1, block), cr)
+    assert torch.equal(scales.reshape(-1, 1), sr)
+
+
+@pytest.mark.parametrize("bad", [(8, 30, 256), (8, 31, 128), (248, 256),
+                                 (8, 7840)])
+def test_lastdim_cpu_route_refuses_a_noise_of_another_shape(bad):
+    with pytest.raises(ValueError, match="noise shape"):
+        tops.qinf_quantize_lastdim(torch.zeros((8, 7840)), torch.zeros(bad),
+                                   block=256)
+
+
+# (label, leaf shape, block, storage offset in elements, row stride or None,
+# first zeroed element of the last axis or None, B1 takes its vector
+# variant): the cases of chip_smoke.py's phase 3.  Vector: rows whose every
+# block starts 16-byte aligned, blocks of at most 1024 elements; row: rows
+# that break the alignment, a view off it, a block wider than 1024.
+_B1_CASES = [
+    ("main", (8, 7840), 256, 0, None, None, True),
+    ("block128", (8, 7840), 128, 0, None, None, True),
+    ("ragged1d", (129,), 256, 0, None, None, True),
+    ("zero_tail", (4, 320), 256, 0, None, 256, True),
+    ("row_stride", (8, 7840), 256, 0, 8000, None, True),
+    ("ragged3d", (3, 7, 11), 256, 0, None, None, False),
+    ("unaligned_rows", (5, 129), 256, 0, None, None, False),
+    ("offset_view", (8, 7840), 256, 1, None, None, False),
+    ("wide_block", (8, 7840), 2048, 0, None, None, False),
+]
+
+
+def _b1_leaf(shape, offset, row_stride, zero_from, dtype, g):
+    """A leaf of ``shape`` on the card: ``offset`` elements into its
+    buffer, rows ``row_stride`` apart (a view of wider rows), its last axis
+    zero from ``zero_from`` on."""
+    D = shape[-1]
+    lead = shape[:-1]
+    width = row_stride or D
+    n = offset + int(np.prod(lead, dtype=np.int64)) * width
+    buf = (torch.randn(n, generator=g, device="cuda") * 3).to(dtype)
+    x = buf[offset:].view(*lead, width)[..., :D]
+    if zero_from is not None:
+        x[..., zero_from:] = 0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,block,offset,row_stride,zero_from,vector",
+                         _B1_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_cuda_lastdim_matches_plain(label, shape, block, offset, row_stride,
+                                    zero_from, vector, dtype):
+    """B1 on a leaf, its ragged last block read in place, against the
+    plain version on the zero-padded rows, bits 1-7: codes and scales
+    exactly equal, in the blocked shapes; each case takes the variant it
+    names, and each call is one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(len(label))
+    x = _b1_leaf(shape, offset, row_stride, zero_from, dtype, g)
+    u = torch.rand(tops.blockwise_shape(shape, block), generator=g,
+                   device="cuda")
+    assert tq.uses_vector_variant("qinf_quantize_blocks", x, u) is vector
+    xb = tops.blockwise_lastdim(x, block=block).reshape(-1, block)
+    before = tq.launch_counts()["qinf_quantize_blocks"]
+    for bits in range(1, 8):
+        ck, sk = tops.qinf_quantize_lastdim(x, u, bits=bits, block=block)
+        assert ck.shape == u.shape and sk.shape == u.shape[:-1] + (1,)
+        cr, sr = tref.qinf_quantize_blocks_ref(xb, u.reshape(-1, block), bits)
+        assert torch.equal(ck.reshape(-1, block), cr), f"codes, bits={bits}"
+        assert torch.equal(sk.reshape(-1, 1), sr), f"scales, bits={bits}"
+        if zero_from is not None:
+            assert float(sk[..., -1, :].abs().max()) == 0.0
+            assert int(ck[..., -1, :].abs().max()) == 0
+    assert tq.launch_counts()["qinf_quantize_blocks"] == before + 7
+
+
+@pytest.mark.cuda
+def test_cuda_b1_binding_refuses_a_wrong_noise_or_layout():
+    """The binding holds the noise to the leaf's blocked shape (or, for
+    rows of one block, to the leaf's own shape) and the leaf to rows of
+    unit stride; each fault raises the ValueError naming it and nothing
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x = torch.zeros((8, 7840), device="cuda")
+    before = tq.launch_counts()
+    for bad in [(8, 30, 256), (8, 31, 128), (248, 256), (8, 32, 256), ()]:
+        with pytest.raises(ValueError, match="noise shape"):
+            tq.qinf_quantize_blocks(x, torch.zeros(bad, device="cuda"), 2)
+    y = torch.zeros((4, 6, 256), device="cuda")[:, :3]   # axes do not collapse
+    with pytest.raises(ValueError, match="rows of unit stride"):
+        tq.qinf_quantize_blocks(y, torch.zeros((4, 3, 1, 256), device="cuda"),
+                                2)
+    with pytest.raises(ValueError, match="rows of unit stride"):
+        tq.qinf_quantize_blocks(x.t(), torch.zeros((7840, 1, 8),
+                                                   device="cuda"), 2)
+    assert tq.launch_counts() == before
+    c, s = tq.qinf_quantize_blocks(x[:, :256].contiguous(),
+                                   torch.zeros((8, 256), device="cuda"), 2)
+    assert c.shape == (8, 256) and s.shape == (8, 1)
