@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    B1 through ``ops.qinf_quantize_lastdim``, which hands it the leaf
    unpadded (the kernel reads the ragged last block in place), against
    the plain version on the zero-padded rows, and B2 on its codes; bits
-   {1,2,3,4,7}, x in f32, bf16 and f64, on the leaves of B1_CASES: the
+   {1,2,3,4,7,8} (at 8 the code +128 saturates to +127, as in the
+   reference), x in f32, bf16 and f64, on the leaves of B1_CASES: the
    main path's (8 nodes x 7840 -> 8 x 31 blocks of 256), block 128, ragged
    last dims (129,) and (3, 7, 11), a block of zeros, a last block of
    zeros before the pad, rows cut from wider ones, rows off the 16-byte
@@ -60,7 +61,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    (8 nodes x 700,456 rows of 256) and its block-128 q_norm/k_norm group
    (8 nodes x 4 rows of 128), 2 bits, ring payloads (S = 3), T = 1; both
    kernels are timed at the block-256 group.
-6. The trainer path (slice 2): ``api.build(spec)`` on the card for
+6. The trainer path: ``api.build(spec)`` on the card for
    qwen3-1.7b at its published widths (2 of 28 layers, the first eighth of
    the vocabulary), 8 nodes on a ring, the neighbor-gossip backend with
    the bucketed wire (2-bit QInf, block 256), f32, full f32 products
@@ -82,7 +83,27 @@ Phases, in order; any failure exits non-zero before the result lines:
    from the card's state, the CPU path drawing and the card replaying the
    same noise; X, D, H and Hw within 1e-4 x max of each array on all but
    0.1 % of elements.
-9. Result lines: ``{"kernels": [...]}`` (B1-B4), the nvidia-smi line,
+9. The paper's comparisons on the card (``repro_torch.paper``, the
+   registered ``logreg`` problem at its defaults: 8 nodes on a ring,
+   784x10 flattened, 150 samples and 15 batches a node, lambda2 = 0.005;
+   f64).  (a) The Fig. 1 and Fig. 2 grids, 13 and 11 rows of PAPER_STEPS
+   steps, each row through ``api.build(spec)``: the launch counters are
+   zeroed just before each row and read just after it; a 2-bit row must
+   launch B1 and B2 once a step, an uncompressed row neither; every claim
+   of ``validate`` must pass, and each is printed with its value, as is
+   each row's final suboptimality, bits and ms a step.  (b) The Table 3
+   rows: each measured rate within its theorem envelope (rho_hat <= rho +
+   1e-3); a ``torch.profiler`` window of PAPER_PROFILE_STEPS steps of the
+   LEAD (2bit) row (device busy share, every device operation by name, B1
+   once a step).  (c) DGD, PG-EXTRA, Choco (2 bit) and LessBit (2 bit) at the
+   paper's rows: PAPER_REPLAY_STEPS steps, each started from the card's
+   state and held against one step of the plain CPU path with the same
+   draws, at phase 4's tolerance.  (d) ``empirical_C`` of 2-bit QInf on
+   the (8, 7840) leaf with EMPIRICAL_C_TRIALS trials: one B1 and one B2
+   launch, equal (to 1e-12 relative: the error sums reduce in another
+   order) to the plain version's value from the same noise, at most the
+   compressor's analytic C.
+10. Result lines: ``{"kernels": [...]}`` (B1-B4), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Everything is also written to
    ``chiprun_out/chip_smoke.json``.
 
@@ -121,6 +142,11 @@ SLICE_GROUP_ROWS = 700_456  # block-256 rows per node at the slice's widths
 SLICE_SMALL_GROUP_ROWS = 4  # block-128 rows per node (q_norm, k_norm x 2)
 SLICE_BITS_PER_STEP = 2 * 739_683_712   # 2 hops x the per-edge payload
 REPLAY_STEPS_SLICE = 5      # small trainer steps held against the CPU
+PAPER_STEPS = 800           # steps of a Fig. 1 / Fig. 2 row (the paper's)
+PAPER_REPLAY_STEPS = 20     # baseline steps held against the CPU path
+EMPIRICAL_C_TRIALS = 64
+PAPER_PROFILE_STEPS = 50    # LEAD (2bit) steps under torch.profiler
+B1, B2 = "qinf_quantize_blocks", "qinf_dequantize_blocks"
 
 
 # kernel B1 in a profile, and the fill and copy kernels of a pad (F.pad's
@@ -245,7 +271,7 @@ def b1_leaf(torch, shape, offset, row_stride, zero_from, dtype, g,
 def check_kernels(torch, ops, qk, ref, errs, cases=B1_CASES, device="cuda"):
     """B1 through ``ops.qinf_quantize_lastdim`` (the leaf unpadded, its
     ragged tail read in place) and B2 on its codes, against the plain
-    versions on the zero-padded rows, bits {1,2,3,4,7}, x f32/bf16/f64;
+    versions on the zero-padded rows, bits {1,2,3,4,7,8}, x f32/bf16/f64;
     each case must take the B1 variant it names.  Records the largest
     difference per kernel in ``errs`` and fails on any."""
     g = torch.Generator(device=device).manual_seed(0)
@@ -263,7 +289,7 @@ def check_kernels(torch, ops, qk, ref, errs, cases=B1_CASES, device="cuda"):
                 f"B1 at {label} {dtype} must take the "
                 f"{'vector' if vector else 'row'} variant")
             xb = ops.blockwise_lastdim(x, block=block).reshape(-1, block)
-            for bits in (1, 2, 3, 4, 7):
+            for bits in (1, 2, 3, 4, 7, 8):
                 ck, sk = ops.qinf_quantize_lastdim(x, u, bits=bits,
                                                    block=block)
                 require(ck.shape == u.shape
@@ -477,7 +503,8 @@ def mnist_spec(api, steps: int):
                             "lam2": 0.005}))
 
 
-def profile_steps(torch, runner, st, draws, steps: int = PROFILE_STEPS):
+def profile_steps(torch, runner, st, draws, steps: int = PROFILE_STEPS,
+                  trace_name: str = "main_path_trace.json"):
     """Where a step's time goes: ``torch.profiler`` over ``steps`` steps;
     device time is the sum of the kernel, memcpy and memset spans of the
     exported trace, the busy share that sum over the fenced wall time;
@@ -493,7 +520,7 @@ def profile_steps(torch, runner, st, draws, steps: int = PROFILE_STEPS):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     OUT_DIR.mkdir(exist_ok=True)
-    trace = OUT_DIR / "main_path_trace.json"
+    trace = OUT_DIR / trace_name
     prof.export_chrome_trace(str(trace))
     device = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") in
@@ -1096,6 +1123,140 @@ def trainer_card_vs_cpu(torch, api, convert, draws_mod, tree,
             "worst_off_fraction": worst_frac, "worst_rel_max": worst_rel}
 
 
+# --- phase 9 -------------------------------------------------------------------
+
+def paper_grid(torch, qk, cm, fig, steps: int = PAPER_STEPS,
+               device="cuda"):
+    """One figure's grid on ``device``, row by row, the launch counters
+    zeroed around each row; every claim must pass."""
+    t0 = time.perf_counter()
+    grid, xstar = fig.setup(steps, device=device)
+    solve_s = time.perf_counter() - t0
+    rows = []
+    for label, spec in grid:
+        qk.reset_launch_counts()
+        [r] = cm.run_cells([(label, spec)], xstar, steps, device=device)
+        n = qk.launch_counts()
+        want = steps if spec.compressor.name == "qinf" else 0
+        require(n[B1] == want and n[B2] == want and sum(n.values()) ==
+                2 * want, f"{label}: launches {n}, want {want} of B1 and of "
+                f"B2 ({steps} steps)")
+        require(all(math.isfinite(v) for v in r.subopt),
+                f"{label}: non-finite suboptimality")
+        rows.append({**r.row(), "launches": {B1: n[B1], B2: n[B2]}})
+    checks = [{"claim": c, "ok": bool(ok), "value": str(v)}
+              for c, ok, v in fig.validate(rows)]
+    failed = [c["claim"] for c in checks if not c["ok"]]
+    require(not failed, f"claims failed: {failed}")
+    return {"rows": rows, "checks": checks, "solve_reference_s": solve_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def baseline_card_vs_cpu(torch, api, convert, draws_mod, label, spec,
+                         steps: int = PAPER_REPLAY_STEPS, device="cuda"):
+    """A baseline, one step at a time from the card's state: the plain CPU
+    path draws, the card replays; X compared at phase 4's tolerance."""
+    f64 = torch.float64
+    cpu = api.build(spec, device="cpu", dtype=f64)
+    card = api.build(spec, device=device, dtype=f64)
+    gen = draws_mod.GeneratorDraws(spec.seed, "cpu")
+    rec = draws_mod.RecordingDraws(gen)
+    cpu.init_state(rec)
+    st = card.init_state(draws_mod.ReplayDraws(rec.record, device))
+    worst_frac = worst_rel = 0.0
+    for _ in range(steps):
+        rec = draws_mod.RecordingDraws(gen)
+        want = cpu.step(convert.simple_state_from_arrays(
+            convert.simple_state_to_arrays(st), device="cpu", dtype=f64),
+            rec)
+        replay = draws_mod.ReplayDraws(rec.record, device)
+        st = card.step(st, replay)
+        require(not replay.pending, "the card drew less than the CPU path")
+        got = st.X.cpu()
+        scale = float(want.X.abs().max())
+        off = (got - want.X).abs() > REPLAY_ELEM_TOL * scale
+        worst_frac = max(worst_frac, float(off.double().mean()))
+        worst_rel = max(worst_rel, float((got - want.X).abs().max()) / scale)
+        require(worst_frac <= REPLAY_MAX_OFF,
+                f"{label} card vs CPU step {st.k}: {int(off.sum())} of "
+                f"{off.numel()} elements of X differ by more than "
+                f"{REPLAY_ELEM_TOL} x max|X|")
+    return {"steps": steps, "worst_off_fraction": worst_frac,
+            "worst_rel_max": worst_rel}, st.X
+
+
+def empirical_C_on_card(torch, qk, compression, draws_mod, x,
+                        trials: int = EMPIRICAL_C_TRIALS):
+    """2-bit QInf's empirical C on ``x``: one B1 and one B2 launch on the
+    card, the plain version's value from the same noise, the analytic C."""
+    comp = compression.make_compressor("qinf", bits=2, block=256)
+    rec = draws_mod.RecordingDraws(draws_mod.GeneratorDraws(0, x.device))
+    qk.reset_launch_counts()
+    got = compression.empirical_C(comp, x, rec, trials=trials)
+    n = qk.launch_counts()
+    require(n[B1] == 1 and n[B2] == 1 and sum(n.values()) == 2,
+            f"empirical_C launched {n}, want one B1 and one B2")
+    plain = compression.empirical_C(
+        comp, x.cpu(), draws_mod.ReplayDraws([u.cpu() for u in rec.record],
+                                             "cpu"), trials=trials)
+    require(abs(got - plain) <= 1e-12 * abs(plain),
+            f"empirical_C {got!r} on the card, {plain!r} plain")
+    require(0.0 < got <= comp.C, f"empirical_C {got} outside (0, {comp.C}]")
+    return {"trials": trials, "leaf": list(x.shape), "C_card": got,
+            "C_plain": plain, "C_analytic": comp.C, "launches": n}
+
+
+def paper_comparisons(torch, api, convert, draws_mod, qk, device="cuda",
+                      steps: int = PAPER_STEPS,
+                      replay_steps: int = PAPER_REPLAY_STEPS):
+    from repro_torch.core import compression
+    from repro_torch.paper import common as cm
+    from repro_torch.paper import fig1_smooth, fig2_nonsmooth
+    from repro_torch.paper import table3_complexity as table3
+    out = {"grids": {}}
+    for key, fig in (("fig1", fig1_smooth), ("fig2", fig2_nonsmooth)):
+        out["grids"][key] = paper_grid(torch, qk, cm, fig, steps, device)
+    L = cm.estimate_L(cm.flat_logreg(device="cpu"))
+    eta = 1.0 / (2 * L)
+    by = dict(fig1_smooth.cells(replay_steps, eta, eta / 3)
+              + fig2_nonsmooth.cells(replay_steps, eta, eta / 3))
+    # where a 2-bit row's step goes: LEAD (2bit) of Fig. 1 under the profiler
+    spec = by["LEAD (2bit)"]
+    runner = api.build(spec, device=device, dtype=torch.float64)
+    d = draws_mod.GeneratorDraws(spec.seed, device)
+    st = runner.init_state(d)
+    for _ in range(5):
+        st = runner.step(st, d)
+    out["lead2_profile"] = profile_steps(torch, runner, st, d,
+                                         PAPER_PROFILE_STEPS,
+                                         "paper_lead2bit_trace.json")
+    require(out["lead2_profile"]["b1_per_step"] == 1,
+            "the LEAD (2bit) profile saw "
+            f"{out['lead2_profile']['b1_per_step']} B1 launches a step")
+    # (b) Table 3: measured rates within their theorem envelopes
+    t0 = time.perf_counter()
+    qk.reset_launch_counts()
+    rows = table3.run(device=device)
+    out["table3"] = {"rows": rows, "launches": qk.launch_counts(),
+                     "seconds": time.perf_counter() - t0}
+    bad = [r["name"] for r in rows if not r["ok"]]
+    require(not bad, f"Table 3 rates outside their envelopes: {bad}")
+    # (c) the baselines, card against CPU, at the paper's rows
+    out["card_vs_cpu"] = {}
+    for label in ("DGD", "PG-EXTRA/P2D2 (32bit)", "Choco (2bit)",
+                  "LessBit (2bit)"):
+        out["card_vs_cpu"][label], X = baseline_card_vs_cpu(
+            torch, api, convert, draws_mod, label, by[label], replay_steps,
+            device)
+    # (d) empirical_C on the last LessBit iterate
+    out["empirical_C"] = empirical_C_on_card(torch, qk, compression,
+                                             draws_mod, X)
+    return out
+
+
+T_START = time.perf_counter()
+
+
 def main() -> int:
     # the trainer's state arrays are GB-sized and freed in another order
     # than they were allocated: let the allocator grow segments instead of
@@ -1262,6 +1423,49 @@ def main() -> int:
               f"worst off fraction {cc['worst_off_fraction']:.2e}, worst "
               f"|diff|/max {cc['worst_rel_max']:.2e}", flush=True)
 
+        # 9. the paper's comparisons on the card
+        t0 = time.perf_counter()
+        pc = paper_comparisons(torch, api, convert, draws_mod, qk)
+        pc["seconds"] = time.perf_counter() - t0
+        result["paper"] = pc
+        for key, g in pc["grids"].items():
+            print(f"[paper] {key}: {len(g['rows'])} rows x {PAPER_STEPS} "
+                  f"steps, f64, in {g['seconds']:.1f} s (X* by "
+                  f"solve_reference {g['solve_reference_s']:.1f} s) | {smi}",
+                  flush=True)
+            for r in g["rows"]:
+                print(f"[paper]   {r['name']:24s} final subopt "
+                      f"{r['final_subopt']:.4e}  {r['bits_per_iter']:.0f} "
+                      f"bits/step  {r['ms_per_step']:.4f} ms/step  B1/B2 "
+                      f"launches {r['launches'][B1]}/{r['launches'][B2]}",
+                      flush=True)
+            for c in g["checks"]:
+                print(f"[paper]   [{'PASS' if c['ok'] else 'FAIL'}] "
+                      f"{c['claim']}   [{c['value']}]", flush=True)
+        pf = pc["lead2_profile"]
+        print(f"[paper] profile of LEAD (2bit), {pf['steps']} steps: "
+              f"{pf['wall_ms_per_step']:.4f} ms/step wall, "
+              f"{pf['device_ms_per_step']:.4f} ms/step on the device (busy "
+              f"{pf['busy_share']:.1%}), {pf['device_ops_per_step']:.0f} "
+              f"device ops/step | {smi}", flush=True)
+        for t_ in pf["names"][:12]:
+            print(f"[paper]   {t_['us_per_step']:8.2f} us/step "
+                  f"x{t_['per_step']:.0f}  {t_['name']}", flush=True)
+        for r in pc["table3"]["rows"]:
+            print(f"[paper] table3 {r['name']:18s} rho measured "
+                  f"{r['rho_measured']:.6f} <= theory {r['rho_theory']:.6f}"
+                  f" + 1e-3: {r['ok']}", flush=True)
+        for label, v in pc["card_vs_cpu"].items():
+            print(f"[paper] card vs CPU, {v['steps']} steps of {label}: "
+                  f"worst off fraction {v['worst_off_fraction']:.2e}, worst "
+                  f"|diff|/max {v['worst_rel_max']:.2e}", flush=True)
+        ec = pc["empirical_C"]
+        print(f"[paper] empirical_C (2-bit QInf, {ec['leaf']}, "
+              f"{ec['trials']} trials): {ec['C_card']!r} on the card, "
+              f"{ec['C_plain']!r} plain, analytic C {ec['C_analytic']}; "
+              f"launches {ec['launches']}; phase {pc['seconds']:.1f} s",
+              flush=True)
+
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1278,7 +1482,10 @@ def main() -> int:
              "src/repro/kernels/quantize.py:169")):
         if name_ in times["main"]:     # B1/B2: the dense main path
             m, launches = times["main"][name_], mp["launches"][name_]
-            extra = {"large": times["large"][name_]}
+            extra = {"large": times["large"][name_], "paper_launches": {
+                r["name"]: r["launches"][name_]
+                for g in pc["grids"].values() for r in g["rows"]
+                if r["launches"][name_]}}
             if name_ == "qinf_quantize_blocks":
                 extra["main_path_leaf"] = b1_main
         else:                          # B3/B4: the trainer path
@@ -1294,6 +1501,9 @@ def main() -> int:
             "rows": m["rows"], **extra})
     result["kernels"] = kernels
     result["card"] = smi
+    result["seconds"] = time.perf_counter() - T_START
+    print(f"[done] chip_smoke.py ran {result['seconds']:.1f} s, the build "
+          f"included | {smi}", flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}))

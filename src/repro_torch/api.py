@@ -2,7 +2,8 @@
 
 The spec dataclasses read the same JSON as ``repro.api`` (the golden files
 under ``tests/golden_specs``).  The port runs two engines: ``dense``
-(:class:`DenseRunner`: Prox-LEAD and friends over a DenseMixer) and
+(:class:`DenseRunner`: Prox-LEAD, LEAD, NIDS and the six baselines of
+``core.baselines`` over a DenseMixer) and
 ``sharded`` (:class:`TrainerRunner`: the decentralized NN trainer, dense
 or neighbor-gossip backend, static schedules); a spec for anything else is
 refused with the slice that will bring it.  ``build(spec)`` resolves every
@@ -15,10 +16,11 @@ card unless the caller passes ``device="cpu"``::
 
 Randomness is a draw source (``core.draws``): ``run`` makes one from
 ``spec.seed`` on the run's device unless it is handed one, and calls it in
-a fixed order.  Dense engine: the oracle's draws at init, then every step
-the oracle's draws followed by one noise array per compressed leaf.
-Sharded engine: every step one noise array per compressed leaf (the
-trainer's data stream is its own, ``data.pipeline``).
+a fixed order.  Dense engine: the algorithm's draws at init (the
+oracle's, where it samples there), then every step the oracle's draws
+followed by the compressor's draws for each compressed leaf.
+Sharded engine: every step the compressor's draws for each compressed
+leaf (the trainer's data stream is its own, ``data.pipeline``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch import configs, registry, tree
 # imported for their registration side effects
+from repro_torch.core import baselines as _baselines            # noqa: F401
 from repro_torch.core import compression as _compression        # noqa: F401
 from repro_torch.core import oracles as _oracles                # noqa: F401
 from repro_torch.core import prox as _prox                      # noqa: F401
@@ -49,12 +52,11 @@ from repro_torch.optim import decentralized as dec
 # engines of the reference that later slices of the port bring
 _LATER_ENGINES = {
     "netsim": dec.NETSIM_SLICE,
-    "sweep": "slice 6 (ROADMAP A18: the sweep engine)",
+    "sweep": "the sweep slice (ROADMAP A18: the sweep engine)",
 }
 #: model-sharded meshes need more than one card
 MULTI_CARD_SLICE = ("the multi-card slice (ROADMAP: NCCL point-to-point "
                     "behind the pp seam, 4 cards)")
-BIASED_SLICE = "slice 2 (RandK/TopK, with the baselines of ROADMAP A10)"
 #: the reference's TrainerConfig fields that no ported path reads: a spec
 #: may set them to their defaults (field -> (default, the slice that
 #: brings it)); any other value is refused
@@ -63,8 +65,6 @@ LATER_TRAINER_FIELDS = {
     "schedule_drop": (0.0, dec.NETSIM_SLICE),
     "drop_rate": (0.0, dec.NETSIM_SLICE),
     "fault_seed": (0, dec.NETSIM_SLICE),
-    "allow_biased": (False, BIASED_SLICE),
-    "frac": (0.1, BIASED_SLICE),
     "shard_aligned_blocks": (False, MULTI_CARD_SLICE),
     "tp_ways": (16, MULTI_CARD_SLICE),
 }
@@ -354,7 +354,8 @@ def device_label(device: torch.device) -> str:
 
 
 class DenseRunner:
-    """Prox-LEAD / LEAD / NIDS over a DenseMixer, stacked leaves.
+    """Any dense algorithm (Prox-LEAD and the baselines) over a DenseMixer,
+    stacked leaves.
 
     ``init_state(draws)`` and ``step(state, draws)`` are the algorithm's;
     ``run`` is the driver loop (one init, ``num_steps`` steps)."""
@@ -397,18 +398,31 @@ class DenseRunner:
             name=self.spec.name if self.spec else "dense", engine="dense",
             device=device_label(self.device), steps=num_steps,
             total_s=sp.elapsed_s, bits_per_step=self.bits_per_step(),
-            extra={"algo": type(self.algo).__name__})
+            extra={"algo": getattr(self.algo, "name",
+                                   type(self.algo).__name__)})
         return state, logs
 
     def bits_per_step(self, X=None) -> float:
         """Exact bits ONE node sends per step: per-edge payload bits times
-        the node's out-degree under the mixer's W support."""
+        the node's out-degree under the mixer's W support.  An algorithm
+        without a compressor is priced uncompressed (f32); 0.0 when the
+        mixer has no explicit W (nothing to price)."""
         X = X if X is not None else self.X0
         per_edge = netsim_metrics.payload_bits_per_node(
-            self.algo.compressor, X)
-        Wn = np.abs(np.asarray(self.algo.mixer.W))
+            getattr(self.algo, "compressor", None), X)
+        W = getattr(getattr(self.algo, "mixer", None), "W", None)
+        if W is None:
+            return 0.0
+        Wn = np.abs(np.asarray(W))
         directed = int((Wn > 1e-12).sum() - (np.diag(Wn) > 1e-12).sum())
         return per_edge * directed / Wn.shape[0]
+
+
+def runner_for(algo, X0, *, spec: Optional[ExperimentSpec] = None,
+               problem=None) -> DenseRunner:
+    """Wrap an already-built dense algorithm (ProxLEAD or any baseline) in
+    the runner protocol."""
+    return DenseRunner(algo, X0, spec=spec, problem=problem)
 
 
 def build_algorithm(spec: ExperimentSpec, mixer, oracle):
@@ -559,12 +573,11 @@ def trainer_config_from_spec(spec: ExperimentSpec) -> dec.TrainerConfig:
     kw = dict(
         n_nodes=spec.n_nodes, **consts,
         compressor=spec.compressor.name,
+        allow_biased=bool(spec.algorithm.params.get("allow_biased", False)),
         prox=spec.prox.build(), topology=spec.topology.graph,
         backend=spec.execution.backend, schedule=spec.topology.schedule,
         wire_mode=spec.execution.wire_mode,
         pack_mode=spec.execution.pack_mode, seed=spec.seed)
-    _later_field("allow_biased",
-                 bool(spec.algorithm.params.get("allow_biased", False)))
     extra = set(spec.algorithm.params) - {"allow_biased"}
     if extra:
         raise ValueError(f"sharded engine: unsupported algorithm params "

@@ -12,6 +12,14 @@ point: the reference stores a 0-d integer placeholder there, the port
 ``None``.  Floating arrays take the chosen dtype and device; the counter
 and the oracle tag become Python ints.
 
+A baseline's state (``repro.core.baselines.SimpleState``) crosses as
+
+    X, aux, oracle.kind, oracle.ref, oracle.ref_grad, k
+
+where ``aux`` is the algorithm's own: a 0-d integer placeholder in the
+reference (``None`` in the port) for DGD and Centralized, a tree for
+Choco-SGD, a tuple of trees for PG-EXTRA, NIDS and LessBit.
+
 A trainer state (``repro.optim.decentralized.TrainState``) crosses as
 
     X, D, comm.H, comm.Hw, k, step, precond.m, precond.v
@@ -28,6 +36,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import SimpleState
 from repro_torch.core.comm import CommState
 from repro_torch.core.oracles import OracleState
 from repro_torch.core.prox_lead import ProxLEADState
@@ -43,42 +52,79 @@ def _is_placeholder(a) -> bool:
     return a.ndim == 0 and np.issubdtype(a.dtype, np.integer)
 
 
-def state_from_arrays(arrays: Mapping[str, Any], *, device,
-                      dtype: torch.dtype) -> ProxLEADState:
-    """Arrays (see module docstring) -> the port's state on ``device``."""
-    missing = [k for k in KEYS if k not in arrays]
+SIMPLE_KEYS = ("X", "aux", "oracle.kind", "oracle.ref", "oracle.ref_grad",
+               "k")
+
+
+def _check_keys(arrays: Mapping[str, Any], keys) -> None:
+    missing = [k for k in keys if k not in arrays]
     if missing:
         raise KeyError(f"state arrays lack {missing}")
 
-    def to_t(tree):
-        if not isinstance(tree, (dict, list, tuple)) and _is_placeholder(tree):
-            return None
-        return tree_map(lambda a: torch.as_tensor(
-            np.array(a), dtype=dtype, device=device), tree)
 
+def _to_torch(tree, device, dtype):
+    """A tree of arrays -> tensors; a bare 0-d integer placeholder -> None."""
+    if not isinstance(tree, (dict, list, tuple)) and _is_placeholder(tree):
+        return None
+    return tree_map(lambda a: torch.as_tensor(
+        np.array(a), dtype=dtype, device=device), tree)
+
+
+def _to_numpy(tree):
+    """Tensors -> numpy arrays; ``None`` -> the reference's 0-d int32
+    placeholder."""
+    if tree is None:
+        return np.int32(0)
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _oracle_from(arrays, device, dtype) -> OracleState:
+    return OracleState(int(np.asarray(arrays["oracle.kind"])),
+                       _to_torch(arrays["oracle.ref"], device, dtype),
+                       _to_torch(arrays["oracle.ref_grad"], device, dtype))
+
+
+def _oracle_to(oracle: OracleState) -> Dict[str, Any]:
+    return {"oracle.kind": np.int32(oracle.kind),
+            "oracle.ref": _to_numpy(oracle.ref),
+            "oracle.ref_grad": _to_numpy(oracle.ref_grad)}
+
+
+def state_from_arrays(arrays: Mapping[str, Any], *, device,
+                      dtype: torch.dtype) -> ProxLEADState:
+    """Arrays (see module docstring) -> the port's state on ``device``."""
+    _check_keys(arrays, KEYS)
+    to_t = lambda k: _to_torch(arrays[k], device, dtype)     # noqa: E731
     return ProxLEADState(
-        X=to_t(arrays["X"]), D=to_t(arrays["D"]),
-        comm=CommState(to_t(arrays["comm.H"]), to_t(arrays["comm.Hw"])),
-        oracle=OracleState(int(np.asarray(arrays["oracle.kind"])),
-                           to_t(arrays["oracle.ref"]),
-                           to_t(arrays["oracle.ref_grad"])),
+        X=to_t("X"), D=to_t("D"), comm=CommState(to_t("comm.H"),
+                                                 to_t("comm.Hw")),
+        oracle=_oracle_from(arrays, device, dtype),
         k=int(np.asarray(arrays["k"])))
 
 
 def state_to_arrays(state: ProxLEADState) -> Dict[str, Any]:
     """The port's state -> numpy arrays under :data:`KEYS` (``None``
     reference points become the reference's 0-d int32 placeholder)."""
-    def to_np(tree):
-        if tree is None:
-            return np.int32(0)
-        return tree_map(lambda t: t.detach().cpu().numpy(), tree)
-
-    return {"X": to_np(state.X), "D": to_np(state.D),
-            "comm.H": to_np(state.comm.H), "comm.Hw": to_np(state.comm.Hw),
-            "oracle.kind": np.int32(state.oracle.kind),
-            "oracle.ref": to_np(state.oracle.ref),
-            "oracle.ref_grad": to_np(state.oracle.ref_grad),
+    return {"X": _to_numpy(state.X), "D": _to_numpy(state.D),
+            "comm.H": _to_numpy(state.comm.H),
+            "comm.Hw": _to_numpy(state.comm.Hw), **_oracle_to(state.oracle),
             "k": np.int32(state.k)}
+
+
+def simple_state_from_arrays(arrays: Mapping[str, Any], *, device,
+                             dtype: torch.dtype) -> SimpleState:
+    """Arrays under :data:`SIMPLE_KEYS` -> a baseline's state."""
+    _check_keys(arrays, SIMPLE_KEYS)
+    return SimpleState(_to_torch(arrays["X"], device, dtype),
+                       _to_torch(arrays["aux"], device, dtype),
+                       _oracle_from(arrays, device, dtype),
+                       int(np.asarray(arrays["k"])))
+
+
+def simple_state_to_arrays(state: SimpleState) -> Dict[str, Any]:
+    """A baseline's state -> numpy arrays under :data:`SIMPLE_KEYS`."""
+    return {"X": _to_numpy(state.X), "aux": _to_numpy(state.aux),
+            **_oracle_to(state.oracle), "k": np.int32(state.k)}
 
 
 TRAIN_KEYS = ("X", "D", "comm.H", "comm.Hw", "k", "step", "precond.m",

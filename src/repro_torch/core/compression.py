@@ -1,8 +1,12 @@
-"""Unbiased compression operators (paper Assumption 2): Identity and QInf.
+"""Compression operators: Identity, QInf and RandK (unbiased, paper
+Assumption 2) and TopK (biased, an ablation baseline).
 
-Every compressor Q satisfies E[Q(x)] = x and E||Q(x) - x||^2 <= C ||x||^2.
-``compress`` returns the payload that would go on the wire (int8 codes and
-one f32 scale per block for QInf), ``decompress`` the float estimate.
+Every unbiased compressor Q satisfies E[Q(x)] = x and
+E||Q(x) - x||^2 <= C ||x||^2.  ``compress`` returns the payload that would
+go on the wire (int8 codes and one f32 scale per block for QInf, indices
+and values for the sparsifiers), ``decompress`` the float estimate.
+RandK and TopK act on the whole tensor, its leading node axis included,
+as the reference's ``x.size`` does.
 
 QInf blocks the LAST axis of any tensor (``kernels.ops``), draws its
 stochastic-rounding noise from the draw source with the blocked shape, and
@@ -14,7 +18,7 @@ otherwise; here every shape goes through the kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
@@ -32,6 +36,9 @@ class Compressor:
     #: Assumption-2 variance constant (worst case over x).
     C: float = 0.0
     name: str = "base"
+    #: Q acts on every last-axis row on its own, so Q of a stack of
+    #: tensors is the stack of their Qs (what ``empirical_C`` relies on)
+    rowwise: ClassVar[bool] = False
 
     def compress(self, x: torch.Tensor, draws: Draws) -> Payload:
         raise NotImplementedError
@@ -54,6 +61,7 @@ class Identity(Compressor):
     """C = 0: no compression; draws nothing."""
     C: float = 0.0
     name: str = "identity"
+    rowwise: ClassVar[bool] = True
 
     def compress(self, x, draws):
         return x
@@ -80,6 +88,7 @@ class QInf(Compressor):
     bits: int = 2
     block: int = 256
     name: str = "qinf"
+    rowwise: ClassVar[bool] = True
 
     @property
     def C(self) -> float:  # type: ignore[override]
@@ -108,6 +117,91 @@ class QInf(Compressor):
         return nblocks * (self.block * self.bits + 32)
 
 
+def _kept(frac: float, n: int) -> int:
+    return max(1, int(round(frac * n)))
+
+
+def _scatter(payload, shape, dtype) -> torch.Tensor:
+    """A ``shape`` tensor of zeros with ``vals`` at the flat ``idx``."""
+    n = int(np.prod(tuple(shape), dtype=np.int64))
+    vals = payload["vals"]
+    flat = torch.zeros((n,), dtype=dtype, device=vals.device)
+    flat[payload["idx"]] = vals.to(dtype)
+    return flat.reshape(tuple(shape))
+
+
+@registry.register_compressor("randk")
+@dataclasses.dataclass(frozen=True)
+class RandK(Compressor):
+    """Unbiased random-k sparsification: keep k = round(frac n) of the n
+    coordinates (drawn with ``choice``), scaled by n / k."""
+    frac: float = 0.1
+    name: str = "randk"
+
+    @property
+    def C(self) -> float:  # type: ignore[override]
+        return 1.0 / self.frac - 1.0
+
+    def compress(self, x, draws):
+        n = x.numel()
+        k = _kept(self.frac, n)
+        idx = draws.choice(n, k)
+        return {"idx": idx, "vals": x.reshape(-1)[idx] * (n / k)}
+
+    def decompress(self, payload, shape, dtype):
+        return _scatter(payload, shape, dtype)
+
+    def payload_bits(self, shape, dtype=torch.float32):
+        # a value and a ceil(log2 n)-bit coordinate index per kept entry
+        n = int(np.prod(tuple(shape), dtype=np.int64))
+        idx_bits = max(1, int(np.ceil(np.log2(n)))) if n > 1 else 1
+        return _kept(self.frac, n) * (32 + idx_bits)
+
+
+@registry.register_compressor("topk")
+@dataclasses.dataclass(frozen=True)
+class TopK(Compressor):
+    """Biased top-k by magnitude (not Assumption-2 compliant: Prox-LEAD and
+    LEAD refuse it unless ``allow_biased=True``).  Draws nothing.  Of equal
+    magnitudes the lower index is kept first, as ``jax.lax.top_k`` does in
+    the reference: a stable descending sort, not ``torch.topk``, whose
+    order among ties is unspecified (and differs)."""
+    frac: float = 0.1
+    name: str = "topk"
+
+    @property
+    def C(self) -> float:  # type: ignore[override]
+        return 1.0 - self.frac  # contraction constant, NOT Assumption 2's C
+
+    def compress(self, x, draws):
+        flat = x.reshape(-1)
+        order = torch.sort(flat.abs(), descending=True, stable=True).indices
+        idx = order[:_kept(self.frac, flat.numel())]
+        return {"idx": idx, "vals": flat[idx]}
+
+    def decompress(self, payload, shape, dtype):
+        return _scatter(payload, shape, dtype)
+
+    def payload_bits(self, shape, dtype=torch.float32):
+        n = int(np.prod(tuple(shape), dtype=np.int64))
+        return _kept(self.frac, n) * (32 + 32)
+
+
 def make_compressor(name: str, **kwargs) -> Compressor:
     """Build a registered compressor by name (strict)."""
     return registry.make("compressor", name, **kwargs)
+
+
+def empirical_C(comp: Compressor, x: torch.Tensor, draws: Draws,
+                trials: int = 64) -> float:
+    """Monte-Carlo estimate of E||Q(x) - x||^2 / ||x||^2 over ``trials``
+    draws.  A row-wise compressor (QInf) compresses the trials stacked on a
+    leading axis in one call: one B1 and one B2 launch on the card; any
+    other compressor is called once per trial, in trial order."""
+    if comp.rowwise:
+        xs = x.unsqueeze(0).expand((trials,) + tuple(x.shape)).contiguous()
+        errs = ((comp(xs, draws) - xs) ** 2).reshape(trials, -1).sum(1)
+    else:
+        errs = torch.stack([((comp(x, draws) - x) ** 2).sum()
+                            for _ in range(trials)])
+    return float(errs.mean() / (x ** 2).sum())

@@ -1,9 +1,10 @@
 """The draw source: every random number the port's algorithms consume.
 
-The JAX package threads PRNG keys; the port threads one *draw source* whose
-three calls are made in a fixed order (the oracle's draws, then one
-``uniform`` per compressed leaf, each step).  JAX's threefry and torch's
-Philox never produce the same numbers from one seed, so parity tests draw
+The JAX package threads PRNG keys; the port threads one *draw source*
+whose calls are made in a fixed order (the oracle's draws, then the
+compressor's draws for each compressed leaf, each step).  JAX's threefry
+and torch's Philox never produce the same numbers from one seed, so
+parity tests draw
 with JAX and hand the arrays to :class:`ReplayDraws`, which pops them in
 call order.  Runs use :class:`GeneratorDraws`, a ``torch.Generator`` on the
 run's device.
@@ -11,6 +12,7 @@ run's device.
     randint(n, high)  -> (n,) int64 in [0, high)   batch index per node
     bernoulli(p)      -> () bool                   L-SVRG reference refresh
     uniform(shape)    -> shape float32 in [0, 1)   stochastic-rounding noise
+    choice(n, k)      -> (k,) int64 distinct, in [0, n)   RandK's indices
 
 ``uniform(shape, out=view)`` fills ``view`` (of ``shape``, f32, any
 strides) in place and returns it: the neighbor-gossip backend draws each
@@ -25,7 +27,7 @@ import torch
 
 
 class Draws:
-    """Interface; see the module docstring for the three calls."""
+    """Interface; see the module docstring for the four calls."""
 
     def randint(self, n: int, high: int) -> torch.Tensor:
         raise NotImplementedError
@@ -35,6 +37,9 @@ class Draws:
 
     def uniform(self, shape: Sequence[int],
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def choice(self, n: int, k: int) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -67,12 +72,17 @@ class GeneratorDraws(Draws):
         _check_out(out, shape)
         return out.uniform_(0.0, 1.0, generator=self.gen)
 
+    def choice(self, n, k):
+        return torch.randperm(int(n), generator=self.gen,
+                              device=self.device)[:int(k)]
+
 
 class ReplayDraws(Draws):
     """Pops pre-drawn arrays (numpy or torch) in call order onto ``device``.
 
     Each pop is checked against the call: ``randint`` wants shape ``(n,)``
-    with values in range, ``uniform`` wants as many elements as ``shape``
+    with values in range, ``choice`` shape ``(k,)`` with values in range,
+    ``uniform`` wants as many elements as ``shape``
     (the reference may draw the same noise as ``(R, block)`` or
     ``(R, 1, block)``: threefry fills the flattened array either way).
     Running out of arrays, or a mismatch, raises."""
@@ -115,6 +125,15 @@ class ReplayDraws(Draws):
         _check_out(out, shape)
         return out.copy_(a.reshape(shape))
 
+    def choice(self, n, k):
+        a = self._pop("choice").to(torch.int64)
+        if tuple(a.shape) != (int(k),):
+            raise ValueError(f"replayed choice has shape {tuple(a.shape)}, "
+                             f"the call wants ({k},)")
+        if a.numel() and (int(a.min()) < 0 or int(a.max()) >= n):
+            raise ValueError(f"replayed choice outside [0, {n})")
+        return a
+
 
 class RecordingDraws(Draws):
     """Passes every call through to ``inner`` and keeps what it returned,
@@ -139,3 +158,6 @@ class RecordingDraws(Draws):
         # a copy: an ``out`` view may be overwritten after the call
         self.record.append(t.clone())
         return t
+
+    def choice(self, n, k):
+        return self._keep(self.inner.choice(n, k))

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import registry
 from repro_torch.core.comm import CommState, Mixer, comm, init_comm_state
-from repro_torch.core.compression import Compressor, Identity
+from repro_torch.core.compression import Compressor, Identity, TopK
 from repro_torch.core.draws import Draws
 from repro_torch.core.oracles import Oracle, OracleState
 from repro_torch.core.prox import NoneProx, Prox
@@ -39,7 +39,8 @@ class ProxLEADState(NamedTuple):
 @dataclasses.dataclass
 class ProxLEAD:
     """Algorithm 1.  ``eta``/``alpha``/``gamma`` are floats or callables
-    k -> float (the diminishing schedules of Theorem 7)."""
+    k -> float (the diminishing schedules of Theorem 7).  A biased
+    compressor (TopK) is refused unless ``allow_biased``."""
     eta: Any
     alpha: Any
     gamma: Any
@@ -47,6 +48,13 @@ class ProxLEAD:
     prox: Prox
     mixer: Mixer
     oracle: Oracle
+    allow_biased: bool = False
+
+    def __post_init__(self):
+        if isinstance(self.compressor, TopK) and not self.allow_biased:
+            raise ValueError(
+                "TopK is biased and violates Assumption 2; the paper's theory "
+                "does not cover it. Pass allow_biased=True for ablations.")
 
     def _at(self, v, k):
         return v(k) if callable(v) else v
@@ -87,11 +95,13 @@ class ProxLEAD:
         return ProxLEADState(X, D, cstate, state.oracle, state.k + 1)
 
 
-def lead(eta, alpha, gamma, compressor, mixer, oracle) -> ProxLEAD:
+def lead(eta, alpha, gamma, compressor, mixer, oracle,
+         allow_biased: bool = False) -> ProxLEAD:
     """LEAD (Algorithm 3) == Prox-LEAD with R = 0."""
     # the R = 0 reduction is definitional, not a pluggable choice
     # repro: allow(registry-only-construction)
-    return ProxLEAD(eta, alpha, gamma, compressor, NoneProx(), mixer, oracle)
+    return ProxLEAD(eta, alpha, gamma, compressor, NoneProx(), mixer, oracle,
+                    allow_biased)
 
 
 def nids(eta, mixer, oracle, prox: Optional[Prox] = None) -> ProxLEAD:
@@ -124,14 +134,16 @@ def diminishing_schedules(mu, L, C, lambda_max, kappa_f, kappa_g):
 # declares, plus AlgorithmSpec.params (strict).
 
 @registry.register_algorithm("prox_lead")
-def _prox_lead_factory(eta, alpha, gamma, compressor, prox, mixer,
-                       oracle) -> ProxLEAD:
-    return ProxLEAD(eta, alpha, gamma, compressor, prox, mixer, oracle)
+def _prox_lead_factory(eta, alpha, gamma, compressor, prox, mixer, oracle,
+                       allow_biased: bool = False) -> ProxLEAD:
+    return ProxLEAD(eta, alpha, gamma, compressor, prox, mixer, oracle,
+                    allow_biased)
 
 
 @registry.register_algorithm("lead")
-def _lead_factory(eta, alpha, gamma, compressor, mixer, oracle) -> ProxLEAD:
-    return lead(eta, alpha, gamma, compressor, mixer, oracle)
+def _lead_factory(eta, alpha, gamma, compressor, mixer, oracle,
+                  allow_biased: bool = False) -> ProxLEAD:
+    return lead(eta, alpha, gamma, compressor, mixer, oracle, allow_biased)
 
 
 @registry.register_algorithm("nids")

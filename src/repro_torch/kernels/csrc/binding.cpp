@@ -112,9 +112,11 @@ struct Shape {
   }
 };
 
-bool bits_ok(long bits) {
-  if (bits >= 1 && bits <= 7) return true;
-  raise(PyExc_ValueError, "bits must be in 1..7, got %ld", bits);
+// B1 takes 1..8 bits (at 8 its top code saturates, see qinf.cu); the
+// wire kernels B3/B4 1..7
+bool bits_ok(long bits, long most = 7) {
+  if (bits >= 1 && bits <= most) return true;
+  raise(PyExc_ValueError, "bits must be in 1..%ld, got %ld", most, bits);
   return false;
 }
 
@@ -225,7 +227,7 @@ PyObject* quantize_blocks(PyObject*, PyObject* const* args, Py_ssize_t n) {
       !(x.dim() >= 1 && D == B && u.sizes().equals(x.sizes())))
     return raise(PyExc_ValueError, "noise shape %s != blocked shape %s",
                  Shape(u).text, Shape(want).text);
-  if (!bits_ok(bits)) return nullptr;
+  if (!bits_ok(bits, 8)) return nullptr;
   if (tag < 0 || u.scalar_type() != at::kFloat)
     return raise(PyExc_TypeError, "kernel takes x f32/f64/bf16 and u f32, "
                 "got %s and %s", dtype(x), dtype(u));

@@ -108,13 +108,15 @@ __device__ __forceinline__ float to_f32(double v) { return __double2float_rn(v);
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // One code: sign(v) * min(floor(levels * |v| / safe + u), levels), each
-// operation rounded once, in the reference's order.
+// operation rounded once, in the reference's order.  At 8 bits the code
+// +128 saturates to +127, as the reference's cast to int8 does.
 __device__ __forceinline__ int8_t qinf_code(float v, float u, float safe,
                                             float levels) {
   float mag = floorf(__fadd_rn(__fdiv_rn(__fmul_rn(levels, fabsf(v)), safe), u));
   mag = fminf(mag, levels);
   const float sgn = v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
-  return (int8_t)(int)(sgn * mag);
+  const int c = (int)(sgn * mag);
+  return (int8_t)(c > 127 ? 127 : c);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

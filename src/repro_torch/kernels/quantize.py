@@ -254,7 +254,8 @@ def _plain_device(t: torch.Tensor) -> None:
 def qinf_quantize_blocks(x: torch.Tensor, u: torch.Tensor, bits: int):
     """B1: quantize (R, block) rows -> (codes int8 (R, block), scales f32
     (R, 1)).  ``x`` f32, f64 or bf16; ``u`` f32 U[0,1) noise of x's shape;
-    1 <= bits <= 7 (codes are int8 in [-2^{b-1}, 2^{b-1}]).
+    1 <= bits <= 8 (codes are int8 in [-2^{b-1}, 2^{b-1}]; at 8 bits the
+    code +128 saturates to +127, as the reference's cast does).
 
     On the card the kernel also takes a whole leaf x (..., D) with its
     blocked noise u (..., ceil(D / block), block) and reads the ragged last
@@ -266,8 +267,8 @@ def qinf_quantize_blocks(x: torch.Tensor, u: torch.Tensor, bits: int):
     if x.dim() != 2 or u.shape != x.shape:
         raise ValueError(f"want x and u of one (R, block) shape, got "
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
-    if not 1 <= bits <= 7:
-        raise ValueError(f"bits must be in 1..7, got {bits}")
+    if not 1 <= bits <= 8:
+        raise ValueError(f"bits must be in 1..8, got {bits}")
     _plain_device(x)
     return kref.qinf_quantize_blocks_ref(x, u, bits)
 

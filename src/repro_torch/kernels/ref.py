@@ -24,7 +24,8 @@ def qinf_quantize_blocks_ref(xb: torch.Tensor, ub: torch.Tensor, bits: int):
         scale = ||x||_inf / 2^{b-1}
 
     Returns (codes int8 (R, B), scales f32 (R, 1)).  All-zero rows give
-    scale 0 and codes 0.  ``ub`` is U[0,1) noise of the same shape."""
+    scale 0 and codes 0.  ``ub`` is U[0,1) noise of the same shape.  At 8
+    bits the code +128 saturates to +127 (the reference's int8 cast)."""
     xf = xb.to(torch.float32)
     levels = torch.tensor(float(2 ** (bits - 1)), dtype=torch.float32,
                           device=xf.device)
@@ -32,7 +33,7 @@ def qinf_quantize_blocks_ref(xb: torch.Tensor, ub: torch.Tensor, bits: int):
     safe = torch.where(maxabs > 0, maxabs, torch.ones_like(maxabs))
     mag = torch.floor(levels * xf.abs() / safe + ub.to(torch.float32))
     mag = torch.minimum(mag, levels)       # guard u == 1.0 - eps
-    codes = (torch.sign(xf) * mag).to(torch.int8)
+    codes = torch.clamp(torch.sign(xf) * mag, max=127.0).to(torch.int8)
     scales = maxabs / levels
     return codes, scales
 

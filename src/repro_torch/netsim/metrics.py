@@ -7,7 +7,7 @@ containers and fault-exact accounting arrive with the netsim slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,18 +21,31 @@ def consensus_error(X) -> torch.Tensor:
     return sum(((l - l.mean(0, keepdim=True)) ** 2).sum() for l in leaves(X))
 
 
+def _payload_bits(compressor: Optional[Compressor], shape) -> int:
+    """The compressor's exact payload for one ``shape`` tensor; no
+    compressor or Identity is priced as f32, as in the reference."""
+    if compressor is None or isinstance(compressor, Identity):
+        return int(np.prod(tuple(shape), dtype=np.int64)) * 32
+    return int(compressor.payload_bits(tuple(shape)))
+
+
 def payload_bits_per_node(compressor: Optional[Compressor], X) -> int:
     """Exact wire bits ONE node sends to ONE neighbour per COMM round,
-    summed over leaves (leaves carry a leading node dim).  Uncompressed
-    leaves are priced as f32, as in the reference."""
-    bits = 0
-    for leaf in leaves(X):
-        shape = tuple(leaf.shape[1:])
-        if compressor is None or isinstance(compressor, Identity):
-            bits += int(np.prod(shape, dtype=np.int64)) * 32
-        else:
-            bits += int(compressor.payload_bits(shape))
-    return bits
+    summed over leaves (leaves carry a leading node dim)."""
+    return sum(_payload_bits(compressor, leaf.shape[1:])
+               for leaf in leaves(X))
+
+
+def effective_bits_per_iter(compressor: Optional[Compressor], shape,
+                            n_directed_edges: int,
+                            faults: Sequence = ()) -> float:
+    """Expected bits on the wire per iteration: per-edge payload bits x
+    directed edges x the mean edge survival of ``faults`` (objects with
+    ``mean_edge_survival()``; the fault models come with netsim)."""
+    survival = 1.0
+    for f in faults:
+        survival *= f.mean_edge_survival()
+    return _payload_bits(compressor, shape) * n_directed_edges * survival
 
 
 def qinf_wire_bits(shape, bits: int, block: int, scale_bits: int = 32) -> int:

@@ -7,8 +7,10 @@ is written out in each product); the Prox-LEAD update then gossips with
 compression.
 
 Gossip backends:
-  dense    -- paper-faithful: ``ProxLEAD.update`` with QInf (kernels B1/B2)
-              and W X as a contraction over the node dim (``DenseMixer``).
+  dense    -- paper-faithful: ``ProxLEAD.update`` with any registered
+              compressor (QInf through kernels B1/B2, RandK, TopK with
+              ``allow_biased``) and W X as a contraction over the node
+              dim (``DenseMixer``).
   neighbor -- wire-honest: the COMM exchange moves the PACKED b-bit
               payload (u8 codes + byte-cast scales) once per hop of the
               compiled ExchangePlan, through the ``pp(x, pairs)`` seam
@@ -20,7 +22,7 @@ Gossip backends:
 
 Static schedules only (one Hw slot, T = 1): the time-varying schedules of
 the neighbor backend, and fault injection on the dense one, arrive with
-slice 3 (netsim).
+the netsim slice.
 
 Memory.  At the slice's full width (qwen3-1.7b, 8 nodes) one f32 state
 copy is 5.7 GB and X, D, H, Hw together 23 GB, so the neighbor backend
@@ -53,7 +55,7 @@ from repro_torch.models import transformer as TR
 from repro_torch.optim.wire import WIRE_MODES, WireExchange, stacked_pp
 
 #: what a later slice of the port brings
-NETSIM_SLICE = "slice 3 (ROADMAP A12: netsim schedules and faults)"
+NETSIM_SLICE = "the netsim slice (ROADMAP A12: netsim schedules and faults)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +66,11 @@ class TrainerConfig:
     eta: float = 1e-2
     alpha: float = 0.5
     gamma: float = 1.0
-    compressor: str = "qinf"        # identity | qinf
+    compressor: str = "qinf"        # identity | qinf | randk | topk
     bits: int = 2
     block: int = 256
+    frac: float = 0.1               # randk / topk kept fraction
+    allow_biased: bool = False      # opt-in for biased compressors (topk)
     prox: Optional[Prox] = None     # shared non-smooth regularizer
     topology: str = "ring"
     backend: str = "dense"          # dense | neighbor | ring (alias)
@@ -100,7 +104,7 @@ class DecentralizedTrainer:
         self.topo = topo_mod.make_topology(tcfg.topology, tcfg.n_nodes)
         kw = registry.kwargs_subset(
             "compressor", tcfg.compressor,
-            {"bits": tcfg.bits, "block": tcfg.block})
+            {"bits": tcfg.bits, "block": tcfg.block, "frac": tcfg.frac})
         self.compressor: Compressor = registry.make(
             "compressor", tcfg.compressor, **kw)
         self.prox = tcfg.prox or registry.make("prox", "none")
@@ -109,7 +113,7 @@ class DecentralizedTrainer:
         self.alg = registry.make(
             "algorithm", "prox_lead", eta=tcfg.eta, alpha=tcfg.alpha,
             gamma=tcfg.gamma, compressor=self.compressor, prox=self.prox,
-            mixer=self.mixer, oracle=None)
+            mixer=self.mixer, oracle=None, allow_biased=tcfg.allow_biased)
         self._wmat = None
         if self.plan is not None:
             # (1 + n_hops, T, n): row 0 the exact-stochastic self weight,
@@ -135,8 +139,8 @@ class DecentralizedTrainer:
         if self.sharded:
             if tcfg.compressor not in ("identity", "qinf"):
                 raise ValueError(
-                    f"the neighbor backend packs QInf payloads; compressor "
-                    f"{tcfg.compressor!r} needs backend='dense'")
+                    f"the sharded neighbor backend packs QInf payloads; "
+                    f"compressor {tcfg.compressor!r} needs backend='dense'")
             if tcfg.wire_mode not in WIRE_MODES:
                 raise ValueError(f"unknown wire_mode {tcfg.wire_mode!r}; "
                                  f"have {WIRE_MODES}")

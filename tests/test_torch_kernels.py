@@ -101,7 +101,7 @@ def test_wrappers_validate():
     with pytest.raises(ValueError):
         tq.qinf_quantize_blocks(x, torch.zeros((8, 128)), 2)
     with pytest.raises(ValueError):
-        tq.qinf_quantize_blocks(x, torch.zeros((8, 256)), 8)
+        tq.qinf_quantize_blocks(x, torch.zeros((8, 256)), 9)
     with pytest.raises(ValueError):
         tq.qinf_dequantize_blocks(torch.zeros((8, 256), dtype=torch.int8),
                                   torch.zeros((8,)))
@@ -345,8 +345,8 @@ def test_cuda_binding_names_each_fault():
     before = tq.launch_counts()
     with pytest.raises(ValueError, match="noise shape"):
         tq.qinf_quantize_blocks(x, x[:, :128].contiguous(), 2)
-    with pytest.raises(ValueError, match="bits must be in 1..7"):
-        tq.qinf_quantize_blocks(x, x, 8)
+    with pytest.raises(ValueError, match="bits must be in 1..8"):
+        tq.qinf_quantize_blocks(x, x, 9)
     with pytest.raises(TypeError, match="x f32/f64/bf16 and u f32"):
         tq.qinf_quantize_blocks(x.half(), x, 2)
     with pytest.raises(ValueError, match="contiguous on one CUDA device"):
