@@ -50,6 +50,21 @@ Phases, in order; any failure exits non-zero before the result lines:
    window of PROFILE_STEPS steps lists every device operation of a step
    by name; B1 must run once a step with no pad kernel (fill, copy) just
    before it.
+4b. The netsim engine on the same spec and data (``engine='netsim'``).
+   (a) Static schedule, no faults: NETSIM_STATIC_STEPS steps equal the
+   dense engine's bit for bit (X, D, H, Hw) from the same draws.  (b) The
+   scenario: ``markov_drop`` on the ring (drop 0.2, sticky 0.5, 32
+   rounds) with the faults of SCENARIO_FAULTS, NETSIM_STEPS steps with the
+   launch counters zeroed just before and read just after: B1 and B2 must
+   each launch once a step; the objective must fall and the consensus
+   shrink; the trajectory's bits must equal, as integers, a host recount
+   from the masks the mixer recorded.  (c) Card against CPU:
+   REPLAY_STEPS steps, each started from the card's state, the card's
+   algorithm and fault draws recorded and replayed on the CPU, at phase
+   4's tolerance.  (d) ms a step of the dense engine, the static netsim
+   run and the scenario run (host clock fenced by synchronisation,
+   NETSIM_TIMED_STEPS steps each, one process), and a ``torch.profiler``
+   window of NETSIM_PROFILE_STEPS scenario steps (device busy share).
 5. B3/B4 against their plain versions on the card: bits {1,2,3,4,7},
    blocks 128 and 256, S (senders) in {1, 3, 4}, T (rounds) in {1, 3},
    f32, bf16 and f64 out, 2 nodes, a ragged row count, a block of zeros
@@ -60,7 +75,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    checks at the shapes the trainer below gives them: its block-256 group
    (8 nodes x 700,456 rows of 256) and its block-128 q_norm/k_norm group
    (8 nodes x 4 rows of 128), 2 bits, ring payloads (S = 3), T = 1; both
-   kernels are timed at the block-256 group.
+   kernels are timed at the block-256 group.  B4 also at the scheduled
+   trainer's shape (6b): the block-256 group with T = 2 rounds and S = 6
+   senders (self plus the five hops of the ring/exponential union, the
+   plan's own weights; B4's row variant), checked and timed the same way.
 6. The trainer path: ``api.build(spec)`` on the card for
    qwen3-1.7b at its published widths (2 of 28 layers, the first eighth of
    the vocabulary), 8 nodes on a ring, the neighbor-gossip backend with
@@ -74,6 +92,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``bits_per_step`` must equal 2 hops x 739,683,712 bits.  Peak memory,
    step time and a short ``torch.profiler`` window (device busy share,
    time by kernel) are reported.
+6b. The same trainer under ``schedule='alternating'`` (ring <->
+   exponential, T = 2 Hw slots, 5 union hops): SLICE_STEPS steps with the
+   counters zeroed just before and read just after, B3 and B4 once per
+   bucket group per step, the loss falling, ``bits_per_step`` equal to 5
+   hops x 739,683,712 bits; step time and peak memory.
 7. Bucketed against per-leaf wire on the card, at the slice's widths, on
    the leaves ``blocks/w_gate`` (whole), ``embed`` and ``blocks/q_norm``:
    the same diffs and noise through both exchanges; codes, scales and
@@ -82,7 +105,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    layer, d_model 256, 8 nodes): REPLAY_STEPS_SLICE steps, each started
    from the card's state, the CPU path drawing and the card replaying the
    same noise; X, D, H and Hw within 1e-4 x max of each array on all but
-   0.1 % of elements.
+   0.1 % of elements.  Three variants: the ring, ``schedule='alternating'``
+   (T = 2 Hw slots, B4's two-round mix read back on the card) and the
+   dense backend under ``drop_rate`` DROP_RATE (the fault draws replayed
+   too).  Then that dense ``drop_rate`` trainer run twice on one runner
+   for DROP_RATE_STEPS steps, each run from a fresh state, the launch
+   counters zeroed just before the first run and read just after it: B1
+   and B2 once per leaf a step, the two runs' X at the tolerance above.
 9. The paper's comparisons on the card (``repro_torch.paper``, the
    registered ``logreg`` problem at its defaults: 8 nodes on a ring,
    784x10 flattened, 150 samples and 15 batches a node, lambda2 = 0.005;
@@ -111,6 +140,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -140,12 +170,21 @@ LOSS_WINDOW = 5             # the loss falls: mean of the last 5 < first 5
 SLICE_PROFILE_STEPS = 3     # trainer steps under torch.profiler
 SLICE_GROUP_ROWS = 700_456  # block-256 rows per node at the slice's widths
 SLICE_SMALL_GROUP_ROWS = 4  # block-128 rows per node (q_norm, k_norm x 2)
-SLICE_BITS_PER_STEP = 2 * 739_683_712   # 2 hops x the per-edge payload
+SLICE_BITS_PER_HOP = 739_683_712   # the per-edge payload of a hop
 REPLAY_STEPS_SLICE = 5      # small trainer steps held against the CPU
+DROP_RATE = 0.3             # the dense trainer's LinkDrop rate (phase 8)
+DROP_RATE_STEPS = 5         # its steps a run, two runs
 PAPER_STEPS = 800           # steps of a Fig. 1 / Fig. 2 row (the paper's)
 PAPER_REPLAY_STEPS = 20     # baseline steps held against the CPU path
 EMPIRICAL_C_TRIALS = 64
 PAPER_PROFILE_STEPS = 50    # LEAD (2bit) steps under torch.profiler
+NETSIM_STEPS = 300          # scenario steps with counters on
+NETSIM_STATIC_STEPS = 20    # static netsim steps held bit-equal to dense
+NETSIM_TIMED_STEPS = 100    # steps timed per engine
+NETSIM_PROFILE_STEPS = 20   # scenario steps under torch.profiler
+SCENARIO_FAULTS = (("straggler", {"rate": 0.05}), ("linkdrop", {"rate": 0.1}),
+                   ("noise", {"sigma": 0.01}))
+SCHEDULED_HOPS = 5          # ring + exponential on 8 nodes: the union's hops
 B1, B2 = "qinf_quantize_blocks", "qinf_dequantize_blocks"
 
 
@@ -647,6 +686,163 @@ def main_path(torch, api, convert, draws_mod, metrics, qk):
     }
 
 
+# --- phase 4b ------------------------------------------------------------------
+
+def netsim_spec(api, base, steps: int, scenario: bool):
+    """``base`` (phase 4's spec) on the netsim engine: the static schedule
+    without faults, or the scenario -- markov_drop on the ring (drop 0.2,
+    sticky 0.5, 32 rounds) with SCENARIO_FAULTS."""
+    topo = (api.TopologySpec(graph="ring", schedule="markov_drop", rounds=32,
+                             schedule_params={"drop": 0.2, "sticky": 0.5})
+            if scenario else api.TopologySpec(graph="ring"))
+    faults = tuple(api.FaultSpec(n, dict(p)) for n, p in SCENARIO_FAULTS
+                   ) if scenario else ()
+    return dataclasses.replace(
+        base, name=base.name + ("-markov-faults" if scenario else "-static"),
+        steps=steps, topology=topo, faults=faults,
+        execution=api.ExecutionSpec(engine="netsim"))
+
+
+def recount_bits(mask_log, schedule, rounds, bits_per_edge: int):
+    """The bits each round moved, recounted on the host from the masks the
+    mixer recorded: the schedule's directed support, less the dropped
+    links and the stragglers' sends, times the payload of an edge."""
+    import numpy as np
+    n = schedule.n
+    supp = (np.abs(schedule.W_stack) > 1e-12) & ~np.eye(n, dtype=bool)
+    drawn = {k: (e, s) for k, e, s in mask_log}
+    out = []
+    for k in rounds:
+        alive = supp[k % schedule.T_cycle].copy()
+        edge, send = drawn[k]
+        if edge is not None:
+            alive &= edge.cpu().numpy() > 0
+        if send is not None:
+            alive &= (send.cpu().numpy() > 0)[None, :]
+        out.append(int(alive.sum()) * bits_per_edge)
+    return out
+
+
+def netsim_path(torch, api, convert, draws_mod, qk, base=None,
+                steps: int = NETSIM_STEPS,
+                static_steps: int = NETSIM_STATIC_STEPS,
+                replay_steps: int = REPLAY_STEPS,
+                timed_steps: int = NETSIM_TIMED_STEPS,
+                profile: int = NETSIM_PROFILE_STEPS, device: str = "cuda"):
+    """Phase 4b (see the module docstring) on ``base`` (default: phase
+    4's spec)."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device == "cuda"
+    base = base or mnist_spec(api, steps)
+    lam = base.prox.params["lam"]
+
+    def build(spec):
+        return api.build(spec) if on_card else api.build(spec, device=device)
+
+    # (a) static netsim == the dense engine, bit for bit
+    static = build(netsim_spec(api, base, static_steps, False))
+    dense = build(dataclasses.replace(base, steps=static_steps))
+    require(static.device.type == device, f"build did not pick {device}")
+    st_n, _ = static.run(draws=draws_mod.GeneratorDraws(base.seed, device))
+    st_d, _ = dense.run(draws=draws_mod.GeneratorDraws(base.seed, device))
+    for what, a, b in (("X", st_n.X, st_d.X), ("D", st_n.D, st_d.D),
+                       ("H", st_n.comm.H, st_d.comm.H),
+                       ("Hw", st_n.comm.Hw, st_d.comm.Hw)):
+        require(torch.equal(a, b), f"static netsim != dense engine in "
+                f"{what} after {static_steps} steps")
+
+    # (b) the scenario, counters zeroed just before and read just after
+    spec = netsim_spec(api, base, steps, True)
+    runner = build(spec)
+    problem = runner.problem
+
+    def objective(X):
+        return problem.full_loss(X) + lam * X.abs().sum(dim=1).mean()
+
+    mask_log = []
+    qk.reset_launch_counts()
+    state, traj = runner.run(objective_fn=objective, mask_log=mask_log)
+    launches = qk.launch_counts()
+    report = runner.last_report
+    require(not on_card or (launches[B1] == steps and launches[B2] == steps),
+            f"launch counts {launches} != one B1 and one B2 per step for "
+            f"{steps} steps")
+    require(all(map(math.isfinite, list(traj.objective)
+                    + list(traj.consensus))), "non-finite trajectory")
+    require(traj.objective[-1] < traj.objective[0],
+            f"objective did not fall: {traj.objective[0]} -> "
+            f"{traj.objective[-1]}")
+    require(traj.consensus[-1] < traj.consensus[0],
+            f"consensus did not shrink: {traj.consensus[0]} -> "
+            f"{traj.consensus[-1]}")
+    per_edge = traj.meta["bits_per_edge_per_round"]
+    recount = recount_bits(mask_log, runner.schedule,
+                           range(1, steps + 1), per_edge)
+    require(traj.bits.tolist() == recount,
+            "trajectory bits != the host recount from the recorded masks")
+
+    # (c) the card against the CPU, each step from the card's state, the
+    # card's draws (algorithm and faults) recorded and replayed on the CPU
+    cpu = api.build(spec, device="cpu")
+    alg = draws_mod.RecordingDraws(draws_mod.GeneratorDraws(base.seed,
+                                                            device))
+    flt = draws_mod.RecordingDraws(draws_mod.GeneratorDraws(spec.fault_seed,
+                                                            device))
+    card = runner.with_fault_draws(flt)
+    st = card.init(runner.X0, alg)
+    worst_frac = worst_rel = 0.0
+    for _ in range(replay_steps):
+        before = convert.state_to_arrays(st)
+        na, nf = len(alg.record), len(flt.record)
+        st = card.step(st, alg)
+        ad = draws_mod.ReplayDraws([t.cpu() for t in alg.record[na:]], "cpu")
+        fd = draws_mod.ReplayDraws([t.cpu() for t in flt.record[nf:]], "cpu")
+        want = cpu.with_fault_draws(fd).step(convert.state_from_arrays(
+            before, device="cpu", dtype=torch.float32), ad)
+        require(not ad.pending and not fd.pending,
+                "the CPU path drew less than the card")
+        got = st.X.cpu()
+        scale = want.X.abs().max()
+        off = (got - want.X).abs() > REPLAY_ELEM_TOL * scale
+        worst_frac = max(worst_frac, float(off.float().mean()))
+        worst_rel = max(worst_rel, float((got - want.X).abs().max() / scale))
+        require(worst_frac <= REPLAY_MAX_OFF,
+                f"netsim card vs CPU step {st.k - 1}: {int(off.sum())} of "
+                f"{off.numel()} elements of X differ by more than "
+                f"{REPLAY_ELEM_TOL} x max|X|")
+
+    # (d) ms a step of the three runs, one process; the scenario profiled
+    def ms_per_step(r):
+        r.run(num_steps=3)                                  # warm-up
+        r.run(num_steps=timed_steps)
+        return r.last_report.total_s / timed_steps * 1e3
+
+    times = {"dense": ms_per_step(dense), "netsim_static": ms_per_step(
+        static), "netsim_scenario": ms_per_step(runner)}
+    prof = None
+    if profile and on_card:
+        d = draws_mod.GeneratorDraws(base.seed + 1, device)
+        prof = profile_steps(torch, runner, runner.init_state(d), d,
+                             steps=profile, trace_name="netsim_trace.json")
+        require(prof["b1_per_step"] == 1,
+                f"the profile saw {prof['b1_per_step']} B1 launches a step")
+    return {"spec": spec.name, "steps": steps, "launches": launches,
+            "static_bit_equal_steps": static_steps,
+            "objective": [float(traj.objective[0]),
+                          float(traj.objective[-1])],
+            "consensus": [float(traj.consensus[0]),
+                          float(traj.consensus[-1])],
+            "bits_total": traj.total_bits, "bits_first": traj.bits[:8].tolist(),
+            "bits_per_edge": per_edge, "bits_recount_equal": True,
+            "replay": {"steps": replay_steps, "elem_tol": REPLAY_ELEM_TOL,
+                       "max_off_fraction": REPLAY_MAX_OFF,
+                       "worst_off_fraction": worst_frac,
+                       "worst_rel_max": worst_rel},
+            "ms_per_step": times, "profile": prof,
+            "run_report": report.to_dict(), "meta": traj.meta}
+
+
 # --- phase 5 -------------------------------------------------------------------
 
 def b4_ops_per_element(S: int, T: int) -> int:
@@ -814,16 +1010,80 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
             "qinf_unpack_dequant_mix_blocks": b4}, checked
 
 
+def b4_at_alternating_schedule(torch, qk, ref, errs,
+                               group_rows=SLICE_GROUP_ROWS, n_nodes=8,
+                               plain_iters=3, device="cuda"):
+    """B4 at the scheduled trainer's block-256 group: T = 2 rounds and
+    S = 6 senders -- self and the five hops of the ring/exponential union,
+    each hop's payload the circulant shift of every node's, the plan's
+    receiver weights (``optim.wire.node_weights``) -- 2 bits, f32 out.
+    More senders than the vector variant holds: the row variant.  Mix and
+    qself must equal the plain version's; timed with CUDA events.  The
+    bound: payload, scales, weights, mix and qself moved once."""
+    import numpy as np
+    from repro_torch.core import topology as topo_mod
+    from repro_torch.netsim import make_schedule
+    from repro_torch.optim.wire import node_weights
+    sched = make_schedule("alternating", n_nodes)
+    plan = topo_mod.compile_plan(sched.W_stack, name=sched.name)
+    wmat = np.concatenate([plan.self_weights(np.float32)[None]]
+                          + [h.weights[None] for h in plan.hops], 0)
+    w = node_weights(wmat.astype(np.float32), device)
+    T, S = w.shape[1], w.shape[2]
+    require((T, S) == (2, SCHEDULED_HOPS + 1), f"(T, S) = {(T, S)}")
+    g = torch.Generator(device=device).manual_seed(4)
+    R = n_nodes * group_rows
+    x = torch.randn((R, 256), generator=g, device=device)
+    u = torch.rand((R, 256), generator=g, device=device)
+    packed, scales = qk.qinf_quantize_pack_blocks(x, u, 2)
+    del x, u
+    p = packed.reshape(n_nodes, group_rows, -1)
+    s = scales.reshape(n_nodes, group_rows, 1)
+    P = torch.stack([p] + [p.roll(h.shift, 0) for h in plan.hops],
+                    1).contiguous()
+    Sc = torch.stack([s] + [s.roll(h.shift, 0) for h in plan.hops],
+                     1).contiguous()
+    del packed, scales, p, s
+    what = f"at T={T} S={S} ({n_nodes} x {group_rows} rows of 256)"
+    mix, qself = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, 2)
+    vector = device == "cuda" and qk.uses_vector_variant(
+        "qinf_unpack_dequant_mix_blocks", P.data_ptr(), mix.data_ptr(),
+        qself.data_ptr(), P.shape[-1], S)
+    require(not vector, f"B4 {what} must take the row variant")
+    check_b4(torch, ref, P, Sc, w, 2, torch.float32, (mix, qself), errs,
+             what)
+    out = {"rows": [n_nodes, S, group_rows, 256], "T": T, "S": S,
+           "variant": "row"}
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        nbytes(P, Sc, w, mix, qself), b4_ops_per_element(S, T) * qself.numel())
+    out["bound_gb"] = nbytes(P, Sc, w, mix, qself) / 1e9
+    del mix, qself
+    out["ms"] = cuda_ms(torch, lambda: qk.qinf_unpack_dequant_mix_blocks(
+        P, Sc, w, 2))
+    out["plain_ms"] = cuda_ms(
+        torch, lambda: ref.qinf_unpack_dequant_mix_blocks_ref(P, Sc, w, 2),
+        iters=plain_iters, warmup=1)
+    out["library_ms"] = None
+    del P, Sc
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 # --- phase 6 -------------------------------------------------------------------
 
 def slice_spec(api, steps: int, *, full: bool = True, n_layers: int = 2,
-               d_model: int = 2048, seq_len: int = 512):
+               d_model: int = 2048, seq_len: int = 512,
+               schedule: str = "static", backend: str = "neighbor",
+               params=None):
     """The slice's trainer configuration: qwen3-1.7b (hf:Qwen/Qwen3-8B
     family card) at its published widths, depth cut to 2 of 28 layers and
     the vocabulary to its first eighth (18,992, padded 19,200) so that 8
-    replicas fit one card; 8 nodes on a ring, 2-bit QInf in 256-blocks on
-    the bucketed neighbor wire, the train.py step sizes.  ``full=False``
-    is the reduced (smoke) model for the card-vs-CPU check."""
+    replicas fit one card; 8 nodes on a ring (or ``schedule`` over it),
+    2-bit QInf in 256-blocks on the bucketed neighbor wire, the train.py
+    step sizes.  ``full=False`` is the reduced (smoke) model for the
+    card-vs-CPU check; ``backend`` and ``params`` (TrainerConfig fields)
+    as in ``ExecutionSpec``."""
     model = (api.ModelSpec(arch="qwen3-1.7b", full=True, local_batch=2,
                            seq_len=seq_len,
                            params={"n_layers": n_layers, "vocab": 18992})
@@ -831,16 +1091,21 @@ def slice_spec(api, steps: int, *, full: bool = True, n_layers: int = 2,
              api.ModelSpec(arch="qwen3-1.7b", full=False, n_layers=n_layers,
                            d_model=d_model, local_batch=2, seq_len=seq_len))
     return api.ExperimentSpec(
-        name="qwen3-1.7b-2L-vocab8-ring8-qinf2" if full else
-        "qwen3-smoke-ring8-qinf2", n_nodes=8, steps=steps,
+        name=("qwen3-1.7b-2L-vocab8-ring8-qinf2" if full else
+              "qwen3-smoke-ring8-qinf2")
+        + ("" if schedule == "static" else f"-{schedule}")
+        + ("" if backend == "neighbor" else f"-{backend}")
+        + "".join(f"-{k}{v}" for k, v in sorted((params or {}).items())),
+        n_nodes=8, steps=steps,
         algorithm=api.AlgorithmSpec("prox_lead", eta=api.constant(0.05),
                                     alpha=api.constant(0.5),
                                     gamma=api.constant(1.0)),
         compressor=api.CompressorSpec("qinf", {"bits": 2, "block": 256}),
-        topology=api.TopologySpec(graph="ring"),
+        topology=api.TopologySpec(graph="ring", schedule=schedule),
         model=model,
-        execution=api.ExecutionSpec(engine="sharded", backend="neighbor",
-                                    wire_mode="bucketed"))
+        execution=api.ExecutionSpec(engine="sharded", backend=backend,
+                                    wire_mode="bucketed",
+                                    params=params or {}))
 
 
 def profile_trainer(torch, runner, st, data, draws, steps: int):
@@ -893,8 +1158,10 @@ def held_out_loss(torch, runner, X, data, n_batches: int = 2) -> float:
 
 def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
                  profile_steps: int = SLICE_PROFILE_STEPS, spec=None,
-                 device: str = "cuda"):
-    """The slice's trainer on the card through api.build(spec)."""
+                 device: str = "cuda", hops: int = 2):
+    """The slice's trainer on the card through api.build(spec); ``hops``:
+    the exchange plan's (2 on the ring, 5 under the alternating
+    schedule)."""
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     spec = spec or slice_spec(api, steps)
@@ -906,9 +1173,11 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
     tr = runner.trainer
     cfg = tr.mcfg
     bits = runner.bits_per_step()
+    require(len(tr.plan.hops) == hops, f"{len(tr.plan.hops)} hops, not "
+            f"{hops}")
     if spec.model.full:
-        require(bits == SLICE_BITS_PER_STEP,
-                f"bits_per_step {bits} != 2 hops x 739,683,712")
+        require(bits == hops * SLICE_BITS_PER_HOP,
+                f"bits_per_step {bits} != {hops} hops x 739,683,712")
     layout_groups = len(tr.wire_layout().groups)
     data = runner.default_data()
     draws = draws_mod.GeneratorDraws(spec.seed, runner.device)
@@ -964,6 +1233,7 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
                        "local_batch": spec.model.local_batch,
                        "seq_len": spec.model.seq_len},
             "bucket_groups": layout_groups, "launches": launches,
+            "hops": hops, "hw_slots": tr.hw_slots or 1,
             "trace": trace, "run_report": report.to_dict(),
             "setup_s": setup_s,
             "step_ms_median": 1e3 * step_s[len(step_s) // 2] if step_s
@@ -1085,28 +1355,42 @@ def _named_leaves(tree, params):
 # --- phase 8 -------------------------------------------------------------------
 
 def trainer_card_vs_cpu(torch, api, convert, draws_mod, tree,
-                        steps: int = REPLAY_STEPS_SLICE, device="cuda"):
+                        steps: int = REPLAY_STEPS_SLICE, device="cuda",
+                        **variant):
     """The small trainer, one step at a time from the card's state: the
-    CPU path draws, the card replays; X, D, H, Hw compared."""
+    CPU path draws, the card replays; X, D, H, Hw compared.  ``variant``
+    (``schedule``, ``backend``, ``params``) goes to ``slice_spec``; under
+    fault injection the CPU path's fault draws are replayed too, each
+    step's over a fresh fault stream on the card."""
     spec = slice_spec(api, steps, full=False, n_layers=1, d_model=256,
-                      seq_len=64)
+                      seq_len=64, **variant)
     cpu = api.build(spec, device="cpu")
     card = api.build(spec) if device == "cuda" else api.build(
         spec, device=device)
     data = cpu.default_data()
     gen = draws_mod.GeneratorDraws(spec.seed, "cpu")
+    faulty = bool(getattr(cpu.trainer.mixer, "faults", ()))
+    flt = draws_mod.RecordingDraws(draws_mod.GeneratorDraws(spec.fault_seed,
+                                                            "cpu"))
+    if faulty:
+        cpu.trainer.start_fault_stream(flt)
     st = card.init_state()
     worst_frac = worst_rel = 0.0
     for t in range(steps):
         arrays = convert.trainstate_to_arrays(st)
         rec = draws_mod.RecordingDraws(gen)
+        nf = len(flt.record)
         want, _ = cpu.step(convert.trainstate_from_arrays(arrays,
                                                           device="cpu"),
                            data.batch_at(t), rec)
         replay = draws_mod.ReplayDraws(rec.record, card.device)
+        freplay = draws_mod.ReplayDraws(flt.record[nf:], card.device)
+        if faulty:
+            card.trainer.start_fault_stream(freplay)
         batch = {k: v.to(card.device) for k, v in data.batch_at(t).items()}
         st, _ = card.step(st, batch, replay)
-        require(not replay.pending, "the card drew less than the CPU path")
+        require(not replay.pending and not freplay.pending,
+                "the card drew less than the CPU path")
         got_a, want_a = (convert.trainstate_to_arrays(s) for s in (st, want))
         for name in ("X", "D", "comm.H", "comm.Hw"):
             for a, b in zip(tree.leaves(got_a[name]),
@@ -1120,7 +1404,50 @@ def trainer_card_vs_cpu(torch, api, convert, draws_mod, tree,
                 f"array differs by more than {REPLAY_ELEM_TOL} x its max")
     return {"spec": spec.name, "steps": steps, "elem_tol": REPLAY_ELEM_TOL,
             "max_off_fraction": REPLAY_MAX_OFF,
+            "fault_draws_replayed": faulty,
             "worst_off_fraction": worst_frac, "worst_rel_max": worst_rel}
+
+
+def trainer_drop_rate(torch, api, tree, qk, steps: int = DROP_RATE_STEPS,
+                      device="cuda"):
+    """The small trainer on the dense backend under ``drop_rate``: two
+    ``run()`` calls on one runner, each from a fresh state (so each starts
+    the fault stream afresh), the launch counters zeroed just before the
+    first and read just after it.  B1 and B2 launch once per leaf a step;
+    the two runs agree at phase 4's tolerance (the card's gradient sums
+    may reduce in another order); the loss is finite."""
+    spec = slice_spec(api, steps, full=False, n_layers=1, d_model=256,
+                      seq_len=64, backend="dense",
+                      params={"drop_rate": DROP_RATE})
+    runner = api.build(spec) if device == "cuda" else api.build(
+        spec, device=device)
+    losses = []
+
+    def keep(state, metrics, t):
+        losses.append(float(metrics["loss"]))
+
+    qk.reset_launch_counts()
+    first, _ = runner.run(num_steps=steps, callback=keep, log_every=1)
+    launches = qk.launch_counts()
+    second, _ = runner.run(num_steps=steps)
+    n_leaves = len(tree.leaves(first.plead.X))
+    on_card = device == "cuda"
+    require(not on_card or (launches[B1] == steps * n_leaves
+                            and launches[B2] == steps * n_leaves),
+            f"launch counts {launches} != one B1 and one B2 per leaf a step "
+            f"({n_leaves} leaves, {steps} steps)")
+    require(all(map(math.isfinite, losses)), f"non-finite loss {losses}")
+    worst_frac = 0.0
+    for a, b in zip(tree.leaves(first.plead.X), tree.leaves(second.plead.X)):
+        scale = max(float(b.abs().max()), 1e-30)
+        off = (a - b).abs() > REPLAY_ELEM_TOL * scale
+        worst_frac = max(worst_frac, float(off.float().mean()))
+    require(worst_frac <= REPLAY_MAX_OFF,
+            f"two drop_rate runs from fresh states differ: {worst_frac:.2e} "
+            f"of X off by more than {REPLAY_ELEM_TOL} x its max")
+    return {"spec": spec.name, "steps": steps, "drop_rate": DROP_RATE,
+            "leaves": n_leaves, "launches": launches, "loss": losses,
+            "two_runs_worst_off_fraction": worst_frac}
 
 
 # --- phase 9 -------------------------------------------------------------------
@@ -1363,6 +1690,39 @@ def main() -> int:
                   f"x{t['per_step']:.0f}  {t['name']}", flush=True)
         print(f"[main] just before B1: {pf['before_b1']}", flush=True)
 
+        # 4b. the netsim engine on the same spec
+        t0 = time.perf_counter()
+        ns = netsim_path(torch, api, convert, draws_mod, qk)
+        ns["seconds"] = time.perf_counter() - t0
+        result["netsim"] = ns
+        print(f"[netsim] static schedule, no faults: "
+              f"{ns['static_bit_equal_steps']} steps bit-equal to the dense "
+              f"engine (X, D, H, Hw)", flush=True)
+        print(f"[netsim] {ns['spec']}: {ns['steps']} steps, objective "
+              f"{ns['objective'][0]:.6f} -> {ns['objective'][1]:.6f}, "
+              f"consensus {ns['consensus'][0]:.3e} -> "
+              f"{ns['consensus'][1]:.3e}, launches {ns['launches']}, bits "
+              f"{ns['bits_total']} in all ({ns['bits_per_edge']} an edge; "
+              f"first rounds {ns['bits_first']}) = the host recount from "
+              f"the recorded masks", flush=True)
+        print(f"[netsim] card vs CPU, {ns['replay']['steps']} steps, the "
+              f"card's draws replayed: worst off fraction "
+              f"{ns['replay']['worst_off_fraction']:.2e}, worst |diff|/max "
+              f"{ns['replay']['worst_rel_max']:.2e}", flush=True)
+        tm = ns["ms_per_step"]
+        pf = ns["profile"]
+        print(f"[netsim] ms a step ({NETSIM_TIMED_STEPS} steps each): dense "
+              f"{tm['dense']:.4f}, netsim static {tm['netsim_static']:.4f}, "
+              f"netsim scenario {tm['netsim_scenario']:.4f}; scenario "
+              f"profile: {pf['wall_ms_per_step']:.4f} ms/step wall, "
+              f"{pf['device_ms_per_step']:.4f} on the device (busy "
+              f"{pf['busy_share']:.1%}), {pf['device_ops_per_step']:.0f} "
+              f"device ops/step; phase {ns['seconds']:.1f} s | {smi}",
+              flush=True)
+        for t in pf["names"][:12]:
+            print(f"[netsim]   {t['us_per_step']:8.2f} us/step "
+                  f"x{t['per_step']:.0f}  {t['name']}", flush=True)
+
         # 5. B3/B4 against their plain versions, timed at the slice's shape
         t0 = time.perf_counter()
         n, n_vector = check_wire_kernels(torch, qk, ref, errs)
@@ -1377,9 +1737,16 @@ def main() -> int:
             print(f"[wire] {k} @ {v['rows']}: {v['ms']:.4f} ms (plain "
                   f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} by "
                   f"{v['bound_by']}, library none) | {smi}", flush=True)
+        b4t2 = b4_at_alternating_schedule(torch, qk, ref, errs)
+        print(f"[wire] qinf_unpack_dequant_mix_blocks @ {b4t2['rows']} T="
+              f"{b4t2['T']} ({b4t2['variant']} variant): mix and qself "
+              f"bit-equal; {b4t2['ms']:.4f} ms (plain "
+              f"{b4t2['plain_ms']:.4f}, bound {b4t2['bound_ms']:.4f} by "
+              f"{b4t2['bound_by']}, {b4t2['bound_gb']:.2f} GB, library "
+              f"none) | {smi}", flush=True)
         result["wire_kernels"] = {"cases": n, "vector_cases": n_vector,
                                   "at_slice_shape": at_slice,
-                                  "times": wtimes}
+                                  "times": wtimes, "b4_t2_s6": b4t2}
 
         # 6. the trainer path at the slice's configuration
         sp = trainer_path(torch, api, draws_mod, qk)
@@ -1408,6 +1775,26 @@ def main() -> int:
             print(f"[slice]   {t_['ms_per_step']:9.3f} ms/step "
                   f"x{t_['per_step']:.0f}  {t_['name']}", flush=True)
 
+        # 6b. the same trainer under the alternating schedule (T = 2)
+        torch.cuda.empty_cache()
+        ss = trainer_path(torch, api, draws_mod, qk, profile_steps=0,
+                          spec=slice_spec(api, SLICE_STEPS,
+                                          schedule="alternating"),
+                          hops=SCHEDULED_HOPS)
+        result["scheduled_trainer_path"] = ss
+        print(f"[sched] {ss['spec']}: {ss['steps']} steps, {ss['hops']} "
+              f"hops, {ss['hw_slots']} Hw slots, loss (mean of "
+              f"{LOSS_WINDOW}) {ss['loss_first_window']:.6f} -> "
+              f"{ss['loss_last_window']:.6f}, consensus "
+              f"{ss['trace'][0]['consensus']:.4e} -> "
+              f"{ss['trace'][-1]['consensus']:.4e}; launches "
+              f"{ss['launches']} ({ss['bucket_groups']} bucket groups); "
+              f"{ss['bits_per_step']:.0f} bits/step/node", flush=True)
+        print(f"[sched] step {ss['step_ms_median']:.1f} ms median "
+              f"({ss['step_ms_min']:.1f} min), peak "
+              f"{ss['peak_mem_gb']:.2f} GiB allocated, set-up "
+              f"{ss['setup_s']:.1f} s | {smi}", flush=True)
+
         # 7. bucketed against per-leaf wire at the slice's widths
         bp = bucketed_vs_per_leaf(torch, api, draws_mod, wire, ref)
         result["bucketed_vs_per_leaf"] = bp
@@ -1417,11 +1804,24 @@ def main() -> int:
               f" bytes per hop per node", flush=True)
 
         # 8. the trainer, card against CPU at a small size
-        cc = trainer_card_vs_cpu(torch, api, convert, draws_mod, tree)
-        result["trainer_card_vs_cpu"] = cc
-        print(f"[slice] card vs CPU, {cc['steps']} steps of {cc['spec']}: "
-              f"worst off fraction {cc['worst_off_fraction']:.2e}, worst "
-              f"|diff|/max {cc['worst_rel_max']:.2e}", flush=True)
+        result["trainer_card_vs_cpu"] = []
+        for variant in ({}, {"schedule": "alternating"},
+                        {"backend": "dense",
+                         "params": {"drop_rate": DROP_RATE}}):
+            cc = trainer_card_vs_cpu(torch, api, convert, draws_mod, tree,
+                                     **variant)
+            result["trainer_card_vs_cpu"].append(cc)
+            print(f"[slice] card vs CPU, {cc['steps']} steps of "
+                  f"{cc['spec']}: worst off fraction "
+                  f"{cc['worst_off_fraction']:.2e}, worst |diff|/max "
+                  f"{cc['worst_rel_max']:.2e}", flush=True)
+        dr = trainer_drop_rate(torch, api, tree, qk)
+        result["trainer_drop_rate"] = dr
+        print(f"[drop] {dr['spec']}: 2 runs x {dr['steps']} steps from fresh "
+              f"states, worst off fraction between them "
+              f"{dr['two_runs_worst_off_fraction']:.2e}; launches "
+              f"{dr['launches']} ({dr['leaves']} leaves); loss "
+              f"{dr['loss'][0]:.6f} -> {dr['loss'][-1]:.6f}", flush=True)
 
         # 9. the paper's comparisons on the card
         t0 = time.perf_counter()
@@ -1485,12 +1885,16 @@ def main() -> int:
             extra = {"large": times["large"][name_], "paper_launches": {
                 r["name"]: r["launches"][name_]
                 for g in pc["grids"].values() for r in g["rows"]
-                if r["launches"][name_]}}
+                if r["launches"][name_]},
+                "netsim_launches": ns["launches"][name_],
+                "drop_rate_trainer_launches": dr["launches"][name_]}
             if name_ == "qinf_quantize_blocks":
                 extra["main_path_leaf"] = b1_main
         else:                          # B3/B4: the trainer path
             m, launches = wtimes[name_], sp["launches"][name_]
-            extra = {}
+            extra = {"scheduled_launches": ss["launches"][name_]}
+            if name_ == "qinf_unpack_dequant_mix_blocks":
+                extra["t2_s6"] = b4t2
         kernels.append({
             "name": name_, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + src,

@@ -1,12 +1,14 @@
 """The declarative experiment API of the port: specs, ``build``, runners.
 
 The spec dataclasses read the same JSON as ``repro.api`` (the golden files
-under ``tests/golden_specs``).  The port runs two engines: ``dense``
+under ``tests/golden_specs``).  The port runs three engines: ``dense``
 (:class:`DenseRunner`: Prox-LEAD, LEAD, NIDS and the six baselines of
-``core.baselines`` over a DenseMixer) and
-``sharded`` (:class:`TrainerRunner`: the decentralized NN trainer, dense
-or neighbor-gossip backend, static schedules); a spec for anything else is
-refused with the slice that will bring it.  ``build(spec)`` resolves every
+``core.baselines`` over a DenseMixer; static and fault-free), ``netsim``
+(:class:`NetsimRunner`: the same algorithms under a time-varying schedule
+and communication faults, ``repro_torch.netsim``) and ``sharded``
+(:class:`TrainerRunner`: the decentralized NN trainer, dense or
+neighbor-gossip backend, any schedule); a sweep spec is refused with the
+slice that will bring it.  ``build(spec)`` resolves every
 component through ``repro_torch.registry`` and returns a runner on the
 card unless the caller passes ``device="cpu"``::
 
@@ -16,9 +18,10 @@ card unless the caller passes ``device="cpu"``::
 
 Randomness is a draw source (``core.draws``): ``run`` makes one from
 ``spec.seed`` on the run's device unless it is handed one, and calls it in
-a fixed order.  Dense engine: the algorithm's draws at init (the
-oracle's, where it samples there), then every step the oracle's draws
-followed by the compressor's draws for each compressed leaf.
+a fixed order.  Dense and netsim engines: the algorithm's draws at init
+(the oracle's, where it samples there), then every step the oracle's draws
+followed by the compressor's draws for each compressed leaf; the netsim
+engine's faults draw from a second source, seeded ``spec.fault_seed``.
 Sharded engine: every step the compressor's draws for each compressed
 leaf (the trainer's data stream is its own, ``data.pipeline``).
 """
@@ -27,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
-from typing import Any, Callable, Mapping, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,15 +48,17 @@ from repro_torch.core.draws import Draws, GeneratorDraws
 from repro_torch.data import synthetic as _synthetic            # noqa: F401
 from repro_torch.data.pipeline import DecentralizedBatches
 from repro_torch.models import transformer as TR
+from repro_torch.netsim import engine as netsim_engine
 from repro_torch.netsim import metrics as netsim_metrics
+from repro_torch.netsim import schedule as sched_mod
 from repro_torch.obs import Meters, RunReport, span, using_meters
 from repro_torch.optim import decentralized as dec
 
 # engines of the reference that later slices of the port bring
 _LATER_ENGINES = {
-    "netsim": dec.NETSIM_SLICE,
     "sweep": "the sweep slice (ROADMAP A18: the sweep engine)",
 }
+ENGINES = ("dense", "netsim", "sharded")
 #: model-sharded meshes need more than one card
 MULTI_CARD_SLICE = ("the multi-card slice (ROADMAP: NCCL point-to-point "
                     "behind the pp seam, 4 cards)")
@@ -61,10 +66,6 @@ MULTI_CARD_SLICE = ("the multi-card slice (ROADMAP: NCCL point-to-point "
 #: may set them to their defaults (field -> (default, the slice that
 #: brings it)); any other value is refused
 LATER_TRAINER_FIELDS = {
-    "schedule_rounds": (32, dec.NETSIM_SLICE),
-    "schedule_drop": (0.0, dec.NETSIM_SLICE),
-    "drop_rate": (0.0, dec.NETSIM_SLICE),
-    "fault_seed": (0, dec.NETSIM_SLICE),
     "shard_aligned_blocks": (False, MULTI_CARD_SLICE),
     "tp_ways": (16, MULTI_CARD_SLICE),
 }
@@ -156,8 +157,8 @@ class CompressorSpec:
 
 @dataclasses.dataclass(frozen=True)
 class TopologySpec:
-    """A static graph; ``schedule``/``rounds``/``schedule_params`` describe
-    netsim schedules, which the dense engine refuses."""
+    """A graph and a netsim schedule over it (``static`` by default; the
+    dense engine refuses any other)."""
     graph: str = "ring"
     schedule: str = "static"
     rounds: int = 32
@@ -171,6 +172,25 @@ class TopologySpec:
 
     def build_graph(self, n: int) -> topo_mod.Topology:
         return topo_mod.make_topology(self.graph, n, **self.params)
+
+    def build_schedule(self, n: int, seed: int = 0
+                       ) -> sched_mod.TopologySchedule:
+        return sched_mod.make_schedule(
+            self.schedule, n, base=self.graph, rounds=self.rounds, seed=seed,
+            **self.schedule_params)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSpec:
+    """linkdrop | straggler | noise (``repro_torch.netsim.faults``)."""
+    name: str = "linkdrop"
+    params: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "params", _norm_params(self.params))
+
+    def build(self):
+        return registry.make("fault", self.name, **self.params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,9 +284,9 @@ _NESTED = {"algorithm": AlgorithmSpec, "compressor": CompressorSpec,
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
     """The declarative experiment, JSON-compatible with
-    ``repro.api.ExperimentSpec``.  ``faults`` are carried as their JSON
-    (they belong to the netsim engine, which the port has not reached) and
-    must be empty; ``model`` is the sharded engine's objective."""
+    ``repro.api.ExperimentSpec``.  ``faults`` run on the netsim engine (the
+    sharded engine's dense backend takes one ``linkdrop``); ``model`` is
+    the sharded engine's objective."""
     name: str = "experiment"
     n_nodes: int = 8
     steps: int = 200
@@ -276,7 +296,7 @@ class ExperimentSpec:
     compressor: CompressorSpec = dataclasses.field(
         default_factory=CompressorSpec)
     topology: TopologySpec = dataclasses.field(default_factory=TopologySpec)
-    faults: Tuple[Any, ...] = ()
+    faults: Tuple[FaultSpec, ...] = ()
     prox: ProxSpec = dataclasses.field(default_factory=ProxSpec)
     oracle: Optional[OracleSpec] = None
     model: Optional[ModelSpec] = None
@@ -288,22 +308,17 @@ class ExperimentSpec:
             if isinstance(v, Mapping):
                 object.__setattr__(self, f, cls(**v))
         object.__setattr__(self, "faults", tuple(
-            _norm_params(f) if isinstance(f, Mapping) else f
+            FaultSpec(**f) if isinstance(f, Mapping) else f
             for f in self.faults))
         engine = self.execution.engine
         if engine in _LATER_ENGINES:
             raise ValueError(
                 f"spec {self.name!r}: engine {engine!r} is not ported yet; "
                 f"it arrives with {_LATER_ENGINES[engine]}")
-        if engine not in ("dense", "sharded"):
+        if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; the port runs "
-                             f"'dense' and 'sharded'")
-        if self.topology.schedule != "static" or self.faults:
-            raise ValueError(
-                f"spec {self.name!r}: time-varying schedules and faults are "
-                f"not ported yet; they arrive with "
-                f"{_LATER_ENGINES['netsim']}")
-        if engine == "dense" and self.model is not None:
+                             f"{list(ENGINES)}")
+        if engine != "sharded" and self.model is not None:
             raise ValueError(
                 f"spec {self.name!r}: a model objective runs on engine "
                 f"'sharded'")
@@ -437,14 +452,115 @@ def build_algorithm(spec: ExperimentSpec, mixer, oracle):
     return registry.make("algorithm", a.name, **ctx, **a.params)
 
 
-@registry.register_engine("dense")
-def _build_dense(spec: ExperimentSpec, device, dtype) -> DenseRunner:
+def _oracle_and_problem(spec: ExperimentSpec, device, dtype):
     osp = spec.oracle if spec.oracle is not None else OracleSpec()
     problem, X0 = osp.build_problem(spec.n_nodes, device,
                                     dtype or torch.float32)
+    return osp.build(problem), problem, X0
+
+
+@registry.register_engine("dense")
+def _build_dense(spec: ExperimentSpec, device, dtype) -> DenseRunner:
+    if spec.topology.schedule != "static" or spec.faults:
+        raise ValueError(
+            "engine='dense' is the static, fault-free path; time-varying "
+            "schedules and faults run on engine='netsim'")
+    oracle, problem, X0 = _oracle_and_problem(spec, device, dtype)
     mixer = DenseMixer(spec.topology.build_graph(spec.n_nodes).W)
-    algo = build_algorithm(spec, mixer, osp.build(problem))
+    algo = build_algorithm(spec, mixer, oracle)
     return DenseRunner(algo, X0, spec=spec, problem=problem)
+
+
+class NetsimRunner:
+    """Runner over :func:`repro_torch.netsim.engine.simulate`: the
+    algorithm's mixer is swapped for a SimMixer (schedule + faults) and the
+    steps run with exact, fault-exact bits-on-wire accounting.
+
+    ``init_state(draws)`` starts a run: the algorithm over a new SimMixer
+    whose faults draw from a generator seeded ``spec.fault_seed``, kept for
+    the ``step(state, draws)`` calls that follow.  ``run`` starts afresh,
+    both streams seeded anew."""
+
+    def __init__(self, algo, X0, schedule: sched_mod.TopologySchedule,
+                 faults=(), *, spec: Optional[ExperimentSpec] = None,
+                 problem=None):
+        self.algo = algo
+        self.X0 = X0
+        self.schedule = schedule
+        self.faults = tuple(faults)
+        self.spec = spec
+        self.problem = problem
+        self.last_report: Optional[RunReport] = None
+        self._run_algo = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.X0.device
+
+    def with_fault_draws(self, fault_draws: Draws):
+        """The algorithm over a fresh SimMixer drawing from
+        ``fault_draws``."""
+        return dataclasses.replace(self.algo, mixer=netsim_engine.SimMixer(
+            self.schedule, self.faults, fault_draws))
+
+    def init_state(self, draws: Draws):
+        self._run_algo = self.with_fault_draws(GeneratorDraws(
+            self.spec.fault_seed if self.spec else 0, self.device))
+        return self._run_algo.init(self.X0, draws)
+
+    def step(self, state, draws: Draws):
+        if self._run_algo is None:
+            raise RuntimeError("NetsimRunner.step needs init_state first: "
+                               "it starts the run's fault stream")
+        return self._run_algo.step(state, draws)
+
+    def run(self, *, num_steps: Optional[int] = None,
+            draws: Optional[Draws] = None,
+            fault_draws: Optional[Draws] = None, X0=None,
+            objective_fn: Optional[Callable] = None, mask_log=None):
+        """-> (final state, ``netsim.metrics.Trajectory``).  Draw sources
+        default to generators seeded ``spec.seed`` and ``spec.fault_seed``
+        on the run's device; ``mask_log``: see ``SimMixer``."""
+        sp = self.spec
+        if num_steps is None:
+            num_steps = sp.steps if sp else 0
+        meters = Meters()
+        with using_meters(meters), span("run_total", self.device) as tsp:
+            final, traj = netsim_engine.simulate(
+                self.algo, self.schedule, self.faults,
+                X0=X0 if X0 is not None else self.X0, steps=num_steps,
+                seed=sp.seed if sp else 0,
+                fault_seed=sp.fault_seed if sp else 0,
+                objective_fn=objective_fn, draws=draws,
+                fault_draws=fault_draws, mask_log=mask_log)
+        # trajectory bits are the fault-exact SYSTEM total per round (every
+        # directed edge that actually carried a payload), not one node's
+        self.last_report = RunReport(
+            name=sp.name if sp else "netsim", engine="netsim",
+            device=device_label(self.device), steps=traj.steps,
+            total_s=tsp.elapsed_s,
+            bits_per_step=(traj.total_bits / traj.steps if traj.steps
+                           else 0.0),
+            scope="system",
+            extra={"algo": traj.meta.get("algo"),
+                   "schedule": traj.meta.get("schedule"),
+                   "bits_total": traj.total_bits,
+                   "final_consensus": (float(traj.consensus[-1])
+                                       if traj.steps else None),
+                   "meters": meters.as_dict()})
+        return final, traj
+
+
+@registry.register_engine("netsim")
+def _build_netsim(spec: ExperimentSpec, device, dtype) -> NetsimRunner:
+    oracle, problem, X0 = _oracle_and_problem(spec, device, dtype)
+    schedule = spec.topology.build_schedule(spec.n_nodes, seed=spec.seed)
+    faults = tuple(f.build() for f in spec.faults)
+    # placeholder mixer: the runner swaps in the SimMixer
+    mixer = DenseMixer(spec.topology.build_graph(spec.n_nodes).W)
+    algo = build_algorithm(spec, mixer, oracle)
+    return NetsimRunner(algo, X0, schedule, faults, spec=spec,
+                        problem=problem)
 
 
 class TrainerRunner:
@@ -528,7 +644,10 @@ class TrainerRunner:
             return float(len(tr.plan.hops) * per_edge)
         per_edge = netsim_metrics.payload_bits_per_node(tr.compressor,
                                                          leaves)
-        Wn = np.abs(np.asarray(tr.mixer.W))
+        W = getattr(tr.mixer, "W", None)
+        if W is None:                 # a netsim mixer: no one W to price
+            return 0.0
+        Wn = np.abs(np.asarray(W))
         directed = int((Wn > 1e-12).sum() - (np.diag(Wn) > 1e-12).sum())
         return per_edge * directed / Wn.shape[0]
 
@@ -556,7 +675,10 @@ def trainer_config_from_spec(spec: ExperimentSpec) -> dec.TrainerConfig:
     """Map an ExperimentSpec onto TrainerConfig, strictly: spec entries
     that map onto no TrainerConfig field raise (the reference's rule), and
     the reference's knobs that only a later slice reads are refused unless
-    at their defaults (:data:`LATER_TRAINER_FIELDS`)."""
+    at their defaults (:data:`LATER_TRAINER_FIELDS`).  The schedule's
+    ``rounds`` and ``drop`` and the spec's ``fault_seed`` map onto
+    ``schedule_rounds``, ``schedule_drop`` and ``fault_seed``; one
+    ``linkdrop`` fault onto ``drop_rate``."""
     tc_fields = {f.name for f in dataclasses.fields(dec.TrainerConfig)}
     if spec.algorithm.name != "prox_lead":
         raise ValueError(
@@ -576,12 +698,27 @@ def trainer_config_from_spec(spec: ExperimentSpec) -> dec.TrainerConfig:
         allow_biased=bool(spec.algorithm.params.get("allow_biased", False)),
         prox=spec.prox.build(), topology=spec.topology.graph,
         backend=spec.execution.backend, schedule=spec.topology.schedule,
+        schedule_rounds=spec.topology.rounds,
         wire_mode=spec.execution.wire_mode,
-        pack_mode=spec.execution.pack_mode, seed=spec.seed)
+        pack_mode=spec.execution.pack_mode, seed=spec.seed,
+        fault_seed=spec.fault_seed)
     extra = set(spec.algorithm.params) - {"allow_biased"}
     if extra:
         raise ValueError(f"sharded engine: unsupported algorithm params "
                          f"{sorted(extra)}")
+    sp = dict(spec.topology.schedule_params)
+    if "drop" in sp:
+        kw["schedule_drop"] = sp.pop("drop")
+    if sp:
+        raise ValueError(f"sharded engine: unsupported schedule params "
+                         f"{sorted(sp)}")
+    for f in spec.faults:
+        if f.name != "linkdrop" or "drop_rate" in kw:
+            raise ValueError(
+                f"sharded engine supports a single linkdrop fault only "
+                f"(got {[x.name for x in spec.faults]}); richer fault "
+                f"models run on engine='netsim'")
+        kw["drop_rate"] = f.params.get("rate", 0.1)
     for where, params in (("compressor", spec.compressor.params),
                           ("execution", spec.execution.params)):
         for k, v in params.items():
@@ -593,9 +730,6 @@ def trainer_config_from_spec(spec: ExperimentSpec) -> dec.TrainerConfig:
                     f"{where} param {k!r} has no TrainerConfig field; the "
                     f"trainer understands {sorted(tc_fields)}")
             kw[k] = v
-    if spec.topology.schedule_params:
-        raise ValueError(f"sharded engine: unsupported schedule params "
-                         f"{sorted(spec.topology.schedule_params)}")
     return dec.TrainerConfig(**kw)
 
 
@@ -632,7 +766,8 @@ def _build_sharded(spec: ExperimentSpec, device, dtype) -> TrainerRunner:
 def build(spec: ExperimentSpec, *, device=None,
           dtype: Optional[torch.dtype] = None):
     """Resolve a spec into a runner on ``device`` (default: the card; raises
-    without one).  ``dtype``: the dense engine's state and data (default
-    f32); the sharded engine's parameters (default: the model config's)."""
+    without one).  ``dtype``: the dense and netsim engines' state and data
+    (default f32); the sharded engine's parameters (default: the model
+    config's)."""
     return registry.make("engine", spec.execution.engine, spec=spec,
                          device=resolve_device(device), dtype=dtype)

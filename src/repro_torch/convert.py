@@ -24,7 +24,9 @@ A trainer state (``repro.optim.decentralized.TrainState``) crosses as
 
     X, D, comm.H, comm.Hw, k, step, precond.m, precond.v
 
-with the parameter trees (nested dicts) as they are; without the Adam
+with the parameter trees (nested dicts) as they are (on the neighbor
+backend under a time-varying schedule each ``comm.Hw`` leaf carries one
+slot per round, (N, T, ...), in both packages); without the Adam
 preconditioner the reference stores a 0-d integer placeholder under
 ``precond.m`` and ``precond.v``, the port ``None``.  :func:`tree_to_torch`
 and :func:`tree_to_numpy` carry a bare parameter tree.

@@ -49,9 +49,9 @@ def _compress(compressor: Compressor, tree, draws: Draws):
     return tree_map(lambda leaf: compressor(leaf, draws), tree)
 
 
-def _half_mix(mixer: Mixer, X):
-    """(I + W) / 2 X."""
-    return tree_map(lambda x, wx: 0.5 * (x + wx), X, mixer(X))
+def _half_mix(mixer: Mixer, X, k):
+    """(I + W_k) / 2 X."""
+    return tree_map(lambda x, wx: 0.5 * (x + wx), X, mixer(X, k))
 
 
 @dataclasses.dataclass
@@ -80,7 +80,8 @@ class ProxDGD(Baseline):
     def step(self, state, draws):
         G, ostate = self.oracle.sample(state.X, state.oracle, draws)
         X = self.prox.tree_call(tree_map(lambda wx, g: wx - self.eta * g,
-                                         self.mixer(state.X), G), self.eta)
+                                         self.mixer(state.X, state.k), G),
+                                self.eta)
         return SimpleState(X, state.aux, ostate, state.k + 1)
 
 
@@ -104,7 +105,8 @@ class PGExtra(Baseline):
         G, ostate = self.oracle.sample(state.X, state.oracle, draws)
         Znew = tree_map(
             lambda z, wx, hx, g, gp: z + wx - hx - self.eta * (g - gp),
-            Z, self.mixer(state.X), _half_mix(self.mixer, Xprev), G, Gprev)
+            Z, self.mixer(state.X, state.k),
+            _half_mix(self.mixer, Xprev, state.k), G, Gprev)
         return SimpleState(self.prox.tree_call(Znew, self.eta),
                            (Znew, state.X, G), ostate, state.k + 1)
 
@@ -131,7 +133,7 @@ class NIDSIndependent(Baseline):
         Y = tree_map(lambda x, xp, g, gp: 2 * x - xp - self.eta * (g - gp),
                      state.X, Xprev, G, Gprev)
         Znew = tree_map(lambda z, x, my: z - x + my, Z, state.X,
-                        _half_mix(self.mixer, Y))
+                        _half_mix(self.mixer, Y, state.k))
         return SimpleState(self.prox.tree_call(Znew, self.eta),
                            (Znew, state.X, G), ostate, state.k + 1)
 
@@ -158,7 +160,7 @@ class ChocoSGD(Baseline):
                       tree_map(lambda a, b: a - b, Xp, state.aux), draws)
         xhat = tree_map(lambda h, qq: h + qq, state.aux, q)
         X = tree_map(lambda xp, wxh, xh: xp + self.gamma_c * (wxh - xh),
-                     Xp, self.mixer(xhat), xhat)
+                     Xp, self.mixer(xhat, state.k), xhat)
         return SimpleState(X, xhat, ostate, state.k + 1)
 
 
@@ -188,7 +190,8 @@ class LessBit(Baseline):
         xhat = tree_map(lambda hh, qq: hh + qq, h, q)
         h = tree_map(lambda hh, xh: (1 - self.alpha) * hh + self.alpha * xh,
                      h, xhat)
-        lap = tree_map(lambda xh, wxh: xh - wxh, xhat, self.mixer(xhat))
+        lap = tree_map(lambda xh, wxh: xh - wxh, xhat,
+                       self.mixer(xhat, state.k))
         d = tree_map(lambda dd, l: dd + self.theta / 2.0 * l, d, lap)
         return SimpleState(X, (d, h), ostate, state.k + 1)
 

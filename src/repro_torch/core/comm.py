@@ -1,4 +1,4 @@
-"""The COMM procedure (paper, Algorithm 1 inset) over a dense mixing matrix.
+"""The COMM procedure (paper, Algorithm 1 inset) and its mixing backends.
 
 COMM compresses the *difference* Z^{k+1} - H^k, so the compression error
 vanishes as Z and H converge to the same point (implicit error
@@ -10,14 +10,28 @@ compensation):
     H^{k+1}  = (1-alpha) H^k  + alpha Zhat
     Hw^{k+1} = (1-alpha) Hw^k + alpha Zhat_w
 
-Leaves carry a leading node axis n.  ``DenseMixer`` applies W along it as
-one (n, n) x (n, rest) product; the ring/neighbour gossip backends and the
-time-varying (netsim) mixers of the reference arrive with later slices.
+Leaves carry a leading node axis n.  Every mixer takes the round index
+``k`` (a host int, or None for round 0):
+
+* ``DenseMixer`` -- one (n, n) x (n, rest) product with a static W; it
+  ignores ``k``.
+* ``NeighborMixer`` -- the dense meaning of a compiled
+  :class:`~repro_torch.core.topology.ExchangePlan` (also a time-varying
+  one, T > 1): hop by hop, a gather and a per-receiver, per-round weight.
+  The neighbor-gossip trainer (``optim.decentralized``) moves the packed
+  payloads of the same plan and is held to this.
+* the time-varying and faulty mixers of ``repro_torch.netsim``
+  (``ScheduledMixer``, ``SimMixer``).
+
+A time-varying or faulty mixer sets ``recompute_hw``: the incremental
+recursion Hw + W Q only tracks W H for a static W, so COMM recomputes
+Zhat_w = W_k (H + Q) from the receiver-side H replicas instead
+(``comm_mix``), and drops a straggler's Q everywhere (``send_mask``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,13 +47,31 @@ class CommState(NamedTuple):
 
 
 class Mixer:
-    """mix(X) computes W X along the leading node axis of every leaf."""
+    """mix(X, k) computes W_k X along the leading node axis of every leaf.
 
-    def mix_leaf(self, leaf: torch.Tensor) -> torch.Tensor:
+    ``k`` is the round index (a host int; None means round 0).  Static
+    backends ignore it."""
+
+    #: True -> COMM uses comm_mix/send_mask instead of the Hw recursion
+    recompute_hw: bool = False
+
+    def mix_leaf(self, leaf: torch.Tensor, k=None) -> torch.Tensor:
         raise NotImplementedError
 
-    def __call__(self, X):
-        return tree_map(self.mix_leaf, X)
+    def __call__(self, X, k=None):
+        return tree_map(lambda leaf: self.mix_leaf(leaf, k), X)
+
+    def send_mask(self, k=None) -> Optional[torch.Tensor]:
+        """(n,) {0,1} mask of the nodes whose send succeeds this round, or
+        None.  A failed sender's Q is dropped everywhere -- receivers AND
+        its own H update -- so sender and replica state stay consistent."""
+        return None
+
+    def comm_mix(self, h: torch.Tensor, q: torch.Tensor, k=None,
+                 leaf_idx: int = 0) -> torch.Tensor:
+        """Zhat_w for one leaf: W_k applied to (h + q) through the faulty
+        channel.  Only required when ``recompute_hw``."""
+        raise NotImplementedError
 
 
 def _exact_stochastic(W: np.ndarray, dtype: torch.dtype) -> np.ndarray:
@@ -75,28 +107,110 @@ class DenseMixer(Mixer):
                 _exact_stochastic(np.asarray(self.W), dtype), device=device)
         return self._cache[key]
 
-    def mix_leaf(self, leaf: torch.Tensor) -> torch.Tensor:
-        acc = torch.float64 if leaf.dtype == torch.float64 else torch.float32
-        W = self._w(acc, leaf.device)
-        return torch.tensordot(W, leaf.to(acc), dims=([1], [0])).to(leaf.dtype)
+    def mix_leaf(self, leaf: torch.Tensor, k=None) -> torch.Tensor:
+        acc = acc_dtype(leaf.dtype)
+        return mix_with(self._w(acc, leaf.device), leaf)
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The mixing accumulation dtype: f64 for f64 leaves, f32 otherwise."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def mix_with(W: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """W (n, n) applied along the leading node axis of ``leaf``, in W's
+    dtype, the result cast back to the leaf's."""
+    return torch.tensordot(W, leaf.to(W.dtype),
+                           dims=([1], [0])).to(leaf.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborMixer(Mixer):
+    """W_k X through a compiled ExchangePlan -- ring, exponential graph,
+    torus, matchings, any static sparse topology or finite schedule cycle.
+
+    The plan's *dense reference semantics* on stacked (n, ...) leaves: hop
+    by hop a gather stands in for the exchange, gated by the receiver's
+    weight for round ``k % T``."""
+    plan: Any                       # repro_torch.core.topology.ExchangePlan
+
+    @property
+    def recompute_hw(self) -> bool:
+        # time-varying plans invalidate the static incremental Hw
+        # recursion; tell comm() to recompute Zhat_w = W_k (H + Q)
+        return self.plan.T > 1
+
+    def _round_idx(self, k) -> int:
+        if self.plan.T == 1:
+            return 0
+        if k is None:
+            raise ValueError(
+                f"plan {self.plan.name!r} is time-varying (T="
+                f"{self.plan.T}); pass the round index k -- silently using "
+                "round 0 would mix with the wrong W_k")
+        return int(k) % self.plan.T
+
+    def mix_leaf(self, leaf, k=None):
+        return self.mix_stacked((leaf,), k)[0]
+
+    def comm_mix(self, h, q, k=None, leaf_idx=0):
+        return self.mix_stacked((h + q,), k)[0]
+
+    def mix_stacked(self, X, k=None):
+        """Apply the plan to stacked (n, ...) leaves."""
+        t = self._round_idx(k)
+        plan = self.plan
+        w_self = plan.self_weights(np.float32)[t]
+
+        def mix_leaf(leaf):
+            acc = acc_dtype(leaf.dtype)
+            x = leaf.to(acc)
+            bshape = (plan.n,) + (1,) * (leaf.dim() - 1)
+            out = torch.as_tensor(w_self, device=x.device).to(acc) \
+                .reshape(bshape) * x
+            for hop in plan.hops:
+                gets = np.zeros(plan.n, np.int64)
+                mask = np.zeros(plan.n, np.float32)   # dst receives?
+                for (s, d) in hop.pairs:
+                    gets[d] = s
+                    mask[d] = 1.0
+                w = np.asarray(hop.weights, np.float32)[t]
+                gate = (torch.as_tensor(w, device=x.device).to(acc)
+                        * torch.as_tensor(mask, device=x.device).to(acc))
+                out = out + gate.reshape(bshape) * x[
+                    torch.as_tensor(gets, device=x.device)]
+            return out.to(leaf.dtype)
+
+        return tree_map(mix_leaf, X)
 
 
 def comm(Z, state: CommState, alpha: float, compressor: Compressor,
-         draws: Draws, mixer: Mixer):
+         draws: Draws, mixer: Mixer, step_idx=None):
     """One COMM round over trees Z, H, Hw of one structure.  Draws one
     noise array per leaf, in leaf order (none for Identity).
+    ``step_idx`` (the round k) goes to the mixer, so a time-varying one
+    picks W_k; static mixers ignore it.
 
     Returns (Zhat, Zhat_w, new_state)."""
     leaves_Z, treedef = flatten(Z)
     leaves_H, _ = flatten(state.H)
     leaves_Hw, _ = flatten(state.Hw)
+    recompute = mixer.recompute_hw
+    send = mixer.send_mask(step_idx) if recompute else None
     zhat, zhat_w, newH, newHw = [], [], [], []
-    for z, h, hw in zip(leaves_Z, leaves_H, leaves_Hw):
+    for j, (z, h, hw) in enumerate(zip(leaves_Z, leaves_H, leaves_Hw)):
         diff = z - h
         q = diff if isinstance(compressor, Identity) else compressor(diff,
                                                                      draws)
+        if send is not None:
+            # a straggler skipped its send: its Q is dropped everywhere
+            # (wire AND its own H update), so the replicas stay consistent
+            # and the miss folds into the next round's difference
+            q = q * send.to(q.dtype).reshape(send.shape
+                                             + (1,) * (q.dim() - 1))
         zh = h + q
-        zw = hw + mixer.mix_leaf(q)
+        zw = (mixer.comm_mix(h, q, step_idx, j) if recompute
+              else hw + mixer.mix_leaf(q, step_idx))
         zhat.append(zh)
         zhat_w.append(zw)
         newH.append((1 - alpha) * h + alpha * zh)
@@ -105,6 +219,6 @@ def comm(Z, state: CommState, alpha: float, compressor: Compressor,
     return unf(zhat), unf(zhat_w), CommState(unf(newH), unf(newHw))
 
 
-def init_comm_state(H1, mixer: Mixer) -> CommState:
+def init_comm_state(H1, mixer: Mixer, step_idx=None) -> CommState:
     """Line 1 of Algorithm 1: Hw^1 = W H^1 (one uncompressed warm-up mix)."""
-    return CommState(H1, mixer(H1))
+    return CommState(H1, mixer(H1, step_idx))

@@ -9,14 +9,20 @@ with JAX and hand the arrays to :class:`ReplayDraws`, which pops them in
 call order.  Runs use :class:`GeneratorDraws`, a ``torch.Generator`` on the
 run's device.
 
-    randint(n, high)  -> (n,) int64 in [0, high)   batch index per node
-    bernoulli(p)      -> () bool                   L-SVRG reference refresh
-    uniform(shape)    -> shape float32 in [0, 1)   stochastic-rounding noise
-    choice(n, k)      -> (k,) int64 distinct, in [0, n)   RandK's indices
+    randint(n, high)     -> (n,) int64 in [0, high)  batch index per node
+    bernoulli(p[, shape]) -> shape bool (default ())  L-SVRG refresh coin,
+                                                      straggler masks
+    uniform(shape)       -> shape float32 in [0, 1)  stochastic-rounding
+                                                      noise
+    choice(n, k)         -> (k,) int64 distinct, in [0, n)  RandK's indices
 
-``uniform(shape, out=view)`` fills ``view`` (of ``shape``, f32, any
-strides) in place and returns it: the neighbor-gossip backend draws each
-leaf's noise straight into its bucket group's row table.
+``uniform(shape, dtype=, low=, high=)`` draws in another dtype and on
+[low, high): netsim's link-drop uniforms (f64) and wire noise (U[-1, 1)
+in the leaf's accumulation dtype).  A replayed array keeps its values:
+an f64 draw is not rounded through f32 on the way.
+``uniform(shape, out=view)`` fills ``view`` (of ``shape`` and ``dtype``,
+any strides) in place and returns it: the neighbor-gossip backend draws
+each leaf's noise straight into its bucket group's row table.
 """
 from __future__ import annotations
 
@@ -32,22 +38,24 @@ class Draws:
     def randint(self, n: int, high: int) -> torch.Tensor:
         raise NotImplementedError
 
-    def bernoulli(self, p: float) -> torch.Tensor:
+    def bernoulli(self, p: float, shape: Sequence[int] = ()) -> torch.Tensor:
         raise NotImplementedError
 
     def uniform(self, shape: Sequence[int],
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32, low: float = 0.0,
+                high: float = 1.0) -> torch.Tensor:
         raise NotImplementedError
 
     def choice(self, n: int, k: int) -> torch.Tensor:
         raise NotImplementedError
 
 
-def _check_out(out: torch.Tensor, shape) -> None:
+def _check_out(out: torch.Tensor, shape, dtype) -> None:
     if tuple(out.shape) != tuple(int(s) for s in shape) or \
-            out.dtype != torch.float32:
-        raise ValueError(f"out must be f32 of shape {tuple(shape)}, got "
-                         f"{out.dtype} {tuple(out.shape)}")
+            out.dtype != dtype:
+        raise ValueError(f"out must be {dtype} of shape {tuple(shape)}, "
+                         f"got {out.dtype} {tuple(out.shape)}")
 
 
 class GeneratorDraws(Draws):
@@ -62,15 +70,17 @@ class GeneratorDraws(Draws):
         return torch.randint(0, int(high), (int(n),), generator=self.gen,
                              device=self.device)
 
-    def bernoulli(self, p):
-        return torch.rand((), generator=self.gen, device=self.device) < p
+    def bernoulli(self, p, shape=()):
+        return torch.rand(tuple(shape), generator=self.gen,
+                          device=self.device) < p
 
-    def uniform(self, shape, out=None):
+    def uniform(self, shape, out=None, dtype=torch.float32, low=0.0,
+                high=1.0):
         if out is None:
-            return torch.rand(tuple(shape), generator=self.gen,
-                              device=self.device, dtype=torch.float32)
-        _check_out(out, shape)
-        return out.uniform_(0.0, 1.0, generator=self.gen)
+            out = torch.empty(tuple(shape), device=self.device, dtype=dtype)
+        else:
+            _check_out(out, shape, dtype)
+        return out.uniform_(low, high, generator=self.gen)
 
     def choice(self, n, k):
         return torch.randperm(int(n), generator=self.gen,
@@ -108,21 +118,24 @@ class ReplayDraws(Draws):
             raise ValueError(f"replayed randint outside [0, {high})")
         return a
 
-    def bernoulli(self, p):
+    def bernoulli(self, p, shape=()):
         a = self._pop("bernoulli")
-        if a.numel() != 1:
-            raise ValueError(f"replayed bernoulli has {a.numel()} elements")
-        return a.reshape(()).to(torch.bool)
+        shape = tuple(int(s) for s in shape)
+        if a.numel() != int(np.prod(shape, dtype=np.int64)):
+            raise ValueError(f"replayed bernoulli has {a.numel()} elements, "
+                             f"the call wants {shape}")
+        return a.reshape(shape).to(torch.bool)
 
-    def uniform(self, shape, out=None):
-        a = self._pop("uniform").to(torch.float32)
+    def uniform(self, shape, out=None, dtype=torch.float32, low=0.0,
+                high=1.0):
+        a = self._pop("uniform").to(dtype)
         shape = tuple(int(s) for s in shape)
         if a.numel() != int(np.prod(shape, dtype=np.int64)):
             raise ValueError(f"replayed uniform has shape {tuple(a.shape)}, "
                              f"the call wants {shape}")
         if out is None:
             return a.reshape(shape)
-        _check_out(out, shape)
+        _check_out(out, shape, dtype)
         return out.copy_(a.reshape(shape))
 
     def choice(self, n, k):
@@ -141,6 +154,7 @@ class RecordingDraws(Draws):
 
     def __init__(self, inner: Draws) -> None:
         self.inner = inner
+        self.device = inner.device
         self.record: List[torch.Tensor] = []
 
     def _keep(self, t):
@@ -150,11 +164,13 @@ class RecordingDraws(Draws):
     def randint(self, n, high):
         return self._keep(self.inner.randint(n, high))
 
-    def bernoulli(self, p):
-        return self._keep(self.inner.bernoulli(p))
+    def bernoulli(self, p, shape=()):
+        return self._keep(self.inner.bernoulli(p, shape))
 
-    def uniform(self, shape, out=None):
-        t = self.inner.uniform(shape, out=out)
+    def uniform(self, shape, out=None, dtype=torch.float32, low=0.0,
+                high=1.0):
+        t = self.inner.uniform(shape, out=out, dtype=dtype, low=low,
+                               high=high)
         # a copy: an ``out`` view may be overwritten after the call
         self.record.append(t.clone())
         return t

@@ -86,7 +86,8 @@ class ProxLEAD:
         Z = tree_map(lambda x, g, d: x - eta * g - eta * d,
                      state.X, G, state.D)                               # line 6
         Zhat, Zhat_w, cstate = comm(Z, state.comm, alpha, self.compressor,
-                                    draws, self.mixer)                  # line 7
+                                    draws, self.mixer,
+                                    step_idx=state.k)                   # line 7
         diff = tree_map(lambda a, b: a - b, Zhat, Zhat_w)
         D = tree_map(lambda d, df: d + gamma / (2 * eta) * df,
                      state.D, diff)                                     # line 8

@@ -1,13 +1,19 @@
-"""Consensus error and exact bits-on-wire accounting.
+"""Trajectory containers, consensus error and exact bits-on-wire
+accounting.
 
-The port of the static half of ``repro.netsim.metrics``: the dense
-engine's payload bits and the neighbor-gossip backend's u8 wire bits (the
-model-shard factor is 1: one card holds every node whole).  The trajectory
-containers and fault-exact accounting arrive with the netsim slice.
+The port of ``repro.netsim.metrics``: the dense engine's payload bits, the
+neighbor-gossip backend's u8 wire bits (the model-shard factor is 1: one
+card holds every node whole), an exchange plan's bits per round, and the
+netsim engine's :class:`Trajectory`, whose bits are fault-exact: payload
+bits per directed edge times the directed edges that carried a payload,
+read from the masks the engine's mixer drew for the round.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+import json
+import pathlib
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +52,20 @@ def effective_bits_per_iter(compressor: Optional[Compressor], shape,
     for f in faults:
         survival *= f.mean_edge_survival()
     return _payload_bits(compressor, shape) * n_directed_edges * survival
+
+
+def plan_bits_per_round(plan, payload_bits_per_edge: int) -> int:
+    """Exact wire bits one gossip round of a compiled ExchangePlan moves:
+    every union-support pair carries its payload every round (time-varying
+    weights gate the *mixing*, not the send)."""
+    return plan.pairs_per_round * payload_bits_per_edge
+
+
+def plan_active_bits(plan, payload_bits_per_edge: int) -> np.ndarray:
+    """(T,) wire bits per round counting only pairs with nonzero mixing
+    weight -- the netsim engine's accounting convention, for comparison
+    against :func:`plan_bits_per_round`."""
+    return plan.active_pairs() * payload_bits_per_edge
 
 
 def qinf_wire_bits(shape, bits: int, block: int, scale_bits: int = 32) -> int:
@@ -99,3 +119,45 @@ def bucketed_payload_bits(trainer, leaves) -> int:
         block_for=trainer._quant_block,
         scale_bytes=2 if tcfg.scales_bf16 else 4)
     return layout.wire_bits
+
+
+@dataclasses.dataclass
+class Trajectory:
+    """Per-iteration record of a netsim run (numpy, on the host)."""
+    consensus: np.ndarray        # (steps,) consensus error after each step
+    objective: np.ndarray        # (steps,) objective (0 if no objective)
+    bits: np.ndarray             # (steps,) int64 exact bits on wire
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def steps(self) -> int:
+        return int(self.consensus.shape[0])
+
+    @property
+    def total_bits(self) -> int:
+        return int(self.bits.sum())
+
+    def summary(self) -> dict:
+        out = {"steps": self.steps,
+               "final_consensus": float(self.consensus[-1]),
+               "final_objective_gap": float(self.objective[-1]),
+               "total_bits_on_wire": self.total_bits,
+               "mean_bits_per_iter": float(self.bits.mean())}
+        out.update(self.meta)
+        return out
+
+    def to_json(self, path: Optional[Any] = None, *,
+                full: bool = False) -> str:
+        rec = self.summary()
+        if full:
+            rec["trajectory"] = {
+                "consensus": self.consensus.tolist(),
+                "objective": self.objective.tolist(),
+                "bits": self.bits.tolist(),
+            }
+        text = json.dumps(rec, indent=1, default=str)
+        if path is not None:
+            p = pathlib.Path(path)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            p.write_text(text)
+        return text

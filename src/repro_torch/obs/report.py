@@ -2,7 +2,9 @@
 
 The port's minimal form of ``repro.obs.report``: what ran, where, for how
 many steps and how long (fenced wall clock, ``obs.trace.span``), and the
-exact bits one node sends per step (``netsim.metrics``).
+exact bits per step (``netsim.metrics``): what one node sends
+(``scope='node'``: the dense and sharded engines) or what the whole system
+moved (``scope='system'``: the netsim engine's fault-exact count).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ class RunReport:
     total_s: float
     bits_per_step: float
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    scope: str = "node"  # whose bits: one node's ("node") or all ("system")
 
     @property
     def s_per_step(self) -> float:

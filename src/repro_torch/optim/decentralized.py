@@ -10,7 +10,10 @@ Gossip backends:
   dense    -- paper-faithful: ``ProxLEAD.update`` with any registered
               compressor (QInf through kernels B1/B2, RandK, TopK with
               ``allow_biased``) and W X as a contraction over the node
-              dim (``DenseMixer``).
+              dim (``DenseMixer``); under a time-varying schedule or
+              ``drop_rate`` (i.i.d. LinkDrop faults) a netsim ``SimMixer``
+              with its own fault draws (seeded ``fault_seed``, started
+              afresh with every fresh state).
   neighbor -- wire-honest: the COMM exchange moves the PACKED b-bit
               payload (u8 codes + byte-cast scales) once per hop of the
               compiled ExchangePlan, through the ``pp(x, pairs)`` seam
@@ -20,9 +23,13 @@ Gossip backends:
               moves raw leaves.
   ring     -- alias of neighbor.
 
-Static schedules only (one Hw slot, T = 1): the time-varying schedules of
-the neighbor backend, and fault injection on the dense one, arrive with
-the netsim slice.
+Time-varying schedules on the neighbor backend: payloads move over the
+UNION support every round (a static hop set); per-round weight tables gate
+the mixing.  Because the incremental recursion Hw + W Q only tracks W H
+for a static W, the state keeps one Hw slot per schedule round t (leaf
+shape (N, T, ...)): Hw[t] tracks W_t H via Hw[t] += alpha W_t Q -- every
+union neighbour's Q arrives every round, and kernel B4 mixes all T rounds
+in one launch -- and round k reads slot k % T.  Memory: T state copies.
 
 Memory.  At the slice's full width (qwen3-1.7b, 8 nodes) one f32 state
 copy is 5.7 GB and X, D, H, Hw together 23 GB, so the neighbor backend
@@ -37,6 +44,7 @@ k=1 update with H^1 = 0, D^1 = 0, as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,21 +55,23 @@ from repro_torch.core import bucket
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.comm import CommState, DenseMixer
 from repro_torch.core.compression import Compressor, Identity
-from repro_torch.core.draws import Draws
+from repro_torch.core.draws import Draws, GeneratorDraws
 from repro_torch.core.oracles import OracleState
 from repro_torch.core.prox import Prox
 from repro_torch.core.prox_lead import ProxLEADState
 from repro_torch.models import transformer as TR
+from repro_torch.netsim import SimMixer, make_schedule
 from repro_torch.optim.wire import WIRE_MODES, WireExchange, stacked_pp
 
-#: what a later slice of the port brings
-NETSIM_SLICE = "the netsim slice (ROADMAP A12: netsim schedules and faults)"
+#: B3/B4 pack and unpack codes of 1..7 bits (ROADMAP C10)
+WIRE_MAX_BITS = 7
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     """The reference's TrainerConfig, less the fields that only a later
-    slice reads (``repro_torch.api.LATER_TRAINER_FIELDS``)."""
+    slice reads (``repro_torch.api.LATER_TRAINER_FIELDS``).  Refuses QInf
+    above 7 bits on the neighbor backend (C10)."""
     n_nodes: int
     eta: float = 1e-2
     alpha: float = 0.5
@@ -74,7 +84,14 @@ class TrainerConfig:
     prox: Optional[Prox] = None     # shared non-smooth regularizer
     topology: str = "ring"
     backend: str = "dense"          # dense | neighbor | ring (alias)
-    schedule: str = "static"        # only static here (see module doc)
+    # netsim scenario knobs: time-varying schedules run on both backends;
+    # per-round fault injection (drop_rate) on the dense one only
+    schedule: str = "static"        # static | alternating | random_matching
+    #                               # | markov_drop
+    schedule_rounds: int = 32       # T_cycle of the randomized schedules
+    schedule_drop: float = 0.0      # markov_drop rate (schedule-level)
+    drop_rate: float = 0.0          # i.i.d. LinkDrop fault rate
+    fault_seed: int = 0
     pack_mode: str = "lastdim"      # lastdim | flat
     wire_mode: str = "bucketed"     # bucketed | per_leaf
     scales_bf16: bool = False
@@ -84,6 +101,18 @@ class TrainerConfig:
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
     seed: int = 0
+
+    def __post_init__(self):
+        if (self.backend in ("neighbor", "ring") and self.compressor == "qinf"
+                and self.bits > WIRE_MAX_BITS):
+            raise ValueError(
+                f"C10: QInf at {self.bits} bits cannot ride the neighbor "
+                f"backend's wire, which packs 1..{WIRE_MAX_BITS}-bit codes: "
+                f"at 8 bits a block's maximum takes code +128, whose offset "
+                f"encoding (+128) is 256 and does not fit a byte -- the "
+                f"reference's fused pack wraps it to byte 0, which decodes as "
+                f"-128 (src/repro/kernels/quantize.py:106-110).  Use bits <= "
+                f"{WIRE_MAX_BITS} or backend='dense'")
 
 
 class TrainState(NamedTuple):
@@ -127,16 +156,25 @@ class DecentralizedTrainer:
     def sharded(self) -> bool:
         return self.tcfg.backend in ("ring", "neighbor")
 
+    def _schedule(self):
+        tcfg = self.tcfg
+        kw = ({"drop": tcfg.schedule_drop}
+              if tcfg.schedule == "markov_drop" else {})
+        return make_schedule(tcfg.schedule, tcfg.n_nodes,
+                             base=tcfg.topology, rounds=tcfg.schedule_rounds,
+                             seed=tcfg.seed, **kw)
+
     def _build_mixer(self):
         tcfg = self.tcfg
         if tcfg.backend not in ("dense", "neighbor", "ring"):
             raise ValueError(f"unknown backend {tcfg.backend!r}; have "
                              f"['dense', 'neighbor', 'ring']")
-        if tcfg.schedule != "static":
-            raise NotImplementedError(
-                f"schedule {tcfg.schedule!r} is not ported yet: "
-                f"time-varying schedules arrive with {NETSIM_SLICE}")
         if self.sharded:
+            if tcfg.drop_rate > 0:
+                raise ValueError(
+                    "netsim fault injection (drop_rate) needs "
+                    "backend='dense'; the sharded neighbor path covers "
+                    "time-varying schedules but not per-round edge faults")
             if tcfg.compressor not in ("identity", "qinf"):
                 raise ValueError(
                     f"the sharded neighbor backend packs QInf payloads; "
@@ -144,9 +182,52 @@ class DecentralizedTrainer:
             if tcfg.wire_mode not in WIRE_MODES:
                 raise ValueError(f"unknown wire_mode {tcfg.wire_mode!r}; "
                                  f"have {WIRE_MODES}")
-            self.plan = topo_mod.compile_plan(self.topo.W,
-                                              name=self.topo.name)
-        return DenseMixer(self.topo.W)
+            if tcfg.schedule != "static":
+                sched = self._schedule()
+                self.plan = topo_mod.compile_plan(sched.W_stack,
+                                                  name=sched.name)
+                if self.plan.T > 8:
+                    warnings.warn(
+                        f"neighbor backend keeps one Hw slot per schedule "
+                        f"round: T={self.plan.T} multiplies the Hw state "
+                        f"{self.plan.T}x (leaf (N, T, ...)).  Lower "
+                        f"schedule_rounds or use backend='dense' if this "
+                        f"does not fit memory.", stacklevel=3)
+            else:
+                self.plan = topo_mod.compile_plan(self.topo.W,
+                                                  name=self.topo.name)
+            # backs self.alg, which the neighbor path never steps
+            return DenseMixer(self.topo.W)
+        if tcfg.schedule == "static" and tcfg.drop_rate <= 0:
+            return DenseMixer(self.topo.W)
+        faults = ((registry.make("fault", "linkdrop", rate=tcfg.drop_rate),)
+                  if tcfg.drop_rate > 0 else ())
+        return SimMixer(self._schedule(), faults,
+                        GeneratorDraws(tcfg.fault_seed, self.device))
+
+    def start_fault_stream(self, fault_draws: Optional[Draws] = None
+                           ) -> None:
+        """Start the dense backend's fault stream afresh: a new SimMixer
+        whose faults draw from ``fault_draws`` (default: a generator seeded
+        ``tcfg.fault_seed`` on the trainer's device), its rounds drawn anew
+        from the next one asked for.  ``state_from_stacked`` calls it, so
+        every fresh state starts the stream at its first round.  A no-op
+        without faults."""
+        if not (isinstance(self.mixer, SimMixer) and self.mixer.faults):
+            return
+        if fault_draws is None:
+            fault_draws = GeneratorDraws(self.tcfg.fault_seed, self.device)
+        self.mixer = SimMixer(self.mixer.schedule, self.mixer.faults,
+                              fault_draws)
+        self.alg = dataclasses.replace(self.alg, mixer=self.mixer)
+
+    @property
+    def hw_slots(self) -> Optional[int]:
+        """Hw slots a node keeps: T for a time-varying plan on the
+        neighbor backend, else None (Hw shaped like H)."""
+        if self.plan is not None and self.plan.T > 1:
+            return self.plan.T
+        return None
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator: Optional[torch.Generator] = None
@@ -165,8 +246,12 @@ class DecentralizedTrainer:
         return self.state_from_stacked(X)
 
     def state_from_stacked(self, X) -> TrainState:
+        self.start_fault_stream()
         zeros = lambda: tree.tree_map(torch.zeros_like, X)   # noqa: E731
-        plead = ProxLEADState(X, zeros(), CommState(zeros(), zeros()),
+        T = self.hw_slots
+        hw0 = zeros() if T is None else tree.tree_map(
+            lambda p: p.new_zeros((p.shape[0], T) + tuple(p.shape[1:])), X)
+        plead = ProxLEADState(X, zeros(), CommState(zeros(), hw0),
                               OracleState(0, None, None), 1)
         precond = ((zeros(), zeros()) if self.tcfg.precondition == "adam"
                    else None)
@@ -242,8 +327,12 @@ class DecentralizedTrainer:
         """Lines 6-10 with the COMM exchange moving packed payloads once
         per hop of the compiled ExchangePlan (a node-stacked port of the
         reference's ``local_step``).  ``G`` is the list of gradient leaves
-        in X's leaf order; each is freed once used."""
+        in X's leaf order; each is freed once used.  Under a time-varying
+        plan the exchange mixes every round t' of the cycle, each Hw slot
+        takes its round's W_t' Q, and round k % T is read."""
         tcfg = self.tcfg
+        T = self.plan.T
+        t = plead.k % T
         eta, alpha, gamma = tcfg.eta, tcfg.alpha, tcfg.gamma
         use_q = not isinstance(self.compressor, Identity)
         hop_pairs = [list(h.pairs) for h in self.plan.hops]
@@ -280,9 +369,14 @@ class DecentralizedTrainer:
         nX = []
         for j, (z, d, h, hw) in enumerate(zip(zs, D, H, Hw)):
             zhat = qs[j].add_(h)                  # h + Q_self
-            zhat_w = wq[j][:, 0].add_(hw)         # Hw + (W Q), T = 1
+            if T == 1:
+                zhat_w = wq[j][:, 0].add_(hw)     # Hw + (W Q)
+                hw.mul_(1 - alpha).add_(alpha * zhat_w)
+            else:
+                zhat_w = hw[:, t] + wq[j][:, t]   # slot k % T
+                # Hw[t'] tracks W_t' H: H += alpha Q => += alpha W_t' Q
+                hw.add_(wq[j], alpha=alpha)
             h.mul_(1 - alpha).add_(alpha * zhat)
-            hw.mul_(1 - alpha).add_(alpha * zhat_w)
             e = zhat.sub_(zhat_w)                 # zhat - zhat_w
             d.add_(gamma / (2 * eta) * e)
             nX.append(self.prox(z.sub_(gamma / 2.0 * e), eta))

@@ -18,8 +18,8 @@ import dataclasses
 import inspect
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
-KINDS = ("compressor", "prox", "oracle", "topology", "algorithm", "problem",
-         "engine")
+KINDS = ("compressor", "prox", "oracle", "topology", "schedule", "fault",
+         "algorithm", "problem", "engine")
 
 _REGISTRIES: Dict[str, Dict[str, "Registration"]] = {k: {} for k in KINDS}
 
@@ -93,6 +93,11 @@ def names(kind: str) -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRIES[kind]))
 
 
+def accepts(kind: str, name: str) -> Tuple[str, ...]:
+    """The keyword names the ``kind``/``name`` factory takes."""
+    return _reg_for(kind, name).accepts
+
+
 def kwargs_subset(kind: str, name: str,
                   candidates: Mapping[str, Any]) -> Dict[str, Any]:
     """The subset of ``candidates`` the factory accepts (unknown candidates
@@ -115,6 +120,8 @@ register_compressor = _family("compressor")
 register_prox = _family("prox")
 register_oracle = _family("oracle")
 register_topology = _family("topology")
+register_schedule = _family("schedule")
+register_fault = _family("fault")
 register_algorithm = _family("algorithm")
 register_problem = _family("problem")
 register_engine = _family("engine")

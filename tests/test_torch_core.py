@@ -59,17 +59,19 @@ def test_topology_W_equal(name, n, kw):
 
 
 def test_registries_strict_and_mirrored():
-    for kind in ("compressor", "prox", "oracle", "topology", "algorithm",
-                 "problem", "engine"):
+    import repro_torch.netsim  # noqa: F401  (registers schedules, faults)
+    from repro import netsim as _jnetsim  # noqa: F401
+    for kind in ("compressor", "prox", "oracle", "topology", "schedule",
+                 "fault", "algorithm", "problem", "engine"):
         assert set(treg.names(kind)) <= set(jreg.names(kind)), kind
-    assert set(treg.names("prox")) == set(jreg.names("prox"))
-    assert set(treg.names("topology")) == set(jreg.names("topology"))
+    for kind in ("prox", "topology", "schedule", "fault"):
+        assert set(treg.names(kind)) == set(jreg.names(kind)), kind
     with pytest.raises(ValueError, match="unknown compressor 'zip'"):
         treg.make("compressor", "zip")
     with pytest.raises(ValueError, match="does not accept"):
         treg.make("compressor", "qinf", bitz=2)
     with pytest.raises(ValueError, match="unknown registry kind"):
-        treg.names("schedule")
+        treg.names("gremlin")
 
 
 # --- compression accounting -------------------------------------------------

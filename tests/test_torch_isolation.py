@@ -43,7 +43,10 @@ def test_port_imports_no_jax_and_no_repro(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("src/repro_torch/api.py", "src/repro_torch/convert.py",
-                 "src/repro_torch/kernels/quantize.py", "chip_smoke.py",
+                 "src/repro_torch/kernels/quantize.py",
+                 "src/repro_torch/netsim/engine.py",
+                 "src/repro_torch/netsim/faults.py",
+                 "src/repro_torch/netsim/schedule.py", "chip_smoke.py",
                  "launch_cost.py"):
         assert must in names
 
@@ -109,19 +112,22 @@ def test_sharded_build_on_cpu_runs():
 
 @pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)
 def test_golden_specs_read_or_name_their_slice(path):
-    """Dense specs and sharded specs on a static schedule parse to the same
-    JSON; the rest (netsim, sweep, time-varying schedules) are refused with
-    the slice that brings them."""
+    """Dense, netsim and sharded specs parse to the same JSON; a sweep spec
+    is refused with the slice that brings it, and a model-sharded mesh
+    (``trainer_neighbor_alternating_4x2``) parses and is refused at build,
+    naming the multi-card slice."""
     d = json.loads(path.read_text())
-    engine = "sweep" if "base" in d else d["execution"]["engine"]
-    if engine not in ("dense", "sharded") or \
-            d["topology"]["schedule"] != "static":
+    if "base" in d:
         with pytest.raises(ValueError, match="slice"):
             tapi.ExperimentSpec.from_json(path.read_text())
         return
     spec = tapi.ExperimentSpec.from_json(path.read_text())
     assert json.loads(spec.to_json()) == d
     assert tapi.ExperimentSpec.from_json(spec.to_json()) == spec
+    mesh = d["execution"]["mesh"]
+    if mesh is not None and mesh[1] > 1:
+        with pytest.raises(NotImplementedError, match="multi-card slice"):
+            tapi.build(spec, device="cpu")
 
 
 @pytest.mark.parametrize("knob", sorted(tapi.LATER_TRAINER_FIELDS))
@@ -144,3 +150,42 @@ def test_later_trainer_knobs_name_their_slice(knob):
              else type(default)(default + 1))
     with pytest.raises(NotImplementedError, match="slice"):
         tapi.trainer_config_from_spec(with_knob(other))
+
+
+KNOB_CASES = {
+    # knob: (value, the spec's topology, the other knobs of both runs)
+    "schedule_rounds": (2, {"schedule": "random_matching"}, {}),
+    "schedule_drop": (0.3, {"schedule": "markov_drop"}, {}),
+    "drop_rate": (0.3, {}, {}),
+    "fault_seed": (1, {}, {"drop_rate": 0.3}),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(KNOB_CASES))
+def test_netsim_trainer_knobs_reach_the_run(knob):
+    """Each netsim knob of the trainer (through ``execution.params``)
+    reaches TrainerConfig and changes the run: three steps of the dense
+    backend at the knob's value and at its default differ (at 2 rounds the
+    third step's random matching is round 1, at 32 it is round 3)."""
+    value, topo, others = KNOB_CASES[knob]
+    spec = tapi.ExperimentSpec.load(
+        ROOT / "tests" / "golden_specs" / "trainer_dense_qinf2.json")
+    spec = dataclasses.replace(
+        spec, topology=dataclasses.replace(spec.topology, **topo))
+
+    def run(v):
+        s = dataclasses.replace(spec, execution=dataclasses.replace(
+            spec.execution, params=dict(others, **{knob: v})))
+        runner = tapi.build(s, device="cpu")
+        assert getattr(runner.trainer.tcfg, knob) == v
+        state, _ = runner.run(num_steps=3)
+        return runner, torch.cat([x.flatten() for x in
+                                  tapi.tree.leaves(state.plead.X)])
+
+    default = getattr(tapi.dec.TrainerConfig(n_nodes=4), knob)
+    assert value != default
+    runner, x = run(value)
+    _, x0 = run(default)
+    assert not torch.equal(x, x0)
+    if knob == "schedule_rounds":
+        assert runner.trainer.mixer.schedule.T_cycle == value
