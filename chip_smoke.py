@@ -132,7 +132,33 @@ Phases, in order; any failure exits non-zero before the result lines:
    launch, equal (to 1e-12 relative: the error sums reduce in another
    order) to the plain version's value from the same noise, at most the
    compressor's analytic C.
-10. Result lines: ``{"kernels": [...]}`` (B1-B4), the nvidia-smi line,
+10. The sweep engine (``repro_torch.sweep``) on the card.  (a) The golden
+   ``tests/golden_specs/sweep_lead_seed_x_bits.json`` (12 points: seeds
+   0-3 x bits 2, 4, 8; LEAD on the ring, ``logreg2d``, block 5, 60 steps)
+   through ``api.build(SweepSpec)`` in map mode, f64, the launch counters
+   zeroed just before and read just after: B1 and B2 12 x 60 times each;
+   every point's final state bit-equal to its serial run on the card.
+   (b) The stacked grid (``batch='vmap'``) at the dense path's full width:
+   phase 4's spec x seed 0-7 x bits 2, 4 (16 points, the data shared, f32):
+   SWEEP_REPLAY_STEPS stacked steps held against map mode from the same
+   stacked state, each point's draws recorded and replayed, at phase 4's
+   tolerance per point; a free-running run of SWEEP_STEPS steps with the
+   counters zeroed just before and read just after -- B1 and B2 once a
+   step for the whole grid -- in which every point's objective falls; ms a
+   step of the stacked grid against the summed ms a step of the 16 points
+   run one by one (SWEEP_TIMED_STEPS steps each, one process), and a
+   ``torch.profiler`` window of SWEEP_PROFILE_STEPS stacked steps (device
+   ops a step, busy share).  (c) B1 with a level count per point
+   (``levels``) bit-equal to B1 at each point's fixed bits and to the
+   plain twin, on the stacked leaf (16, 8, 7840) in f32, bf16 and f64 and
+   on 393,216 x 256 rows split into 4 points at bits 1, 2, 4, 8; timed
+   (CUDA events) beside the fixed-bits B1 and the bytes bound.  (d) A dense
+   runner and phase 8's small trainer save at step 2 and
+   ``load_checkpoint(..., device="cuda")`` restores them; the next step
+   from both, same draws, bit-equal.  (e) ``python -m
+   repro_torch.launch.sweep --spec`` the golden sweep ``--out`` a file:
+   exit 0, each point's final consensus equal to (a)'s.
+11. Result lines: ``{"kernels": [...]}`` (B1-B4), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Everything is also written to
    ``chiprun_out/chip_smoke.json``.
 
@@ -185,6 +211,14 @@ NETSIM_PROFILE_STEPS = 20   # scenario steps under torch.profiler
 SCENARIO_FAULTS = (("straggler", {"rate": 0.05}), ("linkdrop", {"rate": 0.1}),
                    ("noise", {"sigma": 0.01}))
 SCHEDULED_HOPS = 5          # ring + exponential on 8 nodes: the union's hops
+SWEEP_SEEDS = 8             # the stacked grid: seeds 0-7 ...
+SWEEP_BITS = (2, 4)         # ... x these bits, 16 points
+SWEEP_STEPS = 300           # its free-running steps with counters on (as STEPS:
+                            # at 100 the objective has not turned down yet)
+SWEEP_REPLAY_STEPS = 20     # stacked steps held against map mode
+SWEEP_TIMED_STEPS = 50      # steps timed a mode
+SWEEP_PROFILE_STEPS = 20    # stacked steps under torch.profiler
+LARGE_ROWS = LARGE[0] * LARGE[1] // 256   # B1/B2's large shape in rows
 B1, B2 = "qinf_quantize_blocks", "qinf_dequantize_blocks"
 
 
@@ -1584,6 +1618,334 @@ def paper_comparisons(torch, api, convert, draws_mod, qk, device="cuda",
 T_START = time.perf_counter()
 
 
+# --- phase 10 ------------------------------------------------------------------
+
+GOLDEN_SWEEP = ROOT / "tests" / "golden_specs" / "sweep_lead_seed_x_bits.json"
+
+
+def _state_leaves(state):
+    """Every tensor of a (stacked or point) state, in field order, and its
+    ints."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            for f in t._fields:
+                walk(getattr(t, f))
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif t is not None:
+            out.append(t)
+    walk(state)
+    return out
+
+
+def states_equal(torch, a, b) -> bool:
+    la, lb = _state_leaves(a), _state_leaves(b)
+    return len(la) == len(lb) and all(
+        (torch.equal(x, y) if torch.is_tensor(x) else x == y)
+        for x, y in zip(la, lb))
+
+
+def sweep_map_golden(torch, api, metrics, qk, device="cuda"):
+    """(a) The golden sweep (12 points: seeds 0-3 x bits 2, 4, 8; LEAD on
+    the ring, logreg2d, block 5, 60 steps) in map mode, f64 (as the sweep
+    CLI runs it), the launch counters zeroed just before and read just
+    after: B1 and B2 once a point-step; then every point's serial run
+    (``api.build(point).run()``), each final state bit-equal."""
+    spec = api.SweepSpec.load(GOLDEN_SWEEP)
+    runner = api.build(spec, dtype=torch.float64) if device == "cuda" \
+        else api.build(spec, device=device, dtype=torch.float64)
+    require(runner.device.type == device and runner.batch == "map",
+            f"build(SweepSpec) gave {runner.device} {runner.batch}")
+    qk.reset_launch_counts()
+    final, res = runner.run(metric_fn=lambda st: metrics.consensus_error(
+        st.X))
+    launches = qk.launch_counts()
+    want = runner.n_points * spec.base.steps if device == "cuda" else 0
+    require(launches[B1] == want and launches[B2] == want,
+            f"golden sweep launches {launches}, want {want} of B1 and B2")
+    equal = 0
+    for i, p in enumerate(runner.points):
+        serial, _ = api.build(p, device=runner.device,
+                              dtype=torch.float64).run()
+        require(states_equal(torch, runner.point_state(final, i), serial),
+                f"sweep point {p.name} != its serial run on the card")
+        equal += 1
+    return {"spec": spec.name, "points": runner.n_points,
+            "steps": spec.base.steps, "launches": launches,
+            "bit_equal_points": equal, "wall_s": res.wall_s,
+            "final_consensus": [float(v) for v in
+                                res.metrics["metric"][:, -1]],
+            "names": [p.name for p in runner.points]}
+
+
+def sweep_grid_spec(api, steps: int, base=None):
+    """Phase 4's MNIST-scale quickstart spec x seed 0-7 x bits 2, 4: the
+    stacked grid of (b), 16 points."""
+    base = base if base is not None else mnist_spec(api, steps)
+    return api.SweepSpec("quickstart-mnist-seed8-x-bits2", base, (
+        api.AxisSpec("seed", tuple(range(SWEEP_SEEDS))),
+        api.AxisSpec("compressor.bits", SWEEP_BITS)))
+
+
+def _objective(problem, X, lam):
+    """Phase 4's objective f + lam ||x||_1 of one point's X, a 0-d
+    tensor."""
+    return problem.full_loss(X) + lam * X.abs().sum(dim=1).mean()
+
+
+def sweep_vmap_grid(torch, api, sweep, draws_mod, qk, device="cuda",
+                    base=None, steps: int = SWEEP_STEPS,
+                    replay_steps: int = SWEEP_REPLAY_STEPS,
+                    timed_steps: int = SWEEP_TIMED_STEPS,
+                    profile: int = SWEEP_PROFILE_STEPS):
+    """(b) The stacked grid at the dense path's full width (see the module
+    docstring): the stacked step against map mode teacher-forced, the
+    free-running run with B1/B2 counted, ms a step stacked against the
+    summed ms a step of the points run one by one, and a profile."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = sweep_grid_spec(api, steps, base)
+    vm = sweep.SweepRunner(spec.points(), name=spec.name, spec=spec,
+                           batch="vmap", device=device)
+    mp = vm.with_batch("map")
+    problem, P = vm.problem, vm.n_points
+    lam = spec.base.prox.params["lam"]
+
+    # teacher-forced: both modes from the same stacked state, each point's
+    # draws recorded in the stacked step and replayed in the map step
+    st = vm.init_state()
+    mp.init_state()
+    worst_frac = worst_rel = 0.0
+    for t in range(replay_steps):
+        rec = [draws_mod.RecordingDraws(draws_mod.GeneratorDraws(
+            1000 * t + i, device)) for i in range(P)]
+        got = vm.step(st, draws_mod.StackedDraws(rec))
+        want = mp.step(st, draws_mod.StackedDraws(
+            [draws_mod.ReplayDraws(r.record, device) for r in rec]))
+        for i in range(P):
+            g, w = got.X[i], want.X[i]
+            off = (g - w).abs() > REPLAY_ELEM_TOL * w.abs().max()
+            worst_frac = max(worst_frac, float(off.float().mean()))
+            worst_rel = max(worst_rel, float((g - w).abs().max()
+                                             / w.abs().max()))
+        require(worst_frac <= REPLAY_MAX_OFF,
+                f"stacked vs map step {t}: {worst_frac:.2e} of a point's X "
+                f"off by more than {REPLAY_ELEM_TOL} x max|X|")
+        st = got
+
+    # the free-running stacked run, counters zeroed just before; each
+    # point's objective after its first and its last step (as phase 4's)
+    qk.reset_launch_counts()
+    final, res = vm.run(num_steps=steps, metric_every=steps,
+                        metric_fn=lambda s: _objective(problem, s.X, lam))
+    launches = qk.launch_counts()
+    obj0, obj1 = (list(map(float, c)) for c in res.metrics["metric"].T)
+    on_card = device == "cuda"
+    require(not on_card or (launches[B1] == steps and launches[B2] == steps),
+            f"stacked grid launches {launches}: want one B1 and one B2 a "
+            f"step for the whole grid ({steps} steps)")
+    require(bool(torch.isfinite(final.X).all()), "non-finite stacked X")
+    require(all(b < a for a, b in zip(obj0, obj1)),
+            f"a point's objective did not fall: {list(zip(obj0, obj1))}")
+
+    # ms a step, one process: the stacked grid, then each point on its own
+    def fenced(fn):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    d = vm.point_draws()
+    st = vm.init_state(d)
+    for _ in range(3):
+        st = vm.step(st, d)
+    holder = [st]
+
+    def stacked():
+        for _ in range(timed_steps):
+            holder[0] = vm.step(holder[0], d)
+
+    stacked_ms = fenced(stacked) / timed_steps * 1e3
+    map_ms = []
+    dm = mp.point_draws()
+    for algo, p, dp in zip(mp.point_algos(), mp.points, dm.points):
+        s = [algo.init(vm.X0, dp)]
+        for _ in range(3):
+            s[0] = algo.step(s[0], dp)
+
+        def one(algo=algo, s=s, dp=dp):
+            for _ in range(timed_steps):
+                s[0] = algo.step(s[0], dp)
+
+        map_ms.append(fenced(one) / timed_steps * 1e3)
+    prof = (profile_steps(torch, vm, holder[0], d, steps=profile,
+                          trace_name="sweep_trace.json") if profile else None)
+    if prof is not None:
+        require(prof["b1_per_step"] == 1,
+                f"the stacked grid's profile saw {prof['b1_per_step']} B1 "
+                f"launches a step")
+    return {"spec": spec.name, "points": P, "steps": steps,
+            "launches": launches,
+            "replay": {"steps": replay_steps, "elem_tol": REPLAY_ELEM_TOL,
+                       "max_off_fraction": REPLAY_MAX_OFF,
+                       "worst_off_fraction": worst_frac,
+                       "worst_rel_max": worst_rel},
+            "objective_first": obj0, "objective_last": obj1,
+            "stacked_ms_per_step": stacked_ms,
+            "map_ms_per_step_summed": sum(map_ms),
+            "map_ms_per_step_points": map_ms,
+            "points_per_s_stacked": P / stacked_ms * 1e3,
+            "points_per_s_map": P / sum(map_ms) * 1e3,
+            "wall_s": res.wall_s, "profile": prof}
+
+
+def b1_point_levels(torch, ops, qk, ref, errs, device="cuda",
+                    iters: int = 20):
+    """(c) B1 with a level count per point against B1 at each point's
+    fixed bits and against the plain twin: the stacked grid's leaf (16, 8,
+    7840) in f32, bf16 and f64 (bits 2, 4 alternating), and 393,216 x 256
+    split into 4 points at bits 1, 2, 4 and 8; times (CUDA events) beside
+    the fixed-bits B1 at the same shape and the bytes bound."""
+    g = torch.Generator(device=device).manual_seed(17)
+    cases = [("grid leaf", (SWEEP_SEEDS * len(SWEEP_BITS), 8, 7840), 256,
+              tuple(SWEEP_BITS) * SWEEP_SEEDS),
+             ("large", (4, LARGE_ROWS // 4, 256), 256, (1, 2, 4, 8))]
+    rows = []
+    for label, shape, block, bits in cases:
+        lv = torch.tensor([float(2 ** (b - 1)) for b in bits],
+                          device=device)
+        for dtype in ((torch.float32, torch.bfloat16, torch.float64)
+                      if label == "grid leaf" else (torch.float32,)):
+            x = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+            x[1, 2] = 0
+            u = torch.rand(ops.blockwise_shape(shape, block), generator=g,
+                           device=device)
+            codes, scales = ops.qinf_quantize_lastdim(x, u, block=block,
+                                                      levels=lv)
+            rows_b = ops.blockwise_lastdim(x, block=block).reshape(-1, block)
+            pc, ps = ref.qinf_quantize_blocks_ref(
+                rows_b, u.reshape(-1, block),
+                levels=ref.levels_per_row(lv, rows_b.shape[0]))
+            require(torch.equal(codes.reshape(-1, block), pc)
+                    and torch.equal(scales.reshape(-1, 1), ps),
+                    f"per-point B1 != plain at {label} {dtype}")
+            for p, b in enumerate(bits):
+                cp, sp = ops.qinf_quantize_lastdim(x[p], u[p], bits=b,
+                                                   block=block)
+                require(torch.equal(codes[p], cp) and torch.equal(
+                    scales[p], sp), f"per-point B1 point {p} ({b} bits) != "
+                    f"fixed-bits B1 at {label} {dtype}")
+            errs[B1] = max(errs[B1], float(
+                (codes.reshape(-1, block).float() - pc.float()).abs().max()))
+            if dtype != torch.float32:
+                continue
+            bound = bound_ms(nbytes(x, u, codes, scales),
+                             B1_OPS_PER_ELEMENT * x.numel())
+            rows.append({
+                "case": label, "shape": list(shape), "bits": list(bits),
+                "ms": cuda_ms(torch, lambda: ops.qinf_quantize_lastdim(
+                    x, u, block=block, levels=lv), iters),
+                "fixed_bits_ms": cuda_ms(torch, lambda: ops.qinf_quantize_lastdim(
+                    x, u, bits=2, block=block), iters),
+                "plain_ms": cuda_ms(torch, lambda: ref.qinf_quantize_blocks_ref(
+                    rows_b, u.reshape(-1, block),
+                    levels=ref.levels_per_row(lv, rows_b.shape[0])), iters),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None})
+            del x, u, codes, scales, rows_b, pc, ps
+    return rows
+
+
+def checkpoint_resume(torch, api, draws_mod, device="cuda"):
+    """(d) A dense runner (the golden Prox-LEAD spec) and phase 8's small
+    trainer save at step 2; ``load_checkpoint(..., device)`` rebuilds
+    each; the next step from the saved and the restored state, with the
+    same draws (and batch), is bit-equal."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = api.ExperimentSpec.load(ROOT / "tests" / "golden_specs"
+                                       / "prox_lead_dense_ring_qinf2.json")
+        runner = api.build(spec, device=device)
+        state, _ = runner.run(num_steps=2)
+        runner.save(pathlib.Path(tmp) / "dense", state, step=2)
+        r2, s2, step = api.load_checkpoint(pathlib.Path(tmp) / "dense",
+                                           device=device)
+        require(step == 2 and r2.spec == spec and r2.device.type == device
+                and states_equal(torch, state, s2),
+                "dense checkpoint did not restore the state")
+        a = runner.step(state, draws_mod.GeneratorDraws(7, device))
+        b = r2.step(s2, draws_mod.GeneratorDraws(7, device))
+        require(states_equal(torch, a, b), "dense resume != the saved run")
+        out["dense"] = {"spec": spec.name, "step": step}
+
+        tspec = slice_spec(api, 3, full=False, n_layers=1, d_model=256,
+                           seq_len=64)
+        tr = api.build(tspec, device=device)
+        data = tr.default_data()
+        st = tr.init_state()
+        for t in range(2):
+            st, _ = tr.step(st, {k: v.to(device) for k, v in
+                                 data.batch_at(t).items()},
+                            draws_mod.GeneratorDraws(t, device))
+        tr.save(pathlib.Path(tmp) / "trainer", st, step=2)
+        t2, st2, step = api.load_checkpoint(pathlib.Path(tmp) / "trainer",
+                                            device=device)
+        require(step == 2 and t2.spec == tspec
+                and states_equal(torch, st, st2),
+                "trainer checkpoint did not restore the state")
+        batch = {k: v.to(device) for k, v in data.batch_at(2).items()}
+        a, _ = tr.step(st, batch, draws_mod.GeneratorDraws(9, device))
+        b, _ = t2.step(st2, batch, draws_mod.GeneratorDraws(9, device))
+        require(states_equal(torch, a, b), "trainer resume != the saved run")
+        out["trainer"] = {"spec": tspec.name, "step": step}
+    return out
+
+
+def sweep_cli(golden: dict, device="cuda"):
+    """(e) ``python -m repro_torch.launch.sweep`` on the golden sweep, on
+    the card: exit 0, and each point's final consensus equal to (a)'s."""
+    OUT_DIR.mkdir(exist_ok=True)
+    out = OUT_DIR / "sweep_cli.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.sweep", "--spec",
+           str(GOLDEN_SWEEP), "--out", str(out)]
+    if device != "cuda":
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                       timeout=600, cwd=str(ROOT))
+    require(r.returncode == 0, f"sweep CLI exit {r.returncode}: "
+            f"{r.stderr[-2000:]}")
+    rows = json.loads(out.read_text())["points"]
+    require([row["name"] for row in rows] == golden["names"]
+            and [row["final_consensus"] for row in rows]
+            == golden["final_consensus"],
+            "the sweep CLI's per-point consensus != the map-mode run's")
+    return {"points": len(rows), "seconds": time.perf_counter() - t0,
+            "out": str(out.relative_to(ROOT))}
+
+
+def sweep_phase(torch, api, sweep, metrics, draws_mod, ops, qk, ref, errs):
+    """Phase 10 (see the module docstring)."""
+    t0 = time.perf_counter()
+    res = {"golden_map": sweep_map_golden(torch, api, metrics, qk)}
+    res["vmap_grid"] = sweep_vmap_grid(torch, api, sweep, draws_mod, qk)
+    res["b1_point_levels"] = b1_point_levels(torch, ops, qk, ref, errs)
+    res["checkpoints"] = checkpoint_resume(torch, api, draws_mod)
+    res["cli"] = sweep_cli(res["golden_map"])
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     # the trainer's state arrays are GB-sized and freed in another order
     # than they were allocated: let the allocator grow segments instead of
@@ -1603,7 +1965,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import api, convert, tree
+    from repro_torch import api, convert, sweep, tree
     from repro_torch.core import draws as draws_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import quantize as qk
@@ -1866,6 +2228,51 @@ def main() -> int:
               f"launches {ec['launches']}; phase {pc['seconds']:.1f} s",
               flush=True)
 
+        # 10. the sweep engine on the card
+        sw = sweep_phase(torch, api, sweep, metrics, draws_mod, ops, qk,
+                         ref, errs)
+        result["sweep"] = sw
+        gm, vg = sw["golden_map"], sw["vmap_grid"]
+        print(f"[sweep] (a) {gm['spec']}: {gm['points']} points x "
+              f"{gm['steps']} steps, map mode, f64: launches {gm['launches']}"
+              f"; {gm['bit_equal_points']} points bit-equal to their serial "
+              f"runs on the card; {gm['wall_s']:.2f} s", flush=True)
+        print(f"[sweep] (b) {vg['spec']}: {vg['points']} points stacked, "
+              f"{vg['steps']} steps: launches {vg['launches']}; stacked vs "
+              f"map, {vg['replay']['steps']} teacher-forced steps: worst off "
+              f"fraction {vg['replay']['worst_off_fraction']:.2e}, worst "
+              f"|diff|/max {vg['replay']['worst_rel_max']:.2e}; objective "
+              f"fell at every point ({min(vg['objective_first']):.6f}.."
+              f"{max(vg['objective_first']):.6f} -> "
+              f"{min(vg['objective_last']):.6f}.."
+              f"{max(vg['objective_last']):.6f})", flush=True)
+        pf = vg["profile"]
+        print(f"[sweep] (b) ms a step: stacked {vg['stacked_ms_per_step']:.4f}"
+              f" for all {vg['points']} points, map {vg['map_ms_per_step_summed']:.4f}"
+              f" summed over the points ({vg['points_per_s_stacked']:.0f} vs "
+              f"{vg['points_per_s_map']:.0f} point-steps/s); profile "
+              f"{pf['wall_ms_per_step']:.4f} ms/step wall, "
+              f"{pf['device_ms_per_step']:.4f} on the device (busy "
+              f"{pf['busy_share']:.1%}), {pf['device_ops_per_step']:.0f} "
+              f"device ops/step | {smi}", flush=True)
+        for t_ in pf["names"][:12]:
+            print(f"[sweep]   {t_['us_per_step']:8.2f} us/step "
+                  f"x{t_['per_step']:.0f}  {t_['name']}", flush=True)
+        for r in sw["b1_point_levels"]:
+            print(f"[sweep] (c) B1 per-point L @ {r['case']} {r['shape']} "
+                  f"bits {sorted(set(r['bits']))}: bit-equal to fixed-bits "
+                  f"B1 and plain; {r['ms']:.5f} ms (fixed bits "
+                  f"{r['fixed_bits_ms']:.5f}, plain {r['plain_ms']:.5f}, "
+                  f"bound {r['bound_ms']:.5f} by {r['bound_by']}) | {smi}",
+                  flush=True)
+        print(f"[sweep] (d) checkpoints: dense {sw['checkpoints']['dense']}"
+              f", trainer {sw['checkpoints']['trainer']}: restored states "
+              f"equal, the next step bit-equal", flush=True)
+        print(f"[sweep] (e) python -m repro_torch.launch.sweep: exit 0, "
+              f"{sw['cli']['points']} points equal to (a), "
+              f"{sw['cli']['seconds']:.1f} s; phase {sw['seconds']:.1f} s",
+              flush=True)
+
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1888,8 +2295,12 @@ def main() -> int:
                 if r["launches"][name_]},
                 "netsim_launches": ns["launches"][name_],
                 "drop_rate_trainer_launches": dr["launches"][name_]}
+            extra["sweep_launches"] = {
+                "golden_map": sw["golden_map"]["launches"][name_],
+                "stacked_grid": sw["vmap_grid"]["launches"][name_]}
             if name_ == "qinf_quantize_blocks":
                 extra["main_path_leaf"] = b1_main
+                extra["per_point_levels"] = sw["b1_point_levels"]
         else:                          # B3/B4: the trainer path
             m, launches = wtimes[name_], sp["launches"][name_]
             extra = {"scheduled_launches": ss["launches"][name_]}

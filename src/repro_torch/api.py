@@ -7,14 +7,22 @@ under ``tests/golden_specs``).  The port runs three engines: ``dense``
 (:class:`NetsimRunner`: the same algorithms under a time-varying schedule
 and communication faults, ``repro_torch.netsim``) and ``sharded``
 (:class:`TrainerRunner`: the decentralized NN trainer, dense or
-neighbor-gossip backend, any schedule); a sweep spec is refused with the
-slice that will bring it.  ``build(spec)`` resolves every
+neighbor-gossip backend, any schedule).  A :class:`SweepSpec` (a base
+spec plus :class:`AxisSpec` axes) builds a grid runner,
+``repro_torch.sweep.SweepRunner``.  ``build(spec)`` resolves every
 component through ``repro_torch.registry`` and returns a runner on the
 card unless the caller passes ``device="cpu"``::
 
     runner = build(ExperimentSpec.load("spec.json"))          # on cuda
     state, logs = runner.run()
     runner.last_report.to_dict()
+    runner.save("ckpt", state, step=spec.steps)     # embeds the spec
+    runner, state, step = load_checkpoint("ckpt")   # rebuilds and restores
+
+Spec gate (round-trip and build every golden spec)::
+
+    PYTHONPATH=src python -m repro_torch.api --check tests/golden_specs \
+        --device cpu
 
 Randomness is a draw source (``core.draws``): ``run`` makes one from
 ``spec.seed`` on the run's device unless it is handed one, and calls it in
@@ -27,15 +35,19 @@ leaf (the trainer's data stream is its own, ``data.pipeline``).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import itertools
 import json
 import pathlib
-from typing import Callable, Mapping, Optional, Tuple
+import sys
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import configs, registry, tree
+from repro_torch.checkpoint import ckpt
 # imported for their registration side effects
 from repro_torch.core import baselines as _baselines            # noqa: F401
 from repro_torch.core import compression as _compression        # noqa: F401
@@ -51,13 +63,11 @@ from repro_torch.models import transformer as TR
 from repro_torch.netsim import engine as netsim_engine
 from repro_torch.netsim import metrics as netsim_metrics
 from repro_torch.netsim import schedule as sched_mod
-from repro_torch.obs import Meters, RunReport, span, using_meters
+from repro_torch.obs import (Meters, RunReport, build_report, span,
+                             using_meters)
+from repro_torch.obs.report import device_label  # noqa: F401 (re-export)
 from repro_torch.optim import decentralized as dec
 
-# engines of the reference that later slices of the port bring
-_LATER_ENGINES = {
-    "sweep": "the sweep slice (ROADMAP A18: the sweep engine)",
-}
 ENGINES = ("dense", "netsim", "sharded")
 #: model-sharded meshes need more than one card
 MULTI_CARD_SLICE = ("the multi-card slice (ROADMAP: NCCL point-to-point "
@@ -311,10 +321,11 @@ class ExperimentSpec:
             FaultSpec(**f) if isinstance(f, Mapping) else f
             for f in self.faults))
         engine = self.execution.engine
-        if engine in _LATER_ENGINES:
+        if engine == "sweep":
             raise ValueError(
-                f"spec {self.name!r}: engine {engine!r} is not ported yet; "
-                f"it arrives with {_LATER_ENGINES[engine]}")
+                f"spec {self.name!r}: the sweep engine takes a SweepSpec (a "
+                f"base ExperimentSpec plus axes), not an ExperimentSpec "
+                f"with engine='sweep'")
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; the port runs "
                              f"{list(ENGINES)}")
@@ -332,18 +343,314 @@ class ExperimentSpec:
     @classmethod
     def from_dict(cls, d: Mapping) -> "ExperimentSpec":
         if "base" in d and "axes" in d:
-            raise ValueError(
-                f"a sweep spec (base + axes) is not ported yet; it arrives "
-                f"with {_LATER_ENGINES['sweep']}")
+            raise ValueError("a sweep spec (base + axes) is a SweepSpec; "
+                             "read it with SweepSpec.from_json")
         return cls(**dict(d))
 
     @classmethod
     def from_json(cls, text: str) -> "ExperimentSpec":
         return cls.from_dict(json.loads(text))
 
+    def save(self, path) -> pathlib.Path:
+        p = pathlib.Path(path)
+        p.write_text(self.to_json() + "\n")
+        return p
+
     @classmethod
     def load(cls, path) -> "ExperimentSpec":
         return cls.from_json(pathlib.Path(path).read_text())
+
+    def diff(self, other: "ExperimentSpec") -> Dict[str, Tuple[Any, Any]]:
+        """Dotted-path map of every field that differs: path -> (self,
+        other); the reference's paths (``compressor.params.bits``,
+        ``algorithm.eta.value``), a list compared as a whole.  Empty dict
+        == equal specs."""
+        a, b = {}, {}
+        _flat("", self.to_dict(), a)
+        _flat("", other.to_dict(), b)
+        return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+                if a.get(k, _MISSING) != b.get(k, _MISSING)}
+
+    @classmethod
+    def from_flags(cls, args, *, engine: Optional[str] = None,
+                   **overrides) -> "ExperimentSpec":
+        """A spec from an argparse.Namespace carrying the launch CLIs'
+        flags (the reference's names; a missing flag falls back to the
+        spec default)."""
+        return _spec_from_flags(cls, args, engine=engine, **overrides)
+
+
+_MISSING = object()
+
+
+def _flat(prefix: str, v, out: dict) -> None:
+    if isinstance(v, Mapping):
+        for k in sorted(v):
+            _flat(f"{prefix}.{k}" if prefix else str(k), v[k], out)
+    elif isinstance(v, list):
+        out[prefix] = tuple(json.dumps(x, sort_keys=True) for x in v)
+    else:
+        out[prefix] = v
+
+
+# ===========================================================================
+# SweepSpec: a grid of ExperimentSpecs as one declarative object
+# ===========================================================================
+
+#: axis paths a SweepSpec understands (the table repro_torch.sweep enforces)
+SWEEP_AXIS_PATHS = (
+    "seed", "fault_seed",
+    "algorithm.eta[.value|.t0]", "algorithm.alpha[.value|.t0]",
+    "algorithm.gamma[.value|.t0]",
+    "algorithm.params.<field>", "compressor.bits",
+)
+
+_AXIS_SCHED = {f"algorithm.{f}{sfx}": (f, attr)
+               for f in ("eta", "alpha", "gamma")
+               for sfx, attr in (("", "value"), (".value", "value"),
+                                 (".t0", "t0"))}
+
+
+def set_axis_value(spec: ExperimentSpec, path: str, value) -> ExperimentSpec:
+    """``spec`` with the sweep axis ``path`` set to ``value``: the one
+    place axis paths are read, for ``SweepSpec.points()`` and the
+    ``--axis`` flag.  An unknown path raises, listing the axes."""
+    if path == "seed":
+        return dataclasses.replace(spec, seed=int(value))
+    if path == "fault_seed":
+        return dataclasses.replace(spec, fault_seed=int(value))
+    if path in _AXIS_SCHED:
+        field, attr = _AXIS_SCHED[path]
+        sched = dataclasses.replace(getattr(spec.algorithm, field),
+                                    **{attr: float(value)})
+        algorithm = dataclasses.replace(spec.algorithm, **{field: sched})
+        return dataclasses.replace(spec, algorithm=algorithm)
+    if path.startswith("algorithm.params."):
+        params = dict(spec.algorithm.params)
+        params[path[len("algorithm.params."):]] = value
+        algorithm = dataclasses.replace(spec.algorithm, params=params)
+        return dataclasses.replace(spec, algorithm=algorithm)
+    if path in ("compressor.bits", "compressor.params.bits"):
+        params = dict(spec.compressor.params, bits=int(value))
+        return dataclasses.replace(
+            spec, compressor=dataclasses.replace(spec.compressor,
+                                                 params=params))
+    raise ValueError(f"unknown sweep axis {path!r}; supported axes: "
+                     f"{SWEEP_AXIS_PATHS}")
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisSpec:
+    """One sweep axis: a ``path`` of :data:`SWEEP_AXIS_PATHS` and the
+    values it takes."""
+    path: str
+    values: Tuple = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "values", tuple(self.values))
+        if not self.values:
+            raise ValueError(f"axis {self.path!r} needs at least one value")
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepSpec:
+    """An experiment grid, JSON-compatible with ``repro.api.SweepSpec``:
+    one ``base`` ExperimentSpec and :class:`AxisSpec` axes whose cartesian
+    product (later axes fastest) gives the points; ``build`` makes a
+    ``repro_torch.sweep.SweepRunner`` of it."""
+    name: str = "sweep"
+    base: ExperimentSpec = dataclasses.field(default_factory=ExperimentSpec)
+    axes: Tuple[AxisSpec, ...] = ()
+
+    def __post_init__(self):
+        if isinstance(self.base, Mapping):
+            object.__setattr__(self, "base",
+                               ExperimentSpec.from_dict(self.base))
+        object.__setattr__(self, "axes", tuple(
+            AxisSpec(**a) if isinstance(a, Mapping) else a
+            for a in self.axes))
+
+    @property
+    def n_points(self) -> int:
+        n = 1
+        for a in self.axes:
+            n *= len(a.values)
+        return n
+
+    def points(self) -> Tuple[ExperimentSpec, ...]:
+        """The grid, later axes varying fastest; each point is named
+        ``<base.name>@path=value,...``."""
+        out = []
+        for combo in itertools.product(*(a.values for a in self.axes)):
+            p, tags = self.base, []
+            for a, v in zip(self.axes, combo):
+                p = set_axis_value(p, a.path, v)
+                tags.append(f"{a.path}={v:g}" if isinstance(v, float)
+                            else f"{a.path}={v}")
+            if tags:
+                p = dataclasses.replace(p, name=f"{self.base.name}@"
+                                        + ",".join(tags))
+            out.append(p)
+        return tuple(out)
+
+    def to_dict(self) -> dict:
+        return _to_jsonable(self)
+
+    def to_json(self, indent: int = 1) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "SweepSpec":
+        return cls(**dict(d))
+
+    @classmethod
+    def from_json(cls, text: str) -> "SweepSpec":
+        return cls.from_dict(json.loads(text))
+
+    def save(self, path) -> pathlib.Path:
+        p = pathlib.Path(path)
+        p.write_text(self.to_json() + "\n")
+        return p
+
+    @classmethod
+    def load(cls, path) -> "SweepSpec":
+        return cls.from_json(pathlib.Path(path).read_text())
+
+
+def parse_axis(arg: str) -> AxisSpec:
+    """The ``--axis`` shorthand ``path=v1,v2,...`` or ``path=lo:hi[:step]``
+    (an integer range, half-open) -> AxisSpec: ``seed=0:16``,
+    ``compressor.bits=2,4,8``, ``algorithm.eta=0.05,0.1``."""
+    path, sep, rhs = arg.partition("=")
+    if not sep or not rhs:
+        raise ValueError(f"--axis wants path=values, got {arg!r}")
+    if ":" in rhs:
+        parts = [int(x) for x in rhs.split(":")]
+        if len(parts) not in (2, 3):
+            raise ValueError(f"range axis wants lo:hi[:step], got {rhs!r}")
+        return AxisSpec(path, tuple(range(*parts)))
+    return AxisSpec(path, tuple(_cast_scalar(v) for v in rhs.split(",")))
+
+
+# ===========================================================================
+# Flag -> spec layer (the launch CLIs)
+# ===========================================================================
+
+def _cast_scalar(arg: str):
+    try:
+        return int(arg)
+    except ValueError:
+        try:
+            return float(arg)
+        except ValueError:
+            return arg
+
+
+# factory params that carry shared construction context rather than a
+# component's own tunable (skipped by the name:arg shorthand)
+_CONTEXT_PARAMS = frozenset({"n", "n_nodes", "base", "rounds", "seed",
+                             "problem", "name"})
+
+
+def parse_component(kind: str, spec_str: str) -> Tuple[str, dict]:
+    """The CLI shorthand ``name[:arg]`` (``qinf:2``, ``linkdrop:0.1``,
+    ``markov_drop:0.2``) -> (name, params): the argument binds to the
+    factory's first tunable field (bits, frac, rate, sigma, drop, ...)."""
+    name, _, arg = spec_str.partition(":")
+    name = name.replace("-", "_")
+    if not arg:
+        return name, {}
+    acc = [a for a in registry.accepts(kind, name) if a not in _CONTEXT_PARAMS]
+    if not acc:
+        raise ValueError(f"{kind} {name!r} takes no parameters "
+                         f"(got {spec_str!r})")
+    return name, {acc[0]: _cast_scalar(arg)}
+
+
+def parse_faults(spec_str: str) -> Tuple[FaultSpec, ...]:
+    """``'linkdrop:0.1,noise:0.01'`` -> FaultSpec tuple ('' -> ())."""
+    out = []
+    for part in (spec_str or "").split(","):
+        part = part.strip()
+        if part:
+            name, params = parse_component("fault", part)
+            out.append(FaultSpec(name, params))
+    return tuple(out)
+
+
+def _spec_from_flags(cls, args, *, engine=None, **overrides):
+    def g(name, default=None):
+        return getattr(args, name, default)
+
+    engine = engine or g("engine") or ("sharded" if g("arch") else "dense")
+    aparams = {"allow_biased": True} if g("allow_biased") else {}
+    algorithm = AlgorithmSpec(
+        (g("algo") or "prox_lead").replace("-", "_"),
+        eta=constant(g("eta", 0.05)), alpha=constant(g("alpha", 0.5)),
+        gamma=constant(g("gamma", 1.0)), params=aparams)
+
+    cname, cparams = parse_component("compressor", g("compressor", "qinf"))
+    for flag in ("bits", "block", "frac"):
+        v = g(flag)
+        if v is not None and flag not in cparams \
+                and flag in registry.accepts("compressor", cname):
+            cparams[flag] = v
+    compressor = CompressorSpec(cname, cparams)
+
+    sname, sparams = parse_component("schedule", g("schedule", "static"))
+    topology = TopologySpec(
+        graph=g("topology", "ring"), schedule=sname,
+        rounds=g("rounds", g("schedule_rounds", 32)),
+        schedule_params=sparams)
+
+    faults = parse_faults(g("fault", ""))
+    drop_rate = g("drop_rate", 0.0)
+    if drop_rate:
+        faults = faults + (FaultSpec("linkdrop", {"rate": drop_rate}),)
+
+    pname = g("prox")
+    if pname in (None, "none"):
+        l1 = g("l1", 0.0)
+        prox = ProxSpec("l1", {"lam": l1}) if l1 else ProxSpec("none")
+    else:
+        prox = ProxSpec(pname, ({"lam": g("lam", 1e-5)}
+                                if pname in ("l1", "l2sq") else {}))
+
+    oracle = model = None
+    if engine == "sharded":
+        model = ModelSpec(arch=g("arch", "qwen3-1.7b"), full=g("full", False),
+                          n_layers=g("layers", 2), d_model=g("d_model", 256),
+                          local_batch=g("local_batch", 4),
+                          seq_len=g("seq_len", 64))
+    else:
+        pparams = {}
+        for flag, field in (("features", "n_features"),
+                            ("classes", "n_classes"), ("lam2", "lam2"),
+                            ("n_per_node", "n_per_node"),
+                            ("n_batches", "n_batches")):
+            v = g(flag)
+            if v is not None:
+                pparams[field] = v
+        if g("seed") is not None:
+            pparams["seed"] = g("seed")
+        oracle = OracleSpec(
+            name=g("oracle", "full"),
+            problem=g("problem", "logreg2d" if engine == "netsim"
+                      else "logreg"),
+            problem_params=pparams)
+
+    execution = ExecutionSpec(
+        engine=engine, backend=g("backend", "dense"),
+        wire_mode=g("wire_mode", "bucketed"),
+        pack_mode=g("pack_mode", "lastdim"))
+
+    spec = cls(name=g("name", "experiment"), n_nodes=g("nodes", 8),
+               steps=g("steps", 200), seed=g("seed", 0),
+               fault_seed=g("fault_seed", g("seed", 0)),
+               algorithm=algorithm, compressor=compressor, topology=topology,
+               faults=faults, prox=prox, oracle=oracle, model=model,
+               execution=execution)
+    return dataclasses.replace(spec, **overrides) if overrides else spec
 
 
 # ===========================================================================
@@ -362,13 +669,21 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def device_label(device: torch.device) -> str:
-    if device.type == "cuda":
-        return f"{device} ({torch.cuda.get_device_name(device)})"
-    return str(device)
+class Runner:
+    """What every runner shares: ``save`` writes a checkpoint that embeds
+    the originating spec under ``extra["spec"]``, so
+    :func:`load_checkpoint` rebuilds the experiment."""
+    spec: Optional[ExperimentSpec] = None
+
+    def save(self, path, state, step: int = 0,
+             extra: Optional[dict] = None) -> pathlib.Path:
+        meta = dict(extra or {})
+        if self.spec is not None:
+            meta["spec"] = self.spec.to_dict()
+        return ckpt.save_state(path, state, step=step, extra=meta)
 
 
-class DenseRunner:
+class DenseRunner(Runner):
     """Any dense algorithm (Prox-LEAD and the baselines) over a DenseMixer,
     stacked leaves.
 
@@ -409,10 +724,10 @@ class DenseRunner:
                 state = self.algo.step(state, draws)
                 if callback is not None and log_every and t % log_every == 0:
                     logs.append(callback(state, t))
-        self.last_report = RunReport(
+        self.last_report = build_report(
             name=self.spec.name if self.spec else "dense", engine="dense",
-            device=device_label(self.device), steps=num_steps,
-            total_s=sp.elapsed_s, bits_per_step=self.bits_per_step(),
+            device=self.device, steps=num_steps, total_s=sp.elapsed_s,
+            bits_per_step=self.bits_per_step(),
             extra={"algo": getattr(self.algo, "name",
                                    type(self.algo).__name__)})
         return state, logs
@@ -452,8 +767,18 @@ def build_algorithm(spec: ExperimentSpec, mixer, oracle):
     return registry.make("algorithm", a.name, **ctx, **a.params)
 
 
+def default_oracle_spec(spec: ExperimentSpec) -> OracleSpec:
+    """``spec.oracle``, or what an engine falls back on without one: the
+    small natural-shape ``logreg2d`` on the netsim engine, the paper-scale
+    flat ``logreg`` on the dense one (the reference's convention)."""
+    if spec.oracle is not None:
+        return spec.oracle
+    return OracleSpec(problem="logreg2d"
+                      if spec.execution.engine == "netsim" else "logreg")
+
+
 def _oracle_and_problem(spec: ExperimentSpec, device, dtype):
-    osp = spec.oracle if spec.oracle is not None else OracleSpec()
+    osp = default_oracle_spec(spec)
     problem, X0 = osp.build_problem(spec.n_nodes, device,
                                     dtype or torch.float32)
     return osp.build(problem), problem, X0
@@ -471,7 +796,7 @@ def _build_dense(spec: ExperimentSpec, device, dtype) -> DenseRunner:
     return DenseRunner(algo, X0, spec=spec, problem=problem)
 
 
-class NetsimRunner:
+class NetsimRunner(Runner):
     """Runner over :func:`repro_torch.netsim.engine.simulate`: the
     algorithm's mixer is swapped for a SimMixer (schedule + faults) and the
     steps run with exact, fault-exact bits-on-wire accounting.
@@ -535,13 +860,12 @@ class NetsimRunner:
                 fault_draws=fault_draws, mask_log=mask_log)
         # trajectory bits are the fault-exact SYSTEM total per round (every
         # directed edge that actually carried a payload), not one node's
-        self.last_report = RunReport(
+        self.last_report = build_report(
             name=sp.name if sp else "netsim", engine="netsim",
-            device=device_label(self.device), steps=traj.steps,
-            total_s=tsp.elapsed_s,
+            device=self.device, steps=traj.steps, total_s=tsp.elapsed_s,
             bits_per_step=(traj.total_bits / traj.steps if traj.steps
                            else 0.0),
-            scope="system",
+            bits_total=traj.total_bits, scope="system", meters=meters,
             extra={"algo": traj.meta.get("algo"),
                    "schedule": traj.meta.get("schedule"),
                    "bits_total": traj.total_bits,
@@ -563,7 +887,7 @@ def _build_netsim(spec: ExperimentSpec, device, dtype) -> NetsimRunner:
                         problem=problem)
 
 
-class TrainerRunner:
+class TrainerRunner(Runner):
     """Runner over :class:`repro_torch.optim.decentralized.
     DecentralizedTrainer` (the decentralized NN trainer).
 
@@ -614,10 +938,10 @@ class TrainerRunner:
                 if callback is not None and log_every and t % log_every == 0:
                     logs.append(callback(state, metrics, t))
         tcfg = self.trainer.tcfg
-        self.last_report = RunReport(
+        self.last_report = build_report(
             name=sp.name if sp else "trainer", engine="sharded",
-            device=device_label(self.device), steps=num_steps,
-            total_s=tsp.elapsed_s, bits_per_step=self.bits_per_step(state),
+            device=self.device, steps=num_steps, total_s=tsp.elapsed_s,
+            bits_per_step=self.bits_per_step(state), meters=meters,
             extra={"backend": tcfg.backend, "wire_mode": tcfg.wire_mode,
                    "meters": meters.as_dict()})
         return state, logs
@@ -763,11 +1087,133 @@ def _build_sharded(spec: ExperimentSpec, device, dtype) -> TrainerRunner:
     return build_trainer_runner(spec, device=device, dtype=dtype)
 
 
-def build(spec: ExperimentSpec, *, device=None,
-          dtype: Optional[torch.dtype] = None):
+def build(spec, *, device=None, dtype: Optional[torch.dtype] = None):
     """Resolve a spec into a runner on ``device`` (default: the card; raises
-    without one).  ``dtype``: the dense and netsim engines' state and data
+    without one).  An ExperimentSpec builds its ``execution.engine``; a
+    SweepSpec the grid engine (``repro_torch.sweep.SweepRunner``, map
+    mode).  ``dtype``: the dense and netsim engines' state and data
     (default f32); the sharded engine's parameters (default: the model
     config's)."""
-    return registry.make("engine", spec.execution.engine, spec=spec,
+    if hasattr(spec, "axes"):          # a SweepSpec (also as __main__'s)
+        from repro_torch import sweep as _sweep    # noqa: F401 (registers)
+        engine = "sweep"
+    else:
+        engine = spec.execution.engine
+    return registry.make("engine", engine, spec=spec,
                          device=resolve_device(device), dtype=dtype)
+
+
+# ===========================================================================
+# Checkpoints embed the spec
+# ===========================================================================
+
+def _template_state(runner, device):
+    """An initial state of ``runner``: the structure a checkpoint restores
+    into (a dense or netsim run's draws do not matter here)."""
+    if isinstance(runner, TrainerRunner):
+        return runner.init_state()
+    return runner.init_state(GeneratorDraws(0, device))
+
+
+def load_checkpoint(path, step: Optional[int] = None, *, device=None,
+                    dtype: Optional[torch.dtype] = None):
+    """Rebuild the runner from the spec a checkpoint embeds, on ``device``
+    (default: the card; raises without one), and restore its state into
+    the structure of the runner's initial state: -> (runner, state, step).
+    A dense or trainer run continues bit for bit from the restored state
+    (the trainer's step index resumes from it); a netsim runner's fault
+    stream starts afresh with ``init_state``."""
+    if step is None:
+        step = ckpt.latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint manifests under {path}")
+    manifest = ckpt.load_manifest(path, step)
+    spec_dict = (manifest.get("extra") or {}).get("spec")
+    if spec_dict is None:
+        raise ValueError(
+            f"checkpoint {path} (step {step}) embeds no ExperimentSpec; "
+            f"re-save through Runner.save or pass the spec explicitly")
+    spec = ExperimentSpec.from_dict(spec_dict)
+    if dtype is None and spec.execution.engine != "sharded":
+        # the run's dtype: that of its first floating leaf
+        dtype = next((getattr(torch, d) for d in manifest["dtypes"]
+                      if d.startswith(("float", "bfloat"))), None)
+    runner = build(spec, device=device, dtype=dtype)
+    template = _template_state(runner, runner.device)
+    state = ckpt.load_state(path, template, step=step)
+    return runner, state, step
+
+
+# ===========================================================================
+# Golden-spec gate
+# ===========================================================================
+
+def check_spec_file(path, *, device=None):
+    """Round-trip one spec file through JSON and build it on ``device``;
+    raises on any failure (a model-sharded mesh raises NotImplementedError
+    naming its slice).  A JSON object with a ``base`` key is a SweepSpec
+    (its build checks the axis plan), anything else an ExperimentSpec."""
+    text = pathlib.Path(path).read_text()
+    cls = SweepSpec if "base" in json.loads(text) else ExperimentSpec
+    spec = cls.from_json(text)
+    again = cls.from_json(spec.to_json())
+    if spec != again:
+        detail = spec.diff(again) if cls is ExperimentSpec else ""
+        raise ValueError(f"{path}: spec does not round-trip through JSON; "
+                         f"diff: {detail}")
+    build(spec, device=device)
+    return spec
+
+
+def _main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.api",
+        description="spec utilities: the golden-spec round-trip and build "
+                    "gate, spec diffing")
+    ap.add_argument("--check", default=None, metavar="DIR_OR_JSON",
+                    help="round-trip and build every *.json under the path")
+    ap.add_argument("--diff", nargs=2, default=None, metavar=("A", "B"),
+                    help="print the field-level diff of two spec files")
+    ap.add_argument("--device", default=None,
+                    help="where --check builds (default: the card)")
+    args = ap.parse_args(argv)
+    if args.diff:
+        a = ExperimentSpec.load(args.diff[0])
+        b = ExperimentSpec.load(args.diff[1])
+        for k, (va, vb) in a.diff(b).items():
+            print(f"{k}: {va!r} -> {vb!r}")
+        return 0
+    if args.check:
+        root = pathlib.Path(args.check)
+        files = sorted(root.glob("*.json")) if root.is_dir() else [root]
+        if not files:
+            print(f"[spec-check] FAIL: no spec files under {root}")
+            return 1
+        refused = 0
+        for f in files:
+            try:
+                spec = check_spec_file(f, device=args.device)
+            except NotImplementedError as e:       # a later slice's spec
+                refused += 1
+                print(f"[spec-check] REFUSED {f.name}: {e}")
+                continue
+            if hasattr(spec, "axes"):
+                print(f"[spec-check] OK {f.name}: {spec.name} (sweep of "
+                      f"{spec.n_points} points over "
+                      f"{[a.path for a in spec.axes]}, "
+                      f"engine={spec.base.execution.engine})")
+            else:
+                print(f"[spec-check] OK {f.name}: {spec.name} "
+                      f"(engine={spec.execution.engine}, "
+                      f"algo={spec.algorithm.name}, "
+                      f"compressor={spec.compressor.name})")
+        print(f"[spec-check] {len(files)} golden specs round-trip; "
+              f"{len(files) - refused} build, {refused} refused (a later "
+              f"slice)")
+        return 0
+    ap.print_help()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_main())

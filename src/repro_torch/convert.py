@@ -30,6 +30,11 @@ slot per round, (N, T, ...), in both packages); without the Adam
 preconditioner the reference stores a 0-d integer placeholder under
 ``precond.m`` and ``precond.v``, the port ``None``.  :func:`tree_to_torch`
 and :func:`tree_to_numpy` carry a bare parameter tree.
+
+:func:`state_from_checkpoint` reads a dense Prox-LEAD state that the
+reference's ``Runner.save`` wrote (``repro_torch.checkpoint.ckpt``'s
+format: keys ``.X``, ``.comm/.H``, ``.oracle/.ref``, ...) through the
+mapping above.
 """
 from __future__ import annotations
 
@@ -172,3 +177,18 @@ def trainstate_to_arrays(state: TrainState) -> Dict[str, Any]:
             "comm.Hw": tree_to_numpy(p.comm.Hw), "k": np.int32(p.k),
             "step": np.int32(state.step), "precond.m": placeholder(m),
             "precond.v": placeholder(v)}
+
+
+def checkpoint_arrays(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """A checkpoint's arrays by key (``.X``, ``.comm/.H``, ``.k``) -> the
+    mapping above (``X``, ``comm.H``, ``k``)."""
+    return {k.replace("/.", ".").lstrip("."): a for k, a in flat.items()}
+
+
+def state_from_checkpoint(path, step: int = 0, *, device,
+                          dtype: torch.dtype) -> ProxLEADState:
+    """A dense Prox-LEAD state from a checkpoint of either package (the
+    reference's ``Runner.save`` or the port's), on ``device``."""
+    from repro_torch.checkpoint import ckpt
+    return state_from_arrays(checkpoint_arrays(ckpt.load_arrays(path, step)),
+                             device=device, dtype=dtype)

@@ -31,6 +31,7 @@ Zhat_w = W_k (H + Q) from the receiver-side H replicas instead
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -93,12 +94,14 @@ def _exact_stochastic(W: np.ndarray, dtype: torch.dtype) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class DenseMixer(Mixer):
-    """W X as a contraction over the explicit leading node axis.  The
-    accumulation dtype is f64 for f64 leaves and f32 otherwise; W is cast
-    by :func:`_exact_stochastic` once per (dtype, device) and kept."""
+    """W X as a contraction over the explicit node axis (``node_axis``: 0,
+    or 1 under a stacked grid's leading point axis).  The accumulation
+    dtype is f64 for f64 leaves and f32 otherwise; W is cast by
+    :func:`_exact_stochastic` once per (dtype, device) and kept."""
     W: Any  # (n, n) array-like
     _cache: Dict[Any, torch.Tensor] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
+    node_axis: int = 0
 
     def _w(self, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
         key = (dtype, device)
@@ -109,7 +112,17 @@ class DenseMixer(Mixer):
 
     def mix_leaf(self, leaf: torch.Tensor, k=None) -> torch.Tensor:
         acc = acc_dtype(leaf.dtype)
-        return mix_with(self._w(acc, leaf.device), leaf)
+        return mix_with(self._w(acc, leaf.device), leaf, self.node_axis)
+
+
+def coef(v, like: torch.Tensor):
+    """A step's scalar coefficient as ``like``'s arithmetic takes it: a
+    Python float as it is; a stacked grid's per-point operand, a (P, 1,
+    ..., 1) f64 tensor whose compound arithmetic (``gamma / (2 eta)``,
+    ``1 - alpha``) was done in f64 as the host does it in double, rounded
+    once to ``like``'s dtype -- what a Python float scalar goes through in
+    a product with ``like``."""
+    return v.to(like.dtype) if torch.is_tensor(v) else v
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -117,11 +130,17 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def mix_with(W: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """W (n, n) applied along the leading node axis of ``leaf``, in W's
-    dtype, the result cast back to the leaf's."""
-    return torch.tensordot(W, leaf.to(W.dtype),
-                           dims=([1], [0])).to(leaf.dtype)
+def mix_with(W: torch.Tensor, leaf: torch.Tensor,
+             node_axis: int = 0) -> torch.Tensor:
+    """W (n, n) applied along the node axis of ``leaf`` (the leading one,
+    or the one after a stacked grid's point axes: one batched product for
+    every point), in W's dtype, the result cast back to the leaf's."""
+    x = leaf.to(W.dtype)
+    if node_axis == 0:
+        return torch.tensordot(W, x, dims=([1], [0])).to(leaf.dtype)
+    n, rest = x.shape[node_axis], math.prod(x.shape[node_axis + 1:])
+    out = torch.matmul(W, x.reshape(-1, n, rest))
+    return out.reshape(x.shape).to(leaf.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,7 +208,8 @@ def comm(Z, state: CommState, alpha: float, compressor: Compressor,
     """One COMM round over trees Z, H, Hw of one structure.  Draws one
     noise array per leaf, in leaf order (none for Identity).
     ``step_idx`` (the round k) goes to the mixer, so a time-varying one
-    picks W_k; static mixers ignore it.
+    picks W_k; static mixers ignore it.  ``alpha`` is a float, or a
+    stacked grid's per-point operand (:func:`coef`).
 
     Returns (Zhat, Zhat_w, new_state)."""
     leaves_Z, treedef = flatten(Z)
@@ -213,8 +233,9 @@ def comm(Z, state: CommState, alpha: float, compressor: Compressor,
               else hw + mixer.mix_leaf(q, step_idx))
         zhat.append(zh)
         zhat_w.append(zw)
-        newH.append((1 - alpha) * h + alpha * zh)
-        newHw.append((1 - alpha) * hw + alpha * zw)
+        keep, take = coef(1 - alpha, h), coef(alpha, h)
+        newH.append(keep * h + take * zh)
+        newHw.append(keep * hw + take * zw)
     unf = lambda ls: unflatten(treedef, ls)
     return unf(zhat), unf(zhat_w), CommState(unf(newH), unf(newHw))
 

@@ -23,6 +23,10 @@ an f64 draw is not rounded through f32 on the way.
 ``uniform(shape, out=view)`` fills ``view`` (of ``shape`` and ``dtype``,
 any strides) in place and returns it: the neighbor-gossip backend draws
 each leaf's noise straight into its bucket group's row table.
+
+:class:`StackedDraws` serves a stacked grid (``repro_torch.sweep``): P
+sources, one a grid point, each point drawing from its own stream what
+its serial run would draw, the P results stacked on a leading axis.
 """
 from __future__ import annotations
 
@@ -177,3 +181,45 @@ class RecordingDraws(Draws):
 
     def choice(self, n, k):
         return self._keep(self.inner.choice(n, k))
+
+
+class StackedDraws(Draws):
+    """The draws of P grid points stacked on a leading point axis, point i
+    drawing from ``points[i]`` (its own stream, in point order):
+    ``randint(n, high)`` -> (P, n); ``uniform(shape)`` with ``shape[0] ==
+    P`` fills point i's slice of one (P, ...) buffer from its own source
+    (``uniform(shape[1:], out=buf[i])``), so each point gets the values a
+    draw of ``shape[1:]`` would give it alone.  The Bernoulli and choice
+    draws (L-SVRG, RandK) have no stacked form."""
+
+    def __init__(self, points: Sequence[Draws]) -> None:
+        if not points:
+            raise ValueError("StackedDraws needs at least one point")
+        self.points = list(points)
+        self.device = self.points[0].device
+
+    def randint(self, n, high):
+        return torch.stack([d.randint(n, high) for d in self.points])
+
+    def uniform(self, shape, out=None, dtype=torch.float32, low=0.0,
+                high=1.0):
+        shape = tuple(int(s) for s in shape)
+        if not shape or shape[0] != len(self.points):
+            raise ValueError(f"a stacked uniform draw wants a leading axis "
+                             f"of the {len(self.points)} points, got "
+                             f"{shape}")
+        if out is None:
+            out = torch.empty(shape, device=self.device, dtype=dtype)
+        else:
+            _check_out(out, shape, dtype)
+        for i, d in enumerate(self.points):
+            d.uniform(shape[1:], out=out[i], dtype=dtype, low=low, high=high)
+        return out
+
+    def bernoulli(self, p, shape=()):
+        raise NotImplementedError("a stacked grid draws no Bernoulli coins "
+                                  "(L-SVRG runs point by point)")
+
+    def choice(self, n, k):
+        raise NotImplementedError("a stacked grid draws no choices (RandK "
+                                  "runs point by point)")

@@ -13,9 +13,18 @@ p_ij = 1/m throughout, so
 
 Each ``sample`` takes its indices (and L-SVRG its coin) from the draw
 source: ``randint(n, m)``, then ``bernoulli(p)`` for L-SVRG.
+
+A stacked grid (``repro_torch.sweep``, ``batch='vmap'``) puts P points on
+a leading axis of every iterate, (P, n, ...), and of the oracle state
+(SAGA's table (P, n, m, ...)); :meth:`Oracle.over_points` gives the
+oracle that samples them, its draw source handing out (P, n) indices
+(``core.draws.StackedDraws``).  The problem's data stays shared: a
+point's gradients are those of its nodes, folded into one call of
+``grad_batches`` with P x n node rows.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -41,18 +50,39 @@ class FiniteSumProblem:
     loss_batches: Optional[Callable] = None
 
     def batches_at(self, ls: torch.Tensor):
-        """Batch ``ls[i]`` of every node i, as (n, 1, ...) leaves."""
+        """Batch ``ls[..., i]`` of every node i, as (..., n, 1, ...)
+        leaves (``ls`` (n,), or (P, n) for a stacked grid)."""
         idx = torch.arange(self.n, device=ls.device)
-        return tree_map(lambda d: d[idx, ls][:, None], self.data)
+        return tree_map(lambda d: d[idx, ls].unsqueeze(ls.dim()), self.data)
+
+    def _folded(self, X, batch, points: int):
+        """``grad_batches`` of P stacked points as one call over P x n node
+        rows: X (P, n, ...), batch (P x n, k, ...) -> (P, n, k, ...)."""
+        Xf = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), X)
+        return tree_map(lambda g: g.reshape((points, self.n)
+                                            + tuple(g.shape[1:])),
+                        self.grad_batches(Xf, batch))
 
     def sampled_grad(self, X, ls: torch.Tensor):
-        """grad f_{i, ls[i]}(x_i) for every node: (n, ...)."""
-        return tree_map(lambda g: g[:, 0],
-                        self.grad_batches(X, self.batches_at(ls)))
+        """grad f_{i, ls[i]}(x_i) for every node: (n, ...); for ls (P, n)
+        and X (P, n, ...) every point's, (P, n, ...)."""
+        batch = self.batches_at(ls)
+        if ls.dim() == 1:
+            return tree_map(lambda g: g[:, 0], self.grad_batches(X, batch))
+        flat = tree_map(lambda b: b.reshape((-1,) + tuple(b.shape[2:])),
+                        batch)
+        return tree_map(lambda g: g[:, :, 0],
+                        self._folded(X, flat, ls.shape[0]))
 
-    def full_grad(self, X):
-        """Deterministic gradient of every node: (n, ...)."""
-        return tree_map(lambda g: g.mean(1), self.grad_batches(X, self.data))
+    def full_grad(self, X, points: int = 0):
+        """Deterministic gradient of every node: (n, ...); of every node of
+        ``points`` stacked points when ``points`` > 0, (P, n, ...)."""
+        if not points:
+            return tree_map(lambda g: g.mean(1),
+                            self.grad_batches(X, self.data))
+        data = tree_map(lambda d: d.repeat((points,) + (1,) * (d.dim() - 1)),
+                        self.data)
+        return tree_map(lambda g: g.mean(2), self._folded(X, data, points))
 
     def full_loss(self, X) -> torch.Tensor:
         if self.loss_batches is None:
@@ -69,15 +99,25 @@ class OracleState(NamedTuple):
 class Oracle:
     """Base: ``sample`` returns (G, new_state) with G stacked (n, ...)."""
     name = "full"
+    #: stacked grid points this oracle samples (0: none; see the module
+    #: docstring)
+    points = 0
 
     def __init__(self, problem: FiniteSumProblem):
         self.problem = problem
+
+    def over_points(self, points: int) -> "Oracle":
+        """This oracle over ``points`` grid points stacked on a leading
+        axis of the iterates and the oracle state."""
+        other = copy.copy(self)
+        other.points = int(points)
+        return other
 
     def init(self, X0) -> OracleState:
         return OracleState(0, None, None)
 
     def sample(self, X, state: OracleState, draws: Draws):
-        return self.problem.full_grad(X), state
+        return self.problem.full_grad(X, self.points), state
 
 
 @registry.register_oracle("full")
@@ -136,12 +176,15 @@ class SAGA(Oracle):
     def sample(self, X, state, draws):
         p = self.problem
         ls = draws.randint(p.n, p.m)
-        idx = torch.arange(p.n, device=ls.device)
+        idx = (torch.arange(p.n, device=ls.device), ls)
+        if ls.dim() == 2:                  # a stacked grid: (P, n) indices
+            idx = (torch.arange(ls.shape[0], device=ls.device)[:, None],
+                   ) + idx
         g_new = p.sampled_grad(X, ls)
-        g_old = tree_map(lambda t: t[idx, ls], state.ref)
+        g_old = tree_map(lambda t: t[idx], state.ref)
         G = tree_map(lambda a, o, mn: a - o + mn, g_new, g_old,
                      state.ref_grad)
-        tab = tree_map(lambda t, gn: t.index_put((idx, ls), gn), state.ref,
+        tab = tree_map(lambda t, gn: t.index_put(idx, gn), state.ref,
                        g_new)
         mean = tree_map(lambda mn, o, gn: mn + (gn - o) / p.m,
                         state.ref_grad, g_old, g_new)

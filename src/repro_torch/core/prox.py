@@ -3,7 +3,11 @@
 prox_{eta r}(x) = argmin_z  r(z) + ||z - x||^2 / (2 eta).
 
 Elementwise or rowwise closed forms, applied leafwise; ``value`` returns
-r(x) as a 0-dim tensor for objective bookkeeping.
+r(x) as a 0-dim tensor for objective bookkeeping.  ``eta`` is a float, or
+a stacked grid's per-point (P, 1, ..., 1) f64 operand: each step size
+product is formed in f64 and rounded once to x's dtype (``comm.coef``),
+as a host float is; every closed form is elementwise or reduces the last
+axis alone, so a leading point axis passes through.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch import registry
+from repro_torch.core.comm import coef
 from repro_torch.tree import leaves, tree_map
 
 
@@ -61,7 +66,7 @@ class L1(Prox):
     name: str = "l1"
 
     def __call__(self, x, eta):
-        return _soft(x, eta * self.lam)
+        return _soft(x, coef(eta * self.lam, x))
 
     def value(self, x):
         return self.lam * x.abs().sum()
@@ -75,7 +80,7 @@ class L2Sq(Prox):
     name: str = "l2sq"
 
     def __call__(self, x, eta):
-        return x / (1.0 + eta * self.lam)
+        return x / coef(1.0 + eta * self.lam, x)
 
     def value(self, x):
         return 0.5 * self.lam * (x ** 2).sum()
@@ -90,7 +95,8 @@ class ElasticNet(Prox):
     name: str = "elastic_net"
 
     def __call__(self, x, eta):
-        return _soft(x, eta * self.lam1) / (1.0 + eta * self.lam2)
+        return (_soft(x, coef(eta * self.lam1, x))
+                / coef(1.0 + eta * self.lam2, x))
 
     def value(self, x):
         return self.lam1 * x.abs().sum() + 0.5 * self.lam2 * (x ** 2).sum()
@@ -105,7 +111,8 @@ class GroupLasso(Prox):
 
     def __call__(self, x, eta):
         norms = torch.sqrt((x ** 2).sum(dim=-1, keepdim=True) + 1e-24)
-        return x * torch.clamp(1.0 - eta * self.lam / norms, min=0.0)
+        return x * torch.clamp(1.0 - coef(eta * self.lam, x) / norms,
+                               min=0.0)
 
     def value(self, x):
         return self.lam * torch.sqrt((x ** 2).sum(dim=-1) + 1e-24).sum()

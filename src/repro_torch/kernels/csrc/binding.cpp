@@ -21,6 +21,7 @@
 
 #include <Python.h>
 
+#include <cmath>
 #include <cstddef>
 #include <cstdio>
 #include <initializer_list>
@@ -36,7 +37,8 @@ namespace {
 
 // the C launchers (their signatures in csrc/qinf.cu and csrc/qinf_wire.cu)
 using QuantizeFn = int (*)(const void*, int, long long, long long, long long,
-                           const void*, void*, void*, int, int, int, void*);
+                           const void*, void*, void*, int, int, const void*,
+                           long long, int, void*);
 using DequantizeFn = int (*)(const void*, const void*, void*, int, long long,
                              int, int, void*);
 using PackFn = int (*)(const void*, const void*, void*, void*, long long, int,
@@ -203,17 +205,72 @@ bool leaf_rows(const at::Tensor& x, int64_t* L, int64_t* ldx) {
   return true;
 }
 
+// The last per-point level operand whose values were read and found good:
+// its storage, version counter and length (see point_levels_ok).
+struct CheckedLevels {
+  const void* data = nullptr;
+  int64_t version = -1, numel = 0;
+  int device = -1;
+};
+CheckedLevels g_checked_levels;
+
+// B1's per-point level operand: f32, contiguous, 1-D, on x's device, a
+// length P that divides the leaf's L rows, each value a power of two in
+// [1, 128].  The values are read on the host (one small copy, which waits
+// for the stream) the first time a tensor is seen and again only after it
+// changes (its version counter moves), so a sweep that keeps one operand
+// for the whole run pays the copy once.
+bool point_levels_ok(const at::Tensor& lv, const at::Tensor& x, int64_t L) {
+  if (lv.scalar_type() != at::kFloat) {
+    raise(PyExc_TypeError, "levels must be f32, got %s", dtype(lv));
+    return false;
+  }
+  if (!lv.is_cuda() || !x.is_cuda() || lv.get_device() != x.get_device() ||
+      !lv.is_contiguous()) {
+    raise(PyExc_ValueError, "levels must be contiguous on x's CUDA device");
+    return false;
+  }
+  const int64_t P = lv.numel();
+  if (lv.dim() != 1 || P < 1 || L % P != 0) {
+    raise(PyExc_ValueError, "levels %s must be (P,) with P dividing the "
+          "leaf's %lld rows", Shape(lv).text, (long long)L);
+    return false;
+  }
+  CheckedLevels& c = g_checked_levels;
+  if (c.data == lv.data_ptr() && c.version == lv._version() &&
+      c.numel == P && c.device == lv.get_device())
+    return true;
+  const at::Tensor host = lv.to(at::kCPU);
+  const float* v = host.data_ptr<float>();
+  for (int64_t i = 0; i < P; ++i) {
+    const float f = v[i];
+    int e = 0;
+    if (!(f >= 1.0f && f <= 128.0f && std::frexp(f, &e) == 0.5f)) {
+      char value[32];  // PyErr_Format has no float conversion
+      snprintf(value, sizeof value, "%g", (double)f);
+      raise(PyExc_ValueError, "levels[%lld] = %s is not a power of two in "
+            "[1, 128] (2^(bits-1) for bits 1..8)", (long long)i, value);
+      return false;
+    }
+  }
+  c = {lv.data_ptr(), lv._version(), P, lv.get_device()};
+  return true;
+}
+
 // (x (..., D), u, bits) -> (codes int8 in u's shape, scales f32 in u's
 // shape with a last axis of 1): the leaf x in blocks of B = u's last axis,
 // its ragged last block read in place.  u is the leaf's blocked noise
 // (blocked_shape), or x's own shape when D = B (the (R, B) call).  x
 // f32/f64/bf16 with rows of unit stride (leaf_rows), u f32 contiguous.
-PyObject* quantize_blocks(PyObject*, PyObject* const* args, Py_ssize_t n) {
-  HANDLE_TH_ERRORS
-  if (!parse(args, n, 3, 2, "qinf_quantize_blocks")) return nullptr;
+// quantize_blocks_levels takes (x, u, levels) instead: a level count per
+// point (point_levels_ok), the points stacked on x's leading rows.
+PyObject* quantize_any(PyObject* const* args, Py_ssize_t n, bool per_point) {
+  const char* name =
+      per_point ? "qinf_quantize_blocks_levels" : "qinf_quantize_blocks";
+  if (!parse(args, n, 3, per_point ? 3 : 2, name)) return nullptr;
   const at::Tensor& x = tensor(args[0]);
   const at::Tensor& u = tensor(args[1]);
-  const long bits = as_long(args[2]);
+  const long bits = per_point ? 1 : as_long(args[2]);
   if (PyErr_Occurred()) return nullptr;
   const int tag = in_tag(x);
   int64_t L, ldx;
@@ -235,15 +292,31 @@ PyObject* quantize_blocks(PyObject*, PyObject* const* args, Py_ssize_t n) {
       !u.is_contiguous() || !leaf_rows(x, &L, &ldx))
     return raise(PyExc_ValueError, "x must have rows of unit stride and u "
                  "must be contiguous on one CUDA device");
+  const at::Tensor* lv = per_point ? &tensor(args[2]) : nullptr;
+  if (lv != nullptr && !point_levels_ok(*lv, x, L)) return nullptr;
   const int device = x.get_device();
   std::vector<int64_t> scale_shape(u.sizes().begin(), u.sizes().end());
   scale_shape.back() = 1;
   at::Tensor codes = at::empty(u.sizes(), u.options().dtype(at::kChar));
   at::Tensor scales = at::empty(scale_shape, u.options());
-  const int err = g_quantize(x.data_ptr(), tag, L, D, ldx, u.data_ptr(),
-                             codes.data_ptr(), scales.data_ptr(), (int)B,
-                             (int)bits, device, stream_of(device));
-  return launched("qinf_quantize_blocks", err, wrap2(codes, scales));
+  const int err = g_quantize(
+      x.data_ptr(), tag, L, D, ldx, u.data_ptr(), codes.data_ptr(),
+      scales.data_ptr(), (int)B, (int)bits,
+      lv != nullptr ? lv->data_ptr() : nullptr,
+      lv != nullptr ? lv->numel() : 0, device, stream_of(device));
+  return launched(name, err, wrap2(codes, scales));
+}
+
+PyObject* quantize_blocks(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  HANDLE_TH_ERRORS
+  return quantize_any(args, n, false);
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* quantize_blocks_levels(PyObject*, PyObject* const* args,
+                                 Py_ssize_t n) {
+  HANDLE_TH_ERRORS
+  return quantize_any(args, n, true);
   END_HANDLE_TH_ERRORS
 }
 
@@ -374,6 +447,9 @@ PyMethodDef kMethods[] = {
     {"set_launchers", set_launchers, METH_VARARGS, nullptr},
     {"qinf_quantize_blocks", (PyCFunction)(void (*)(void))quantize_blocks,
      METH_FASTCALL, nullptr},
+    {"qinf_quantize_blocks_levels",
+     (PyCFunction)(void (*)(void))quantize_blocks_levels, METH_FASTCALL,
+     nullptr},
     {"qinf_dequantize_blocks", (PyCFunction)(void (*)(void))dequantize_blocks,
      METH_FASTCALL, nullptr},
     {"qinf_quantize_pack_blocks",

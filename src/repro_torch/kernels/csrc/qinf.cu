@@ -54,6 +54,15 @@
 // row variant 32 registers, 64 warps; the widest vector instances (bf16
 // K = 4, f64 K = 16) 89 and 102 registers, 16 warps.
 //
+// Per-point level count.  A sweep stacks P grid points on the leaf's
+// leading axis, each at its own bits; B1 then takes a (P,) f32 operand of
+// level counts 2^(b-1), and the warp of block r reads the one of its point,
+// point_levels[r / (blocks / P)], once, before its loads (one 4-byte load a
+// warp, from L1 after the first).  Everything after is the fixed-bits body
+// with that level count, so each point's codes and scales equal those of a
+// launch at its own bits.  Without the operand the scalar is built on the
+// host, as before.
+//
 // B2 design.  B2 moves 5 B an element (f32 out) and computes one product,
 // so what counts is that every store is a wide, contiguous run.  Vector
 // variant: each thread owns the G = 16 B / sizeof(out) consecutive codes
@@ -198,12 +207,15 @@ __global__ void __launch_bounds__(kThreads)
 qinf_quantize_vec_kernel(const T* __restrict__ x, const float* __restrict__ u,
                          int8_t* __restrict__ codes, float* __restrict__ scales,
                          long long blocks, long long nb, long long D,
-                         long long ldx, int block, float levels) {
+                         long long ldx, int block, float levels,
+                         const float* __restrict__ point_levels,
+                         long long per_point) {
   constexpr int V = qinf::Vec16<T>::kN;
   const int lane = threadIdx.x & 31;
   const long long r =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= blocks) return;  // uniform across the warp: shuffles stay full
+  if (point_levels != nullptr) levels = __ldg(point_levels + r / per_point);
   int w;
   const T* xr = leaf_block(x, r, nb, D, ldx, block, &w);
   const long long base = r * (long long)block;
@@ -253,11 +265,14 @@ __global__ void __launch_bounds__(kThreads)
 qinf_quantize_row_kernel(const T* __restrict__ x, const float* __restrict__ u,
                          int8_t* __restrict__ codes, float* __restrict__ scales,
                          long long blocks, long long nb, long long D,
-                         long long ldx, int block, float levels) {
+                         long long ldx, int block, float levels,
+                         const float* __restrict__ point_levels,
+                         long long per_point) {
   const int lane = threadIdx.x & 31;
   const long long r =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= blocks) return;
+  if (point_levels != nullptr) levels = __ldg(point_levels + r / per_point);
   int w;
   const T* xr = leaf_block(x, r, nb, D, ldx, block, &w);
   const long long base = r * (long long)block;
@@ -278,32 +293,38 @@ template <typename T, int K>
 void launch_quantize_vec(dim3 grid, int threads, cudaStream_t s, const T* x,
                          const float* u, int8_t* codes, float* scales,
                          long long blocks, long long nb, long long D,
-                         long long ldx, int block, float levels) {
+                         long long ldx, int block, float levels,
+                         const float* point_levels, long long per_point) {
   constexpr int kCover = K * 32 * qinf::Vec16<T>::kN;
   if constexpr (kCover < kQuantizeVecMaxBlock) {
     if (block > kCover) {
       launch_quantize_vec<T, 2 * K>(grid, threads, s, x, u, codes, scales,
-                                    blocks, nb, D, ldx, block, levels);
+                                    blocks, nb, D, ldx, block, levels,
+                                    point_levels, per_point);
       return;
     }
   }
   qinf_quantize_vec_kernel<T, K><<<grid, threads, 0, s>>>(
-      x, u, codes, scales, blocks, nb, D, ldx, block, levels);
+      x, u, codes, scales, blocks, nb, D, ldx, block, levels, point_levels,
+      per_point);
 }
 
 template <typename T>
 void launch_quantize(const T* x, const float* u, int8_t* codes,
                      float* scales, long long blocks, long long nb,
                      long long D, long long ldx, int block, float levels,
-                     int vec, cudaStream_t s) {
+                     const float* point_levels, long long per_point, int vec,
+                     cudaStream_t s) {
   const int warps = blocks < kSmallCallRows ? 2 : kWarpsPerBlock;
   const dim3 grid((unsigned)((blocks + warps - 1) / warps));
   if (vec)
     launch_quantize_vec<T, 1>(grid, warps * 32, s, x, u, codes, scales,
-                              blocks, nb, D, ldx, block, levels);
+                              blocks, nb, D, ldx, block, levels, point_levels,
+                              per_point);
   else
     qinf_quantize_row_kernel<T><<<grid, warps * 32, 0, s>>>(
-        x, u, codes, scales, blocks, nb, D, ldx, block, levels);
+        x, u, codes, scales, blocks, nb, D, ldx, block, levels, point_levels,
+        per_point);
 }
 
 // B2, vector variant: codes (rows, block) int8 with block % 16 == 0,
@@ -378,31 +399,41 @@ int qinf_quantize_blocks_vector(const void* x, int x_dtype, long long rows,
 
 // B1 over a leaf x of ``rows`` x ``D`` elements, rows ``ldx`` elements
 // apart, in blocks of ``block``: u, codes (rows * ceil(D / block), block),
-// scales (rows * ceil(D / block),).
+// scales (rows * ceil(D / block),).  The level count is 2^(bits-1) for
+// every block, or, when ``point_levels`` is not null, its own for each of
+// ``points`` equal runs of leaf rows: point_levels[p] (f32 on the device,
+// a power of two in [1, 128]) for the blocks of rows [p rows / points,
+// (p + 1) rows / points) -- a grid of points stacked on the leaf's leading
+// axis, each at its own bits (points divides rows; bits is then unused).
 int qinf_quantize_blocks_launch(const void* x, int x_dtype, long long rows,
                                 long long D, long long ldx, const float* u,
                                 int8_t* codes, float* scales, int block,
-                                int bits, int device, void* stream) {
+                                int bits, const float* point_levels,
+                                long long points, int device, void* stream) {
   if (rows <= 0 || D <= 0 || block <= 0) return (int)cudaSuccess;
+  if (point_levels != nullptr && (points <= 0 || rows % points != 0))
+    return (int)cudaErrorInvalidValue;
   const long long nb = (D + block - 1) / block;
   const long long blocks = rows * nb;
+  const long long per_point = point_levels != nullptr ? blocks / points : 1;
   const int vec = qinf_quantize_blocks_vector(x, x_dtype, rows, ldx, u, block);
   qinf::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
-  const float levels = (float)(1 << (bits - 1));
+  const float levels =
+      point_levels != nullptr ? 1.0f : (float)(1 << (bits - 1));
   cudaStream_t s = (cudaStream_t)stream;
   switch (x_dtype) {
     case kF32:
       launch_quantize((const float*)x, u, codes, scales, blocks, nb, D, ldx,
-                      block, levels, vec, s);
+                      block, levels, point_levels, per_point, vec, s);
       break;
     case kF64:
       launch_quantize((const double*)x, u, codes, scales, blocks, nb, D, ldx,
-                      block, levels, vec, s);
+                      block, levels, point_levels, per_point, vec, s);
       break;
     case kBF16:
       launch_quantize((const __nv_bfloat16*)x, u, codes, scales, blocks, nb,
-                      D, ldx, block, levels, vec, s);
+                      D, ldx, block, levels, point_levels, per_point, vec, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -20,7 +20,7 @@ both orders carry the same bytes per block.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,10 +47,13 @@ def blockwise_lastdim(x: torch.Tensor, *, block: int) -> torch.Tensor:
 
 
 def qinf_quantize_lastdim(x: torch.Tensor, u: torch.Tensor, *, bits: int = 2,
-                          block: int = 256):
+                          block: int = 256,
+                          levels: Optional[torch.Tensor] = None):
     """Blockwise quantize along the last axis with noise ``u`` of shape
     ``blockwise_shape(x.shape, block)``.  Returns (codes int8
-    (..., nb, block), scales f32 (..., nb, 1)).
+    (..., nb, block), scales f32 (..., nb, 1)).  ``levels`` (P,) f32: a
+    level count for each of P grid points stacked on x's leading axis, in
+    place of ``bits`` (see ``quantize.qinf_quantize_blocks``).
 
     A CUDA ``x`` goes to kernel B1 unpadded and uncast (f32, f64 and bf16
     are read as they are; another dtype is first cast to f32, as the plain
@@ -63,13 +66,13 @@ def qinf_quantize_lastdim(x: torch.Tensor, u: torch.Tensor, *, bits: int = 2,
                              f"{blockwise_shape(x.shape, block)}")
         if x.dtype not in qk._DTYPE_TAG:
             x = x.float()
-        return qk.qinf_quantize_blocks(x, u, bits)
+        return qk.qinf_quantize_blocks(x, u, bits, levels)
     xb = blockwise_lastdim(x, block=block)
     if tuple(u.shape) != tuple(xb.shape):
         raise ValueError(f"noise shape {tuple(u.shape)} != blocked shape "
                          f"{tuple(xb.shape)}")
     codes, scales = qk.qinf_quantize_blocks(
-        xb.reshape(-1, block), u.reshape(-1, block), bits)
+        xb.reshape(-1, block), u.reshape(-1, block), bits, levels)
     return (codes.reshape(xb.shape),
             scales.reshape(*xb.shape[:-1], 1))
 

@@ -49,7 +49,7 @@ import subprocess
 import sys
 import sysconfig
 import tempfile
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -203,24 +203,29 @@ def _libs() -> Dict[str, object]:
     q.qinf_quantize_blocks_vector.argtypes = [vp, i32, i64, i64, vp, i32]
     q.qinf_dequantize_blocks_vector.argtypes = [vp, vp, i32]
     w.qinf_unpack_dequant_mix_blocks_vector.argtypes = [vp, vp, vp, i32, i32]
-    for kernel in LAUNCHES:
-        _LAUNCHERS[kernel] = getattr(binding, kernel)
+    for entry in (*LAUNCHES, *_ENTRIES):
+        _LAUNCHERS[entry] = getattr(binding, entry)
     return {"qinf": q, "qinf_wire": w, "binding": binding}
 
 
-#: kernel name -> its binding call, filled by the first :func:`_libs`
+#: binding call -> its binding function, filled by the first :func:`_libs`
 _LAUNCHERS: Dict[str, Callable] = {}
+#: binding calls other than the four kernels' own -> the kernel they launch
+_ENTRIES: Dict[str, str] = {
+    "qinf_quantize_blocks_levels": "qinf_quantize_blocks"}
 
 
-def _launch(kernel: str, *args):
-    """Launches ``kernel`` through the binding with ``args`` (its inputs as
-    ``csrc/binding.cpp`` takes them), counts the launch and returns the
-    outputs the binding allocated.  The binding raises, launching nothing,
-    on inputs the kernel does not take, and raises on any CUDA error."""
+def _launch(entry: str, *args):
+    """Launches a kernel through the binding call ``entry`` (a kernel's
+    name, or one of :data:`_ENTRIES`) with ``args`` (its inputs as
+    ``csrc/binding.cpp`` takes them), counts the launch under the kernel's
+    name and returns the outputs the binding allocated.  The binding
+    raises, launching nothing, on inputs the kernel does not take, and
+    raises on any CUDA error."""
     if not _LAUNCHERS:
         _libs()
-    out = _LAUNCHERS[kernel](*args)
-    LAUNCHES[kernel] += 1
+    out = _LAUNCHERS[entry](*args)
+    LAUNCHES[_ENTRIES.get(entry, entry)] += 1
     return out
 
 
@@ -251,25 +256,37 @@ def _plain_device(t: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {t.device}")
 
 
-def qinf_quantize_blocks(x: torch.Tensor, u: torch.Tensor, bits: int):
+def qinf_quantize_blocks(x: torch.Tensor, u: torch.Tensor, bits: int,
+                         levels: Optional[torch.Tensor] = None):
     """B1: quantize (R, block) rows -> (codes int8 (R, block), scales f32
     (R, 1)).  ``x`` f32, f64 or bf16; ``u`` f32 U[0,1) noise of x's shape;
     1 <= bits <= 8 (codes are int8 in [-2^{b-1}, 2^{b-1}]; at 8 bits the
     code +128 saturates to +127, as the reference's cast does).
 
+    ``levels`` (P,) f32, each a level count 2^{b-1} for bits b in 1..8,
+    replaces ``bits``: the rows are P equal runs, one a grid point, and run
+    p quantizes at ``levels[p]`` (the sweep's stacked grid, one launch for
+    every point at its own bits).  P must divide the rows.
+
     On the card the kernel also takes a whole leaf x (..., D) with its
     blocked noise u (..., ceil(D / block), block) and reads the ragged last
     block in place (codes in u's shape, scales with its last axis 1), as
     :func:`repro_torch.kernels.ops.qinf_quantize_lastdim` calls it; the
-    (R, block) call is the case D = block."""
+    (R, block) call is the case D = block, and the P runs are then runs of
+    the leaf's rows."""
     if x.is_cuda:
+        if levels is not None:
+            return _launch("qinf_quantize_blocks_levels", x, u, levels)
         return _launch("qinf_quantize_blocks", x, u, bits)
     if x.dim() != 2 or u.shape != x.shape:
         raise ValueError(f"want x and u of one (R, block) shape, got "
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
+    _plain_device(x)
+    if levels is not None:
+        return kref.qinf_quantize_blocks_ref(
+            x, u, levels=kref.levels_per_row(levels, x.shape[0]))
     if not 1 <= bits <= 8:
         raise ValueError(f"bits must be in 1..8, got {bits}")
-    _plain_device(x)
     return kref.qinf_quantize_blocks_ref(x, u, bits)
 
 

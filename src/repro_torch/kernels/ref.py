@@ -16,7 +16,26 @@ def wire_bits_per_element(bits: int) -> int:
     return 4 if bits + 1 <= 4 else 8
 
 
-def qinf_quantize_blocks_ref(xb: torch.Tensor, ub: torch.Tensor, bits: int):
+def levels_per_row(levels: torch.Tensor, rows: int) -> torch.Tensor:
+    """A grid's (P,) level counts -> (rows, 1) f32, P equal runs of rows
+    (run p at ``levels[p]``).  Each value must be 2^{b-1} for bits b in
+    1..8, and P must divide ``rows``."""
+    P = levels.numel()
+    if levels.dim() != 1 or P < 1 or rows % P:
+        raise ValueError(f"levels {tuple(levels.shape)} must be (P,) with P "
+                         f"dividing the {rows} rows")
+    if levels.dtype != torch.float32:
+        raise TypeError(f"levels must be f32, got {levels.dtype}")
+    ok = (levels >= 1) & (levels <= 128) & (torch.frexp(levels).mantissa
+                                            == 0.5)
+    if not bool(ok.all()):
+        raise ValueError(f"levels {levels.tolist()} are not all powers of "
+                         f"two in [1, 128] (2^(bits-1) for bits 1..8)")
+    return levels.repeat_interleave(rows // P)[:, None]
+
+
+def qinf_quantize_blocks_ref(xb: torch.Tensor, ub: torch.Tensor,
+                             bits: int = 2, levels: torch.Tensor = None):
     """Quantize rows of ``xb`` (R, B): one quantization block per row.
 
     Paper eq. (21) with inf-norm scaling:
@@ -25,10 +44,14 @@ def qinf_quantize_blocks_ref(xb: torch.Tensor, ub: torch.Tensor, bits: int):
 
     Returns (codes int8 (R, B), scales f32 (R, 1)).  All-zero rows give
     scale 0 and codes 0.  ``ub`` is U[0,1) noise of the same shape.  At 8
-    bits the code +128 saturates to +127 (the reference's int8 cast)."""
+    bits the code +128 saturates to +127 (the reference's int8 cast).
+    ``levels`` (R, 1) f32 gives each row its own level count 2^{b-1} in
+    place of ``bits`` (:func:`levels_per_row`): the same operations, the
+    per-point B1 of a stacked grid."""
     xf = xb.to(torch.float32)
-    levels = torch.tensor(float(2 ** (bits - 1)), dtype=torch.float32,
-                          device=xf.device)
+    if levels is None:
+        levels = torch.tensor(float(2 ** (bits - 1)), dtype=torch.float32,
+                              device=xf.device)
     maxabs = xf.abs().amax(dim=-1, keepdim=True)
     safe = torch.where(maxabs > 0, maxabs, torch.ones_like(maxabs))
     mag = torch.floor(levels * xf.abs() / safe + ub.to(torch.float32))

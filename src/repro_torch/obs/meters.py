@@ -7,6 +7,8 @@ is a flat ``name -> number`` map with two write verbs:
 * ``set(name, v)``  -- gauge semantics, idempotent (hooks that run every
   step, such as ``WireExchange`` gauging its static ``BucketLayout``).
 
+:func:`env_info` is the environment stamp of every RunReport.
+
 Instrumented library code never takes a registry argument -- it records
 into the *ambient* registry, installed with :func:`using_meters`::
 
@@ -22,6 +24,9 @@ counter ``wire/exchanges``.
 from __future__ import annotations
 
 import contextlib
+import functools
+import os
+import subprocess
 import threading
 from typing import Dict, Iterator, List, Optional
 
@@ -88,3 +93,38 @@ def using_meters(meters: Meters) -> Iterator[Meters]:
     finally:
         with _STACK_LOCK:
             _STACK.remove(meters)
+
+
+# --------------------------------------------------------------------------
+# Environment stamp
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _smi_power_limit(index: int) -> Optional[str]:
+    """The card's power limit as ``nvidia-smi`` reports it, or None."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return r.stdout.strip() or None if r.returncode == 0 else None
+
+
+def env_info(device=None) -> Dict[str, object]:
+    """The environment stamp of a RunReport: enough to attribute a number
+    to a machine -- torch and its CUDA runtime, the run's device (a card's
+    name and power limit; a card may be capped below its maximum and then
+    runs slower under load) and the host's CPU count."""
+    import torch
+    device = torch.device(device if device is not None else "cpu")
+    info = {"torch": torch.__version__, "cuda": torch.version.cuda,
+            "device_type": device.type, "cpu_count": os.cpu_count() or 1}
+    if device.type == "cuda":
+        index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        info.update(device_kind=torch.cuda.get_device_name(index),
+                    device_count=torch.cuda.device_count(),
+                    power_limit=_smi_power_limit(index))
+    return info

@@ -6,11 +6,13 @@ mini-batches a node, lambda2 = 0.005 (+ lambda1 = 0.005 in the non-smooth
 case), 2-bit blockwise (256) inf-norm quantization, alpha = 0.5 and
 gamma = 1.0 for (Prox-)LEAD; f64.
 
-Every figure row is a :func:`paper_cell` ``ExperimentSpec`` run through
-``api.build(spec)`` on its own (the reference batches rows into its sweep
-engine, which the port does not have yet); ``seeds > 1`` runs each row
-once a seed and averages the suboptimality curves, as the reference does.
-A run lands on the card unless the caller passes ``device="cpu"``.
+Every figure row is a :func:`paper_cell` ``ExperimentSpec``.
+:func:`run_cells` batches the rows as the reference does: rows that differ
+only along the sweep axes share one ``repro_torch.sweep`` runner
+(``group_points``, ``runner_for_points``) in map mode, which runs each row
+bit for bit as ``api.build(spec).run()`` would; ``seeds > 1`` runs each
+row once a seed and averages the suboptimality curves.  A run lands on the
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch import sweep as sweep_mod
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.comm import DenseMixer
 from repro_torch.core.compression import Identity, make_compressor
@@ -153,25 +156,53 @@ def run_cells(cells: Sequence[Tuple[str, api.ExperimentSpec]], xstar,
               num_steps: int, *, log_every: int = 25, seeds: int = 1,
               verbose: bool = False, device=None,
               dtype: torch.dtype = DTYPE) -> List[RunResult]:
-    """Run figure cells, each on its own; ``seeds > 1`` runs every cell at
-    seeds ``seed .. seed + seeds - 1`` and averages its curve."""
-    results = []
-    for label, spec in cells:
-        curves, wall = [], 0.0
+    """Run figure cells through the sweep engine, map mode: cells that
+    share one structure (differing only along the sweep axes) share one
+    runner, and each runs bit for bit as on its own; ``seeds > 1`` runs
+    every cell at seeds ``seed .. seed + seeds - 1`` and averages its
+    curve."""
+    flat: List[api.ExperimentSpec] = []
+    owner: List[int] = []
+    for ci, (label, spec) in enumerate(cells):
+        spec = dataclasses.replace(spec, steps=num_steps,
+                                   name=label.replace(" ", "_"))
         for s in range(seeds):
-            curve, secs = run_cell(
-                label, dataclasses.replace(spec, seed=spec.seed + s), xstar,
-                num_steps, log_every=log_every, device=device, dtype=dtype)
-            curves.append(curve)
-            wall += secs
-        r = RunResult(label, [float(x) for x in np.mean(curves, axis=0)],
+            flat.append(dataclasses.replace(spec, seed=spec.seed + s))
+            owner.append(ci)
+    idx = _log_indices(num_steps, log_every)
+    curve: List[Optional[List[float]]] = [None] * len(flat)
+    wall = [0.0] * len(flat)
+    groups = sweep_mod.group_points(flat)
+    for g in groups:
+        runner = sweep_mod.runner_for_points(
+            [flat[i] for i in g], device=api.resolve_device(device),
+            dtype=dtype)
+        X0 = runner.X0
+        Xs = torch.tensor(np.asarray(xstar), dtype=X0.dtype,
+                          device=X0.device).expand_as(X0)
+        _final, res = runner.run(
+            metric_fn=lambda st: ((st.X - Xs) ** 2).sum(),
+            metric_every=log_every)
+        assert res.metrics["metric"].shape[1] == len(idx)
+        for j, i in enumerate(g):
+            curve[i] = [float(v) for v in res.metrics["metric"][j]]
+            wall[i] = res.point_s[j]
+    results = []
+    for ci, (label, spec) in enumerate(cells):
+        mine = [i for i in range(len(flat)) if owner[i] == ci]
+        r = RunResult(label, [float(x) for x in np.mean(
+                          [curve[i] for i in mine], axis=0)],
                       num_steps, _bits(spec.compressor.build(),
                                        spec.oracle.name),
-                      _GEVALS.get(spec.oracle.name, 1.0), wall, seeds)
+                      _GEVALS.get(spec.oracle.name, 1.0),
+                      sum(wall[i] for i in mine), seeds)
         results.append(r)
         if verbose:
             print(f"  {label:28s} final subopt {r.subopt[-1]:.3e}  "
                   f"({r.wall_s:.1f}s)", flush=True)
+    if verbose:
+        print(f"  [{len(groups)} sweep groups for {len(flat)} grid points]",
+              flush=True)
     return results
 
 

@@ -46,7 +46,12 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/kernels/quantize.py",
                  "src/repro_torch/netsim/engine.py",
                  "src/repro_torch/netsim/faults.py",
-                 "src/repro_torch/netsim/schedule.py", "chip_smoke.py",
+                 "src/repro_torch/netsim/schedule.py",
+                 "src/repro_torch/sweep.py",
+                 "src/repro_torch/checkpoint/ckpt.py",
+                 "src/repro_torch/launch/sweep.py",
+                 "src/repro_torch/launch/simulate.py",
+                 "src/repro_torch/launch/train.py", "chip_smoke.py",
                  "launch_cost.py"):
         assert must in names
 
@@ -112,14 +117,18 @@ def test_sharded_build_on_cpu_runs():
 
 @pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)
 def test_golden_specs_read_or_name_their_slice(path):
-    """Dense, netsim and sharded specs parse to the same JSON; a sweep spec
-    is refused with the slice that brings it, and a model-sharded mesh
+    """Dense, netsim and sharded specs parse to the same JSON; the sweep
+    spec (``sweep_lead_seed_x_bits``) parses as a SweepSpec, round-trips to
+    the same JSON and builds on the CPU; a model-sharded mesh
     (``trainer_neighbor_alternating_4x2``) parses and is refused at build,
     naming the multi-card slice."""
     d = json.loads(path.read_text())
     if "base" in d:
-        with pytest.raises(ValueError, match="slice"):
-            tapi.ExperimentSpec.from_json(path.read_text())
+        spec = tapi.SweepSpec.from_json(path.read_text())
+        assert json.loads(spec.to_json()) == d
+        assert tapi.SweepSpec.from_json(spec.to_json()) == spec
+        runner = tapi.build(spec, device="cpu")
+        assert runner.n_points == spec.n_points == 12
         return
     spec = tapi.ExperimentSpec.from_json(path.read_text())
     assert json.loads(spec.to_json()) == d

@@ -243,7 +243,9 @@ def test_c_constants_match_the_wrapper():
             torch.bfloat16: const(common, "kBF16")} == tq._DTYPE_TAG
     assert "tag == 1 ? at::kDouble : tag == 2 ? at::kBFloat16 : at::kFloat" \
         in binding
-    assert set(re.findall(r'\{"(qinf_\w+)"', binding)) == set(tq.LAUNCHES)
+    assert set(re.findall(r'\{"(qinf_\w+)"', binding)) == \
+        set(tq.LAUNCHES) | set(tq._ENTRIES)
+    assert set(tq._ENTRIES.values()) <= set(tq.LAUNCHES)
     for kernel in tq.LAUNCHES:
         assert f"int {kernel}_launch(" in kernels
     for header in tq.HEADERS:
@@ -555,3 +557,126 @@ def test_cuda_b1_binding_refuses_a_wrong_noise_or_layout():
     c, s = tq.qinf_quantize_blocks(x[:, :256].contiguous(),
                                    torch.zeros((8, 256), device="cuda"), 2)
     assert c.shape == (8, 256) and s.shape == (8, 1)
+
+
+# ---------------------------------------------------------------------------
+# B1 with a level count per grid point (the sweep's stacked grid): P points
+# stacked on the leaf's leading axis, point p at its own bits, one launch.
+# ---------------------------------------------------------------------------
+
+# (leaf shape with the point axis leading, block, the points' bits):
+# bits 1-8 on a ragged tail, and the stacked grid's (P, 8, 7840) leaf (31
+# blocks of 256 a row, the last 160 wide) at bits 2, 4, 8, 1
+POINT_LEVEL_CASES = [((8, 4, 300), 128, (1, 2, 3, 4, 5, 6, 7, 8)),
+                     ((4, 8, 7840), 256, (2, 4, 8, 1))]
+
+
+def _levels(bits, device="cpu"):
+    return torch.tensor([float(2 ** (b - 1)) for b in bits],
+                        dtype=torch.float32, device=device)
+
+
+def _point_leaf(shape, block, dtype, seed=0, device="cpu"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+    x[0, 1] = 0                      # a point's row of zeros
+    u = torch.rand(tops.blockwise_shape(shape, block), generator=g,
+                   device=device)
+    return x, u
+
+
+@pytest.mark.parametrize("case", range(len(POINT_LEVEL_CASES)))
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
+def test_point_levels_plain_equals_fixed_bits_per_point(case, dtype):
+    """The per-point-level plain twin on the stacked leaf: point p's codes
+    and scales are those of the fixed-bits twin at its bits, bit for bit,
+    and B2 decodes them as it decodes a point's own."""
+    shape, block, bits = POINT_LEVEL_CASES[case]
+    x, u = _point_leaf(shape, block, _TDT[dtype])
+    codes, scales = tops.qinf_quantize_lastdim(x, u, block=block,
+                                               levels=_levels(bits))
+    out = tops.qinf_dequantize_lastdim(codes, scales, shape, torch.float32,
+                                       block=block)
+    for p, b in enumerate(bits):
+        cp, sp = tops.qinf_quantize_lastdim(x[p], u[p], bits=b, block=block)
+        assert torch.equal(codes[p], cp) and torch.equal(scales[p], sp), b
+        assert torch.equal(out[p], tops.qinf_dequantize_lastdim(
+            cp, sp, shape[1:], torch.float32, block=block))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
+def test_point_levels_plain_equals_reference_traced_bits(dtype):
+    """The plain twin against the reference's traced-bits quantizer
+    (``repro.sweep._TracedBitsQInf._quantize``, the level count a traced
+    operand) on the same x, u and level count, point by point."""
+    from repro import sweep as jsweep
+    rng = np.random.default_rng(3)
+    bits = (1, 2, 3, 4, 5, 6, 7, 8)
+    x = jnp.asarray(rng.normal(size=(8, 6, 256)) * 3).astype(_JDT[dtype])
+    u = jnp.asarray(rng.random((8, 6, 256)), jnp.float32)
+    tx, tu = _to_torch(x, _TDT[dtype]), torch.from_numpy(np.array(u))
+    codes, scales = tq.qinf_quantize_blocks(
+        tx.reshape(-1, 256), tu.reshape(-1, 256), 2, levels=_levels(bits))
+    for p, b in enumerate(bits):
+        q = jsweep._TracedBitsQInf(jnp.float32(2 ** (b - 1)), 256, False)
+        jc, js = q._quantize(x[p].astype(jnp.float32), u[p])
+        assert np.array_equal(codes[p * 6:(p + 1) * 6].numpy(),
+                              np.asarray(jc)), b
+        assert np.array_equal(scales[p * 6:(p + 1) * 6].numpy(),
+                              np.asarray(js)), b
+
+
+def test_point_levels_wrapper_names_each_fault():
+    x, u = torch.zeros((8, 256)), torch.zeros((8, 256))
+    with pytest.raises(ValueError, match="powers of two"):
+        tq.qinf_quantize_blocks(x, u, 2, levels=torch.tensor([2.0, 3.0]))
+    with pytest.raises(ValueError, match="powers of two"):
+        tq.qinf_quantize_blocks(x, u, 2, levels=torch.tensor([256.0, 1.0]))
+    with pytest.raises(ValueError, match="dividing the 8 rows"):
+        tq.qinf_quantize_blocks(x, u, 2, levels=_levels((2, 4, 8)))
+    with pytest.raises(TypeError, match="f32"):
+        tq.qinf_quantize_blocks(x, u, 2, levels=_levels((2, 4)).double())
+
+
+def test_point_levels_launch_counts_as_b1(monkeypatch):
+    """The per-point entry of the binding is B1: its launches count under
+    ``qinf_quantize_blocks``."""
+    monkeypatch.setattr(tq, "_LAUNCHERS", {
+        "qinf_quantize_blocks_levels": lambda *a: ("codes", "scales")})
+    tq.reset_launch_counts()
+    assert tq._launch("qinf_quantize_blocks_levels", 1, 2, 3) == \
+        ("codes", "scales")
+    assert tq.launch_counts()["qinf_quantize_blocks"] == 1
+    tq.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(POINT_LEVEL_CASES)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_cuda_point_levels_match_fixed_bits_and_plain(case, dtype):
+    """B1's per-point launch on the card: one launch, point by point
+    bit-equal to a fixed-bits launch at the point's bits and to the plain
+    twin; a bad level operand is refused by the binding, naming it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    shape, block, bits = POINT_LEVEL_CASES[case]
+    x, u = _point_leaf(shape, block, dtype, device="cuda")
+    lv = _levels(bits, "cuda")
+    before = tq.launch_counts()["qinf_quantize_blocks"]
+    codes, scales = tops.qinf_quantize_lastdim(x, u, block=block, levels=lv)
+    assert tq.launch_counts()["qinf_quantize_blocks"] == before + 1
+    pc, ps = tops.qinf_quantize_lastdim(x.cpu(), u.cpu(), block=block,
+                                        levels=lv.cpu())
+    assert torch.equal(codes.cpu(), pc) and torch.equal(scales.cpu(), ps)
+    for p, b in enumerate(bits):
+        cp, sp = tops.qinf_quantize_lastdim(x[p], u[p], bits=b, block=block)
+        assert torch.equal(codes[p], cp) and torch.equal(scales[p], sp)
+    with pytest.raises(ValueError, match="power of two"):
+        tops.qinf_quantize_lastdim(x, u, block=block,
+                                   levels=lv + 1)
+    with pytest.raises(ValueError, match="dividing"):
+        tops.qinf_quantize_lastdim(x, u, block=block,
+                                   levels=_levels((2, 4, 8), "cuda"))
+    with pytest.raises(TypeError, match="f32"):
+        tops.qinf_quantize_lastdim(x, u, block=block, levels=lv.double())
