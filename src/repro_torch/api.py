@@ -983,7 +983,8 @@ class TrainerRunner(Runner):
         ms, cfg = self.spec.model, self.trainer.mcfg
         return DecentralizedBatches(
             self.spec.n_nodes, ms.local_batch, ms.seq_len, cfg.vocab,
-            family=cfg.family, device=str(self.device))
+            family=cfg.family, n_vision_tokens=cfg.n_vision_tokens,
+            d_model=cfg.d_model, dtype=cfg.dtype, device=str(self.device))
 
 
 def _later_field(name: str, value) -> None:

@@ -192,3 +192,30 @@ def state_from_checkpoint(path, step: int = 0, *, device,
     from repro_torch.checkpoint import ckpt
     return state_from_arrays(checkpoint_arrays(ckpt.load_arrays(path, step)),
                              device=device, dtype=dtype)
+
+
+def model_params_to_torch(params, *, device, dtype: torch.dtype = None):
+    """One replica of a reference model's parameters (a tree of numpy
+    arrays in its layout, any family) -> the port's node-stacked tree, a
+    stack of one node (serving's layout; a trainer's stacked replicas
+    cross with :func:`tree_to_torch`)."""
+    return tree_map(lambda t: t[None],
+                    tree_to_torch(params, device=device, dtype=dtype))
+
+
+def cache_to_torch(cache, *, device, dtype: torch.dtype = None):
+    """A reference decode cache (a tree of numpy arrays: ``init_cache`` or
+    what prefill/decode return) -> the port's, a stack of one node."""
+    return tree_map(lambda t: t[None],
+                    tree_to_torch(cache, device=device, dtype=dtype))
+
+
+def cache_to_numpy(cache):
+    """The port's decode cache of one node -> numpy arrays in the
+    reference's layout (no node dim)."""
+    def one(t):
+        if t.shape[0] != 1:
+            raise ValueError(f"a cache of {t.shape[0]} nodes has no "
+                             f"reference layout; want a stack of one")
+        return t[0].detach().cpu().numpy()
+    return tree_map(one, cache)

@@ -1,5 +1,5 @@
 """Decentralized training CLI: the NN trainer (``repro_torch.optim.
-decentralized``, the dense model family) through ``api.build``.
+decentralized``, any of the ten architectures) through ``api.build``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --nodes 8 --steps 200 --bits 2 --prox l1 --lam 1e-5 [--device cpu]

@@ -1,19 +1,39 @@
-"""The dense decoder family (llama-style: GQA, RoPE, SwiGLU; the qk_norm
-and qkv-bias variants cover qwen3, qwen2, phi4 and yi) in train mode.
+"""Model zoo: config, parameters, and forwards for the six families.
 
-The port of the dense half of ``repro.models.transformer``.  Parameters
-are a nested dict in the reference's layout (layers stacked on a leading L
-dim), so the sorted-key leaf order of :mod:`repro_torch.tree` is the
-reference's ``tree_flatten`` order -- the order that fixes the bucket
-layout and the per-leaf noise draws.
+The port of ``repro.models.transformer``.  Families:
 
-The trainer holds N node replicas stacked on a leading node dim, so every
-entry point here takes node-stacked parameters ((N, ...) leaves) and
-batches ((N, B, T) tokens) and writes the node dim out: each projection is
-one batched product over the N nodes (``einsum("nbtd,ndk->nbtk")``).  The
-layer stack is a Python loop over the L dim.  The other families (moe,
-vlm, encdec, ssm, hybrid) and decoding with caches raise naming the slice
-that brings them.
+  dense  -- llama-style decoder (GQA, RoPE, SwiGLU; the qk_norm, qkv-bias
+            and sliding-window variants cover qwen3, qwen2, phi4 and yi)
+  moe    -- the dense skeleton with MoE FF layers (mixtral, deepseek-moe;
+            :mod:`repro_torch.models.moe`)
+  vlm    -- the dense skeleton with a gated cross-attention layer every
+            ``cross_attn_every``-th layer (llama-3.2-vision); vision
+            embeddings arrive pre-projected (the encoder is a stub)
+  encdec -- whisper: encoder (full attention, sinusoidal positions) and
+            decoder (causal self + cross attention, learned positions);
+            the conv/mel frontend is a stub, frames arrive as embeddings
+  ssm    -- rwkv6 (:mod:`repro_torch.models.rwkv6`)
+  hybrid -- recurrentgemma (:mod:`repro_torch.models.rglru`)
+
+Parameters are a nested dict in the reference's layout (layers stacked on
+a leading L dim), so the sorted-key leaf order of :mod:`repro_torch.tree`
+is the reference's ``tree_flatten`` order -- the order that fixes the
+bucket layout and the per-leaf noise draws.
+
+Every entry point takes NODE-STACKED parameters ((N, ...) leaves), batches
+((N, B, T) tokens) and caches ((N, ...) leaves) and writes the node dim
+out: each projection is one batched product over the N nodes
+(``einsum("nbtd,ndk->nbtk")``).  The trainer stacks its N replicas;
+serving is a stack of one node.  The layer stack is a Python loop over the
+L dim.
+
+Modes: ``train`` (no cache), ``prefill`` (a teacher-forced pass that also
+fills a pre-allocated cache) and ``decode`` (one token against the cache
+at absolute position ``pos``).  A self-attention cache is a ring of S_c
+slots (S_c = the sliding window where there is one); position p lives in
+slot p % S_c, in prefill as in decode (ROADMAP C11: the reference's
+prefill stores the last S_c keys at slots 0..S_c-1 instead, which decode's
+ring writes agree with only when T <= S_c or T % S_c == 0).
 """
 from __future__ import annotations
 
@@ -26,23 +46,11 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 F32 = torch.float32
-
-#: families of the reference that a later slice of the port brings
-LATER_FAMILIES = {
-    fam: "slice 5b (ROADMAP A15: the moe, vlm, encdec, ssm and hybrid "
-         "families, decode and serving)"
-    for fam in ("moe", "vlm", "encdec", "ssm", "hybrid")}
-
-
-def refuse_family(family: str) -> None:
-    if family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet; it arrives with "
-            f"{LATER_FAMILIES[family]}")
-    if family != "dense":
-        raise ValueError(f"unknown model family {family!r}")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
+MODES = ("train", "prefill", "decode")
 
 
 # ---------------------------------------------------------------------------
@@ -51,8 +59,7 @@ def refuse_family(family: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Field for field the reference's ModelConfig; only the dense family
-    builds here."""
+    """Field for field the reference's ModelConfig."""
     name: str
     family: str                  # dense | moe | vlm | encdec | ssm | hybrid
     n_layers: int
@@ -94,6 +101,11 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return -(-self.vocab // 256) * 256
 
+    @property
+    def sub_quadratic(self) -> bool:
+        return (self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None)
+
     def reduced(self, n_layers=2, d_model=256, n_experts=4) -> "ModelConfig":
         """Smoke-test variant: same family/wiring, tiny dims (the
         reference's rule)."""
@@ -125,9 +137,16 @@ class ModelConfig:
         return dataclasses.replace(self, **{k: v for k, v in kw.items()
                                             if hasattr(self, k)})
 
-    def param_count(self) -> int:
-        return sum(int(np.prod(t.shape)) for t in
-                   tree.leaves(param_template(self)))
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters of one replica; ``active_only`` counts a routed
+        expert's weights at top_k / n_experts (the reference's rule)."""
+        total = 0
+        for path, t in _iter_template(param_template(self)):
+            n = int(np.prod(t.shape))
+            if active_only and "experts_" in path and self.n_experts:
+                n = int(n * (self.top_k / self.n_experts))
+            total += n
+        return total
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +163,16 @@ class ParamT:
                            else self.shape[-1])
 
 
-def _attn_template(cfg: ModelConfig, Ls: int) -> Dict[str, ParamT]:
+def _iter_template(tpl, prefix=""):
+    if isinstance(tpl, dict):
+        for k, v in tpl.items():
+            yield from _iter_template(v, prefix + "/" + k)
+    else:
+        yield prefix, tpl
+
+
+def _attn_template(cfg: ModelConfig, Ls: int, biases: bool = False
+                   ) -> Dict[str, ParamT]:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     t: Dict[str, ParamT] = {
         "ln1": ParamT((Ls, D), "ones"),
@@ -153,7 +181,7 @@ def _attn_template(cfg: ModelConfig, Ls: int) -> Dict[str, ParamT]:
         "wv": ParamT((Ls, D, KV * hd)),
         "wo": ParamT((Ls, H * hd, D), fan=H * hd),
     }
-    if cfg.qkv_bias:
+    if biases or cfg.qkv_bias:
         t.update({"wq_b": ParamT((Ls, H * hd), "zeros"),
                   "wk_b": ParamT((Ls, KV * hd), "zeros"),
                   "wv_b": ParamT((Ls, KV * hd), "zeros"),
@@ -164,25 +192,94 @@ def _attn_template(cfg: ModelConfig, Ls: int) -> Dict[str, ParamT]:
     return t
 
 
-def _mlp_template(cfg: ModelConfig, Ls: int) -> Dict[str, ParamT]:
+def _mlp_template(cfg: ModelConfig, Ls: int, gelu: bool = False
+                  ) -> Dict[str, ParamT]:
     D, F = cfg.d_model, cfg.d_ff
-    return {"ln2": ParamT((Ls, D), "ones"),
-            "w_gate": ParamT((Ls, D, F)), "w_up": ParamT((Ls, D, F)),
-            "w_down": ParamT((Ls, F, D), fan=F)}
+    t = {"ln2": ParamT((Ls, D), "ones")}
+    if gelu:
+        t.update({"w_in": ParamT((Ls, D, F)),
+                  "w_in_b": ParamT((Ls, F), "zeros"),
+                  "w_out": ParamT((Ls, F, D), fan=F),
+                  "w_out_b": ParamT((Ls, D), "zeros")})
+    else:
+        t.update({"w_gate": ParamT((Ls, D, F)), "w_up": ParamT((Ls, D, F)),
+                  "w_down": ParamT((Ls, F, D), fan=F)})
+    return t
+
+
+def _moe_template(cfg: ModelConfig, Ls: int) -> Dict[str, ParamT]:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    t = {"ln2": ParamT((Ls, D), "ones"),
+         "router": ParamT((Ls, D, E)),
+         "experts_gate": ParamT((Ls, E, D, F)),
+         "experts_up": ParamT((Ls, E, D, F)),
+         "experts_down": ParamT((Ls, E, F, D), fan=F)}
+    if cfg.n_shared_experts:
+        Fs = F * cfg.n_shared_experts
+        t.update({"shared_gate": ParamT((Ls, D, Fs)),
+                  "shared_up": ParamT((Ls, D, Fs)),
+                  "shared_down": ParamT((Ls, Fs, D), fan=Fs)})
+    return t
 
 
 def param_template(cfg: ModelConfig):
-    refuse_family(cfg.family)
-    if cfg.norm != "rmsnorm" or cfg.act != "swiglu":
-        raise ValueError(f"the dense family runs rmsnorm + swiglu, got "
-                         f"{cfg.norm} + {cfg.act}")
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6
+        return rwkv6.template(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models import rglru
+        return rglru.template(cfg)
+
     Vp, D = cfg.padded_vocab, cfg.d_model
-    blk = _attn_template(cfg, cfg.n_layers)
-    blk.update(_mlp_template(cfg, cfg.n_layers))
-    return {"embed": ParamT((Vp, D), fan=D),
-            "final_norm": ParamT((D,), "ones"),
-            "lm_head": ParamT((D, Vp)),
-            "blocks": blk}
+    tpl: Dict[str, Any] = {
+        "embed": ParamT((Vp, D), fan=D),
+        "final_norm": ParamT((D,), "ones"),
+        "lm_head": ParamT((D, Vp)),
+    }
+    if cfg.norm == "layernorm":
+        tpl["final_norm_b"] = ParamT((D,), "zeros")
+
+    if cfg.family == "dense":
+        blk = _attn_template(cfg, cfg.n_layers)
+        blk.update(_mlp_template(cfg, cfg.n_layers, gelu=cfg.act == "gelu"))
+        tpl["blocks"] = blk
+    elif cfg.family == "moe":
+        blk = _attn_template(cfg, cfg.n_layers)
+        blk.update(_moe_template(cfg, cfg.n_layers))
+        tpl["blocks"] = blk
+    elif cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        if cfg.n_layers % k:
+            raise ValueError(f"vlm: n_layers {cfg.n_layers} is not a "
+                             f"multiple of cross_attn_every {k}")
+        n_cross = cfg.n_layers // k
+        n_self = cfg.n_layers - n_cross
+        blk = _attn_template(cfg, n_self)
+        blk.update(_mlp_template(cfg, n_self))
+        tpl["blocks"] = blk
+        xb = _attn_template(cfg, n_cross)
+        xb.update(_mlp_template(cfg, n_cross))
+        xb.update({"q_norm": ParamT((n_cross, cfg.hd), "ones"),
+                   "k_norm": ParamT((n_cross, cfg.hd), "ones"),
+                   "gate_attn": ParamT((n_cross,), "zeros"),
+                   "gate_mlp": ParamT((n_cross,), "zeros")})
+        tpl["xblocks"] = xb
+    elif cfg.family == "encdec":
+        enc = _attn_template(cfg, cfg.n_enc_layers, biases=True)
+        enc.update(_mlp_template(cfg, cfg.n_enc_layers, gelu=True))
+        tpl["enc_blocks"] = enc
+        tpl["enc_final_norm"] = ParamT((D,), "ones")
+        tpl["enc_final_norm_b"] = ParamT((D,), "zeros")
+        dec = _attn_template(cfg, cfg.n_layers, biases=True)
+        dec.update({f"x_{k}": v for k, v in
+                    _attn_template(cfg, cfg.n_layers, biases=True).items()})
+        dec.update(_mlp_template(cfg, cfg.n_layers, gelu=True))
+        tpl["dec_blocks"] = dec
+        tpl["pos_embed"] = ParamT((cfg.max_target_positions, D), fan=D)
+    else:
+        raise ValueError(f"unknown model family {cfg.family!r}; have "
+                         f"{FAMILIES}")
+    return tpl
 
 
 def abstract_params(cfg: ModelConfig):
@@ -195,7 +292,8 @@ def abstract_params(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Ones, zeros, or N(0, 1/fan) normals drawn from ``generator`` (on its
-    device unless ``device`` is given) in leaf order, cast to cfg.dtype."""
+    device unless ``device`` is given) in leaf order, cast to cfg.dtype.
+    One replica, no node dim (``stack_nodes`` adds it)."""
     device = torch.device(device) if device is not None else \
         generator.device
 
@@ -209,6 +307,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                             device=device) * std).to(cfg.dtype)
 
     return tree.tree_map(one, param_template(cfg))
+
+
+def stack_nodes(params, n_nodes: int = 1):
+    """One replica's tree -> a node-stacked tree of ``n_nodes`` copies (a
+    view without copying for one node: serving's stack)."""
+    if n_nodes == 1:
+        return tree.tree_map(lambda p: p[None], params)
+    return tree.tree_map(
+        lambda p: p[None].repeat((n_nodes,) + (1,) * p.dim()), params)
 
 
 # ---------------------------------------------------------------------------
@@ -230,33 +337,137 @@ def _proj(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def attn_block(cfg: ModelConfig, p, x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """One causal self-attention sub-block (pre-norm; the caller adds the
-    residual): q_norm and k_norm (qk_norm configs) before RoPE."""
+def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return L.layernorm(x, _bc(scale, x), _bc(
+            bias if bias is not None else torch.zeros_like(scale), x))
+    return L.rmsnorm(x, _bc(scale, x))
+
+
+def _layer(stack: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Layer i of a node-stacked layer stack ((N, L, ...) leaves)."""
+    return {name: leaf[:, i] for name, leaf in stack.items()}
+
+
+def _stack_layers(caches):
+    """Per-layer caches ((N, ...) leaves) -> one (N, L, ...) stack."""
+    return {name: torch.stack([c[name] for c in caches], dim=1)
+            for name in caches[0]}
+
+
+def attn_block(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
+               causal: bool = True, rope: bool = True,
+               window: Optional[int] = None, cache=None,
+               pos: Optional[int] = None, kv_src: Optional[torch.Tensor] = None,
+               cross: bool = False, prefix: str = ""):
+    """One attention sub-block (pre-norm; the caller adds the residual).
+
+    ``cross``: k/v come from ``kv_src`` (train/prefill; prefill returns them
+    as the cache) or from the cache (decode).  Self-attention writes k/v at
+    ring slot ``p % S_c`` of the cache (prefill: every kept position;
+    decode: ``pos``) and decode masks with the valid length
+    ``min(pos + 1, S_c)``, which subsumes causality and the window.
+    Returns (attn_out, new_cache)."""
+    g = lambda name: p.get(prefix + name)                    # noqa: E731
     N, B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    xn = L.rmsnorm(x, _bc(p["ln1"], x))
-    q = _proj(xn, p["wq"], p.get("wq_b")).reshape(N, B, T, H, hd)
-    k = _proj(xn, p["wk"], p.get("wk_b")).reshape(N, B, T, KV, hd)
-    v = _proj(xn, p["wv"], p.get("wv_b")).reshape(N, B, T, KV, hd)
-    if "q_norm" in p:
-        q = L.rmsnorm(q, _bc(p["q_norm"], q))
-    if "k_norm" in p:
-        k = L.rmsnorm(k, _bc(p["k_norm"], k))
-    q = L.apply_rope(q, cos, sin)
-    k = L.apply_rope(k, cos, sin)
-    out = L.attention(q, k, v, causal=True, window=cfg.sliding_window)
-    return _proj(out.reshape(N, B, T, H * hd), p["wo"], p.get("wo_b"))
+
+    xn = _norm(cfg, x, g("ln1"), g("ln1_b"))
+    q = _proj(xn, g("wq"), g("wq_b")).reshape(N, B, T, H, hd)
+    if g("q_norm") is not None:
+        q = L.rmsnorm(q, _bc(g("q_norm"), q))
+
+    new_cache = cache
+    kv_len = None
+    causal_eff = causal
+
+    if cross:
+        causal_eff = False
+        if mode == "decode":
+            k, v = cache["k"], cache["v"]          # precomputed at prefill
+        else:
+            S = kv_src.shape[2]
+            k = _proj(kv_src, g("wk"), g("wk_b")).reshape(N, B, S, KV, hd)
+            v = _proj(kv_src, g("wv"), g("wv_b")).reshape(N, B, S, KV, hd)
+            if g("k_norm") is not None:
+                k = L.rmsnorm(k, _bc(g("k_norm"), k))
+            if mode == "prefill":
+                new_cache = {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)}
+    else:
+        k = _proj(xn, g("wk"), g("wk_b")).reshape(N, B, T, KV, hd)
+        v = _proj(xn, g("wv"), g("wv_b")).reshape(N, B, T, KV, hd)
+        if g("k_norm") is not None:
+            k = L.rmsnorm(k, _bc(g("k_norm"), k))
+        if rope:
+            positions = (torch.tensor([pos], device=x.device)
+                         if mode == "decode"
+                         else torch.arange(T, device=x.device))
+            cos, sin = L.rope_freqs(hd, cfg.rope_theta, positions)
+            q = L.apply_rope(q, cos, sin)
+            k = L.apply_rope(k, cos, sin)
+        if mode == "decode":
+            S_c = cache["k"].shape[-3]
+            k = L.cache_write(cache["k"], k, pos)
+            v = L.cache_write(cache["v"], v, pos)
+            new_cache = {"k": k, "v": v}
+            kv_len = min(pos + 1, S_c)
+            causal_eff = False  # the valid length subsumes causality
+            window = None       # the ring only ever holds the window
+        elif mode == "prefill":
+            new_cache = {"k": L.cache_write(cache["k"], k, 0),
+                         "v": L.cache_write(cache["v"], v, 0)}
+
+    out = L.attention(q, k, v, causal=causal_eff, window=window,
+                      kv_len=kv_len)
+    return _proj(out.reshape(N, B, T, H * hd), g("wo"), g("wo_b")), new_cache
 
 
-def mlp_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    xn = L.rmsnorm(x, _bc(p["ln2"], x))
-    return L.swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
+def mlp_block(cfg: ModelConfig, p, x: torch.Tensor, prefix: str = ""):
+    """The FF sub-block -> (out, aux): aux is each node's MoE load-balance
+    loss ((N,) f32) in an MoE layer, else 0.0."""
+    g = lambda name: p.get(prefix + name)                    # noqa: E731
+    xn = _norm(cfg, x, g("ln2"), g("ln2_b"))
+    if cfg.family == "moe" and g("router") is not None:
+        shared = None
+        if cfg.n_shared_experts:
+            shared = (g("shared_gate"), g("shared_up"), g("shared_down"))
+        return moe_mod.moe_mlp(
+            xn, g("router"), g("experts_gate"), g("experts_up"),
+            g("experts_down"), top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, shared=shared)
+    if g("w_in") is not None:
+        return L.gelu_mlp(xn, g("w_in"), g("w_in_b"), g("w_out"),
+                          g("w_out_b")), 0.0
+    return L.swiglu(xn, g("w_gate"), g("w_up"), g("w_down")), 0.0
+
+
+def run_stack(cfg: ModelConfig, stack, x: torch.Tensor, *, mode: str,
+              causal: bool = True, window: Optional[int] = None, cache=None,
+              pos: Optional[int] = None):
+    """The layers of a self-attention stack in order -> (x, new cache
+    stack or None, summed aux)."""
+    use_rope = cfg.norm != "layernorm"   # whisper (layernorm) has no RoPE
+    n = next(iter(stack.values())).shape[1]
+    aux_sum, new = 0.0, []
+    for i in range(n):
+        p = _layer(stack, i)
+        a, nc = attn_block(cfg, p, x, mode=mode, causal=causal,
+                           rope=use_rope, window=window,
+                           cache=None if cache is None else _layer(cache, i),
+                           pos=pos)
+        x = x + a
+        m, aux = mlp_block(cfg, p, x)
+        x = x + m
+        aux_sum = aux_sum + aux
+        new.append(nc)
+    if cache is not None:
+        cache = _stack_layers(new) if new else cache
+    return x, cache, aux_sum
 
 
 # ---------------------------------------------------------------------------
-# Entry points
+# Model entry points
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
@@ -268,29 +479,189 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
 
 
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    xn = L.rmsnorm(x, _bc(params["final_norm"], x))
+    xn = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
     return torch.einsum("nbtd,ndv->nbtv", xn, params["lm_head"].to(x.dtype))
 
 
-def forward(cfg: ModelConfig, params, batch, *, mode: str = "train"):
-    """Node-stacked forward -> (logits (N, B, T, Vp), cache (None),
-    aux loss (0.0)), the reference's return triple."""
-    refuse_family(cfg.family)
-    if mode != "train":
-        raise NotImplementedError(
-            f"mode {mode!r} (KV caches, decoding) is not ported yet; it "
-            f"arrives with {LATER_FAMILIES['moe']}")
+def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
+            cache=None, pos: Optional[int] = None):
+    """Family dispatch on node-stacked inputs.  Returns (logits (N, B, T,
+    Vp), new cache (None without one), aux loss: (N,) for an MoE model,
+    else 0.0)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; have {MODES}")
+    if mode != "train" and cache is None:
+        raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
+    if mode == "decode" and pos is None:
+        raise ValueError("mode 'decode' needs the absolute position pos")
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6
+        return rwkv6.forward(cfg, params, batch, mode=mode, cache=cache,
+                             pos=pos)
+    if cfg.family == "hybrid":
+        from repro_torch.models import rglru
+        return rglru.forward(cfg, params, batch, mode=mode, cache=cache,
+                             pos=pos)
+    if cfg.family == "encdec":
+        return _forward_encdec(cfg, params, batch, mode=mode, cache=cache,
+                               pos=pos)
+    if cfg.family == "vlm":
+        return _forward_vlm(cfg, params, batch, mode=mode, cache=cache,
+                            pos=pos)
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"unknown model family {cfg.family!r}; have "
+                         f"{FAMILIES}")
+    return _forward_decoder(cfg, params, batch, mode=mode, cache=cache,
+                            pos=pos)
+
+
+def _forward_decoder(cfg, params, batch, *, mode, cache, pos):
+    x = embed_tokens(cfg, params, batch["tokens"])
+    x, new_cache, aux = run_stack(
+        cfg, params["blocks"], x, mode=mode, causal=True,
+        window=cfg.sliding_window,
+        cache=None if cache is None else cache["blocks"], pos=pos)
+    logits = lm_logits(cfg, params, x)
+    return logits, (None if new_cache is None
+                    else {"blocks": new_cache}), aux
+
+
+def _forward_vlm(cfg, params, batch, *, mode, cache, pos):
+    """(k - 1) self layers, then one gated cross layer, per super-block."""
+    k = cfg.cross_attn_every
+    n_super = cfg.n_layers // k
+    x = embed_tokens(cfg, params, batch["tokens"])
+    vision = batch.get("vision")   # (N, B, n_vis, D); None in decode (cached)
+    if vision is not None:
+        vision = vision.to(x.dtype)
+    aux_sum, new_self, new_cross = 0.0, [], []
+    for s in range(n_super):
+        idx = slice(s * (k - 1), (s + 1) * (k - 1))
+        ps = {n: a[:, idx] for n, a in params["blocks"].items()}
+        cs = (None if cache is None
+              else {n: a[:, idx] for n, a in cache["self"].items()})
+        x, cs_new, aux = run_stack(cfg, ps, x, mode=mode, causal=True,
+                                   cache=cs, pos=pos)
+        px = _layer(params["xblocks"], s)
+        a, cx_new = attn_block(
+            cfg, px, x, mode=mode, rope=False,
+            cache=None if cache is None else _layer(cache["cross"], s),
+            pos=pos, kv_src=vision, cross=True)
+        x = x + _bc(torch.tanh(px["gate_attn"]).to(x.dtype), x) * a
+        m, aux2 = mlp_block(cfg, px, x)
+        x = x + _bc(torch.tanh(px["gate_mlp"]).to(x.dtype), x) * m
+        aux_sum = aux_sum + aux + aux2
+        new_self.append(cs_new)
+        new_cross.append(cx_new)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"self": {n: torch.cat([c[n] for c in new_self], dim=1)
+                              for n in cache["self"]},
+                     "cross": _stack_layers(new_cross)}
+    return lm_logits(cfg, params, x), new_cache, aux_sum
+
+
+def _forward_encdec(cfg, params, batch, *, mode, cache, pos):
+    """Encoder over the frame embeddings (sinusoidal positions, full
+    attention), then the decoder: learned positions CLAMPED at
+    max_target_positions - 1 (the reference's rule: positions past the
+    table reuse its last row), causal self attention, cross attention to
+    the encoder output (cached at prefill)."""
+    enc_out = None
+    if mode != "decode":
+        frames = batch["frames"].to(cfg.dtype)     # (N, B, S_enc, D) stub
+        pe = L.sinusoidal_pos(frames.shape[2], cfg.d_model).to(
+            device=frames.device, dtype=cfg.dtype)
+        h, _, _ = run_stack(cfg, params["enc_blocks"], frames + pe,
+                            mode="train", causal=False)
+        enc_out = _norm(cfg, h, params["enc_final_norm"],
+                        params.get("enc_final_norm_b"))
+
     tokens = batch["tokens"]
     T = tokens.shape[-1]
     x = embed_tokens(cfg, params, tokens)
-    cos, sin = L.rope_freqs(cfg.hd, cfg.rope_theta,
-                            torch.arange(T, device=tokens.device))
-    blocks = params["blocks"]
-    for layer in range(cfg.n_layers):
-        p = {name: leaf[:, layer] for name, leaf in blocks.items()}
-        x = x + attn_block(cfg, p, x, cos, sin)
-        x = x + mlp_block(cfg, p, x)
-    return lm_logits(cfg, params, x), None, 0.0
+    pos_embed = params["pos_embed"].to(x.dtype)
+    last = cfg.max_target_positions - 1
+    if mode == "decode":
+        x = x + pos_embed[:, min(pos, last)][:, None, None]
+    else:
+        idx = torch.arange(T, device=x.device).clamp(max=last)
+        x = x + pos_embed[:, idx][:, None]
+
+    aux_sum, new_self, new_cross = 0.0, [], []
+    for i in range(cfg.n_layers):
+        p = _layer(params["dec_blocks"], i)
+        c_self = None if cache is None else _layer(cache["self"], i)
+        c_cross = None if cache is None else _layer(cache["cross"], i)
+        a, nc_self = attn_block(cfg, p, x, mode=mode, causal=True,
+                                rope=False, cache=c_self, pos=pos)
+        x = x + a
+        xa, nc_cross = attn_block(cfg, p, x, mode=mode, rope=False,
+                                  cache=c_cross, pos=pos, kv_src=enc_out,
+                                  cross=True, prefix="x_")
+        x = x + xa
+        m, aux = mlp_block(cfg, p, x)
+        x = x + m
+        aux_sum = aux_sum + aux
+        new_self.append(nc_self)
+        new_cross.append(nc_cross)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"self": _stack_layers(new_self),
+                     "cross": _stack_layers(new_cross)}
+    return lm_logits(cfg, params, x), new_cache, aux_sum
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, B: int, S: int, *, n_nodes: int = 1,
+               device=None, abstract: bool = False):
+    """Pre-allocated decode cache for seq_len S, zeros of cfg.dtype with a
+    leading node dim (``abstract``: ``meta`` tensors, nothing
+    allocated).  The cross-attention entries are placeholders that prefill
+    replaces with the encoder's / the vision tokens' k and v."""
+    dev = "meta" if abstract else device
+
+    def mk(shape):
+        return torch.zeros((n_nodes,) + tuple(shape), dtype=cfg.dtype,
+                           device=dev)
+
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6
+        return rwkv6.init_cache(cfg, B, mk)
+    if cfg.family == "hybrid":
+        from repro_torch.models import rglru
+        return rglru.init_cache(cfg, B, S, mk)
+    Seff = S if cfg.sliding_window is None else min(S, cfg.sliding_window)
+    if cfg.decode_cache_cap is not None:
+        Seff = min(Seff, cfg.decode_cache_cap)
+
+    def kv(n, s):
+        return {"k": mk((n, B, s, KV, hd)), "v": mk((n, B, s, KV, hd))}
+
+    if cfg.family in ("dense", "moe"):
+        return {"blocks": kv(cfg.n_layers, Seff)}
+    if cfg.family == "vlm":
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        return {"self": kv(cfg.n_layers - n_cross, Seff),
+                "cross": kv(n_cross, cfg.n_vision_tokens)}
+    if cfg.family == "encdec":
+        return {"self": kv(cfg.n_layers, Seff),
+                "cross": kv(cfg.n_layers, min(S, cfg.max_source_positions))}
+    raise ValueError(f"unknown model family {cfg.family!r}; have "
+                     f"{FAMILIES}")
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
+                pos: int):
+    """ONE new token (N, B, 1) against a pre-allocated cache at absolute
+    position ``pos`` -> (logits (N, B, Vp), new cache)."""
+    logits, new_cache, _ = forward(cfg, params, {"tokens": tokens},
+                                   mode="decode", cache=cache, pos=pos)
+    return logits[:, :, -1], new_cache
 
 
 def loss_fn(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor

@@ -239,9 +239,7 @@ class DecentralizedTrainer:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(self.tcfg.seed)
         params = TR.init_params(self.mcfg, generator, self.device)
-        N = self.tcfg.n_nodes
-        X = tree.tree_map(lambda p: p[None].repeat((N,) + (1,) * p.dim()),
-                          params)
+        X = TR.stack_nodes(params, self.tcfg.n_nodes)
         del params
         return self.state_from_stacked(X)
 
@@ -268,8 +266,12 @@ class DecentralizedTrainer:
             ces = TR.loss_fn(self.mcfg, logits, batch["labels"])
             del logits
             total = (ces + self.tcfg.aux_weight * aux).sum()
-            grads = torch.autograd.grad(total, xs)
-        return ces.detach().mean(), tree.unflatten(treedef, list(grads))
+            grads = torch.autograd.grad(total, xs, allow_unused=True)
+        # a leaf the loss never reads (rwkv6's final_norm_b: its final norm
+        # is an RMSNorm) has gradient zero, as under jax.grad
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, xs)]
+        return ces.detach().mean(), tree.unflatten(treedef, grads)
 
     # ------------------------------------------------------------------ step
     def train_step(self, state: TrainState, batch, draws: Draws

@@ -51,7 +51,12 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/checkpoint/ckpt.py",
                  "src/repro_torch/launch/sweep.py",
                  "src/repro_torch/launch/simulate.py",
-                 "src/repro_torch/launch/train.py", "chip_smoke.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/rwkv6.py",
+                 "src/repro_torch/models/rglru.py",
+                 "src/repro_torch/configs/shapes.py", "chip_smoke.py",
                  "launch_cost.py"):
         assert must in names
 

@@ -131,18 +131,24 @@ def test_model_forward_loss_grad_match_reference(dtype):
 
 
 def test_other_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice"):
-        tconfigs.get("mixtral-8x7b")
-    cfg = dataclasses.replace(tconfigs.get("qwen3-1.7b"), family="moe")
-    with pytest.raises(NotImplementedError, match="slice"):
-        TTR.param_template(cfg)
-    assert set(tconfigs.ARCH_IDS) == set(jconfigs.ARCH_IDS)
-    for arch in ("qwen3-1.7b", "qwen2-7b", "yi-9b", "phi4-mini-3.8b"):
+    """Every architecture id builds, field for field the reference's
+    configuration (the families that once named a later slice included),
+    with the reference's parameter count; no family is refused."""
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    for arch in tconfigs.ARCH_IDS:
         t, j = tconfigs.get(arch), jconfigs.get(arch)
         for f in dataclasses.fields(TTR.ModelConfig):
             if f.name != "dtype":
                 assert getattr(t, f.name) == getattr(j, f.name), (arch, f)
         assert t.param_count() == j.param_count()
+        r = t.reduced()
+        assert r.param_count() == j.reduced().param_count()
+        assert tree.leaves(TTR.abstract_params(r))
+    with pytest.raises(ValueError, match="unknown model family"):
+        TTR.param_template(dataclasses.replace(tconfigs.get("qwen3-1.7b"),
+                                               family="cnn"))
+    with pytest.raises(ValueError, match="unknown arch"):
+        tconfigs.get("gpt-2")
 
 
 # --- the trainer step -------------------------------------------------------------
