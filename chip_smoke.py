@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    quantize, B2 dequantize) and ``qinf_wire.cu`` (B3 quantize+pack, B4
    unpack+dequantize+mix) with nvcc for sm_90a, one compiler per source,
    both started together, and prints each kernel's registers, spills and
-   resident warps per SM from ``ptxas -v``.
+   resident warps per SM from ``ptxas -v``; B3's row kernel and its seven
+   vector instances (nibble packing K = 1, 2, 4 units a lane, byte packing
+   K = 1, 2, 4, 8) must all be there, and none may spill.
 3. B1/B2 against their plain PyTorch versions on the card, same x and u:
    B1 through ``ops.qinf_quantize_lastdim``, which hands it the leaf
    unpadded (the kernel reads the ragged last block in place), against
@@ -70,12 +72,20 @@ Phases, in order; any failure exits non-zero before the result lines:
    f32, bf16 and f64 out, 2 nodes, a ragged row count, a block of zeros
    (B4's vector variant), and B4's row variant on payload rows that are
    not whole 16-byte chunks, on a payload off the 16-byte alignment and at
-   S = 5 and 9.  Packed bytes, scales, qself and the mix must be exactly
-   equal (kernel and plain version sum the senders in one order).  The same
+   S = 5 and 9.  B3 alone on B3_CASES: blocks 4, 8, 16, 20, 32, 64, 512,
+   1024 and 2048 at bits 1-7 and x or u off the 16-byte alignment, each
+   with a zero row; every B3 call must take the variant
+   ``b3_vector_expected`` names (the vector variant for aligned rows of
+   U = B/8 (nibble) or B/4 units, U a power of two up to 32 or a multiple
+   of 32 up to block 1024).  Packed bytes, scales, qself and the mix must
+   be exactly equal (kernel and plain version sum the senders in one
+   order).  The same
    checks at the shapes the trainer below gives them: its block-256 group
    (8 nodes x 700,456 rows of 256) and its block-128 q_norm/k_norm group
    (8 nodes x 4 rows of 128), 2 bits, ring payloads (S = 3), T = 1; both
-   kernels are timed at the block-256 group.  B4 also at the scheduled
+   kernels are timed at the block-256 group, B3 on both its variants (the
+   row one on views of the same buffers one f32 off the alignment), in
+   turns.  B4 also at the scheduled
    trainer's shape (6b): the block-256 group with T = 2 rounds and S = 6
    senders (self plus the five hops of the ring/exponential union, the
    plan's own weights; B4's row variant), checked and timed the same way.
@@ -91,7 +101,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    consensus finite; the loss on two held-out batches is reported;
    ``bits_per_step`` must equal 2 hops x 739,683,712 bits.  Peak memory,
    step time and a short ``torch.profiler`` window (device busy share,
-   time by kernel) are reported.
+   time by kernel, and the wire's share: the device ops launched inside
+   ``pack_to_wire``, ``mix_from_wire`` and the rest of the exchange (the
+   noise draws, the hops' copies), each a ``record_function`` range) are
+   reported.
 6b. The same trainer under ``schedule='alternating'`` (ring <->
    exponential, T = 2 Hw slots, 5 union hops): SLICE_STEPS steps with the
    counters zeroed just before and read just after, B3 and B4 once per
@@ -190,8 +203,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    against their plain versions, bit-equal, at every block width below 256
    of the six families' published widths and depth (8, 20, 64, 128) and at
    each bucket group of (b)'s trainers (16 and 256), ring payloads (S =
-   3), each timed beside its bound.
-13. Result lines: ``{"kernels": [...]}`` (B1-B4), the nvidia-smi line,
+   3), each timed beside its bound, B3 on the variant it must take (the
+   row one at block 20 only).
+13. Result lines: ``{"kernels": [...]}`` (B1-B4; B3's entry also names
+   its variant at each shape and the row variant's ms at the trainer's
+   shape), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Everything is also written to
    ``chiprun_out/chip_smoke.json``.
 
@@ -199,7 +215,9 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -320,7 +338,7 @@ def ptxas_report(text: str):
         if m:
             name = re.search(r"(qinf_[a-z_]+_kernel)(I.*)?", m[1])
             args = [_PTX_TYPES.get(a, a[2:-1]) for a in re.findall(
-                r"13__nv_bfloat16|Li\d+E|(?<=[IE_])[fd](?=[EL])",
+                r"13__nv_bfloat16|L[ib]\d+E|(?<=[IE_])[fd](?=[EL])",
                 name[2] or "")]
             cur = {"kernel": name[1] + (f"<{','.join(args)}>" if args
                                         else ""), "spill_bytes": 0}
@@ -952,6 +970,64 @@ def check_b4(torch, ref, P, Sc, w, bits, out, got, errs, what: str) -> None:
         del mr, qr
 
 
+def b3_vector_expected(block: int, bits: int, aligned: bool = True) -> bool:
+    """The variant B3's launcher must pick (csrc/qinf_wire.cu): the vector
+    one for 16-byte aligned x and u whose rows hold U = block / 8 (nibble
+    packing, bits <= 3) or block / 4 units, U a power of two up to 32 or
+    a multiple of 32 up to block 1024; the row variant otherwise."""
+    per_unit = 8 if bits <= 3 else 4
+    if not aligned or block % per_unit:
+        return False
+    units = block // per_unit
+    if units <= 32:
+        return units & (units - 1) == 0
+    return units % 32 == 0 and block <= 1024
+
+
+# B3 alone, (bits, block, x and u storage offsets in f32): the narrow
+# widths of the families and the reduced configs (4, 8, 16, 20, 32, 64),
+# the vector variant's widest rows (512, 1024) and one past them (2048),
+# at every bits the wire takes; then x or u off the 16-byte alignment at
+# widths that are otherwise the vector variant's (the cases of
+# tests/test_torch_wire_kernels.py's B3 cuda tests)
+B3_CASES = ([(bits, block, 0, 0) for bits in range(1, 8)
+             for block in (4, 8, 16, 20, 32, 64, 512, 1024, 2048)]
+            + [(2, 256, 1, 0), (2, 8, 0, 1), (4, 64, 1, 1), (7, 1024, 1, 0)])
+
+
+def check_b3_variants(torch, qk, ref, errs, rows=8 * 31 + 5,
+                      device="cuda"):
+    """B3 against its plain version on every case of :data:`B3_CASES`:
+    ``rows`` rows (at blocks 8 to 64 the last warp is not full), row 5
+    zero (scale 0, every byte the encoded offset); each case must take
+    the variant :func:`b3_vector_expected` names.  Returns (cases, of
+    which on the vector variant)."""
+    g = torch.Generator(device=device).manual_seed(5)
+    n_vector = 0
+    for bits, block, x_off, u_off in B3_CASES:
+        what = f"at bits={bits} block={block} offsets {x_off}/{u_off}"
+        n = rows * block
+        x = (torch.randn(n + x_off, generator=g, device=device)
+             * 3)[x_off:].view(rows, block)
+        x[5] = 0
+        u = torch.rand(n + u_off, generator=g,
+                       device=device)[u_off:].view(rows, block)
+        vector = b3_vector_expected(block, bits,
+                                    aligned=x_off % 4 == 0 and u_off % 4 == 0)
+        require(device != "cuda" or qk.uses_vector_variant(
+            "qinf_quantize_pack_blocks", x, u, bits) is vector,
+            f"B3 {what} must take the {'vector' if vector else 'row'} "
+            f"variant")
+        pk, sk = qk.qinf_quantize_pack_blocks(x, u, bits)
+        check_b3(torch, ref, x, u, bits, (pk, sk), errs, what)
+        L = 2 ** (bits - 1)
+        require(float(sk[5]) == 0.0 and bool(
+            (pk[5] == (L | L << 4 if bits <= 3 else L)).all()),
+            f"B3 {what}: an all-zero row needs scale 0 and offset codes")
+        n_vector += vector
+    return len(B3_CASES), n_vector
+
+
 # (bits, block, S, payload offset in bytes, B4 variant is the vector one):
 # every bits x block at S = 1, 3, 4 (4: exponential-8's self + 3 hops) on
 # the vector variant, then the row variant's shapes -- payload rows that
@@ -980,6 +1056,11 @@ def check_wire_kernels(torch, qk, ref, errs, n_nodes=2, rows=8 * 31 + 5,
                         device=device) * 3
         x[5] = 0
         u = torch.rand(x.shape, generator=g, device=device)
+        b3_vector = b3_vector_expected(block, bits)
+        require(device != "cuda" or qk.uses_vector_variant(
+            "qinf_quantize_pack_blocks", x, u, bits) is b3_vector,
+            f"B3 {what} must take the "
+            f"{'vector' if b3_vector else 'row'} variant")
         pk, sk = qk.qinf_quantize_pack_blocks(x, u, bits)
         check_b3(torch, ref, x, u, bits, (pk, sk), errs, what)
         require(float(sk[5]) == 0.0, "an all-zero block needs scale 0")
@@ -1025,7 +1106,10 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
     (n_nodes x small_rows rows), bits 2, ring payloads (S = 3: self + 2
     hops), T = 1, weights 1/3, f32 out.  B3's bytes and scales and B4's
     qself and mix must be equal; the largest differences go into
-    ``errs``.  Times are of the block-256 group.  No
+    ``errs``.  Times are of the block-256 group, B3's on both variants:
+    the vector one on x and u as allocated, the row one on views of the
+    same buffers one f32 further on (off the 16-byte alignment), checked
+    too, in turns (vector, row, row, vector; each variant's mean).  No
     single PyTorch call computes either function (library: none)."""
     g = torch.Generator(device=device).manual_seed(3)
     w = torch.full((n_nodes, 1, 3), 1.0 / 3.0, device=device)
@@ -1033,21 +1117,38 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
     for block, rows_ in ((128, small_rows), (256, group_rows)):
         what = f"at the trainer's block-{block} group ({n_nodes} x {rows_})"
         R = n_nodes * rows_
-        x = torch.randn((R, block), generator=g, device=device)
-        u = torch.rand((R, block), generator=g, device=device)
+        bx = torch.randn(R * block + 1, generator=g, device=device)
+        bu = torch.rand(R * block + 1, generator=g, device=device)
+        x, u = bx[:-1].view(R, block), bu[:-1].view(R, block)
+        require(device != "cuda" or qk.uses_vector_variant(
+            "qinf_quantize_pack_blocks", x, u, 2),
+            f"B3 {what} must take the vector variant")
         packed, scales = qk.qinf_quantize_pack_blocks(x, u, 2)
         check_b3(torch, ref, x, u, 2, (packed, scales), errs, what)
         if block == 256:
-            b3 = {"rows": [R, 256],
-                  "ms": cuda_ms(torch, lambda: qk.qinf_quantize_pack_blocks(
-                      x, u, 2)),
+            xo, uo = bx[1:].view(R, block), bu[1:].view(R, block)
+            require(device != "cuda" or not qk.uses_vector_variant(
+                "qinf_quantize_pack_blocks", xo, uo, 2),
+                f"B3 {what}, one f32 off, must take the row variant")
+            check_b3(torch, ref, xo, uo, 2,
+                     qk.qinf_quantize_pack_blocks(xo, uo, 2), errs,
+                     f"{what}, one f32 off (row variant)")
+            runs = {"vector": (x, u), "row": (xo, uo)}
+            ms = {"vector": [], "row": []}
+            for v in ("vector", "row", "row", "vector"):
+                ms[v].append(cuda_ms(
+                    torch, lambda: qk.qinf_quantize_pack_blocks(*runs[v], 2)))
+            b3 = {"rows": [R, 256], "variant": "vector",
+                  "ms": sum(ms["vector"]) / 2,
+                  "row_variant_ms": sum(ms["row"]) / 2,
                   "plain_ms": cuda_ms(
                       torch, lambda: ref.qinf_quantize_pack_blocks_ref(
                           x, u, 2), iters=plain_iters, warmup=1)}
             b3["bound_ms"], b3["bound_by"] = bound_ms(
                 nbytes(x, u, packed, scales), B3_OPS_PER_ELEMENT * x.numel())
             b3["library_ms"] = None
-        del x, u
+            del xo, uo, runs
+        del x, u, bx, bu
         P, Sc = ring_payloads(torch, packed, scales, n_nodes, rows_)
         del packed, scales
         mix, qself = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, 2)
@@ -1175,14 +1276,82 @@ def slice_spec(api, steps: int, *, full: bool = True, n_layers: int = 2,
                                     params=params or {}))
 
 
+@contextlib.contextmanager
+def wire_spans(torch):
+    """``torch.profiler.record_function`` ranges around the bucketed
+    exchange (``wire/exchange``), ``bucket.pack_to_wire`` (B3 and the
+    torch.cat of the wire buffers) and ``bucket.mix_from_wire`` (the
+    payload stacks, B4 and ``rows_to_leaf``): three ranges a step.
+    Restored on exit."""
+    from repro_torch.core import bucket
+    from repro_torch.optim import wire
+
+    def spanned(name, fn):
+        @functools.wraps(fn)
+        def inner(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return inner
+
+    saved = [(wire.WireExchange, "bucketed", "wire/exchange"),
+             (bucket, "pack_to_wire", "wire/pack_to_wire"),
+             (bucket, "mix_from_wire", "wire/mix_from_wire")]
+    saved = [(o, a, getattr(o, a), name) for o, a, name in saved]
+    for o, a, fn, name in saved:
+        setattr(o, a, spanned(name, fn))
+    try:
+        yield
+    finally:
+        for o, a, fn, _ in saved:
+            setattr(o, a, fn)
+
+
+def wire_breakdown(events, steps: int):
+    """Device ms a step of each part of the exchange (:func:`wire_spans`):
+    a device op belongs to the innermost ``wire/`` range around its launch
+    on the host (the ``cuda_runtime`` event of the same correlation id).
+    Parts: pack_to_wire, mix_from_wire, and in the rest of the exchange
+    the noise draws (its uniform kernels) and the hops' copies (the
+    one-card ``pp``), each with its ops by name."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("wire/"))
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    parts = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launched.get(e.get("args", {}).get("correlation"))
+        inside = [sp for sp in spans if t is not None and sp[0] <= t <= sp[1]]
+        if not inside:
+            continue
+        part = min(inside, key=lambda sp: sp[1] - sp[0])[2][len("wire/"):]
+        if part == "exchange":
+            part = ("noise" if "distribution_elementwise" in e["name"]
+                    else "other (hop copies)")
+        by_name = parts.setdefault(part, {})
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return {part: {"ms_per_step": sum(ms for ms, _ in ops.values()) / steps,
+                   "ops": [{"name": k[:90], "ms_per_step": ms / steps,
+                            "per_step": n / steps} for k, (ms, n) in sorted(
+                                ops.items(), key=lambda kv: -kv[1][0])]}
+            for part, ops in parts.items()}
+
+
 def profile_trainer(torch, runner, st, data, draws, steps: int,
                     trace_name: str = "slice_trace.json"):
-    """torch.profiler over ``steps`` trainer steps: device busy share and
-    device time by kernel (the trace written to OUT_DIR / ``trace_name``)."""
+    """torch.profiler over ``steps`` trainer steps: device busy share,
+    device time by kernel and the wire's share (:func:`wire_breakdown`;
+    the trace written to OUT_DIR / ``trace_name``)."""
     from torch.profiler import ProfilerActivity, profile
     t_first = int(st.step)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with wire_spans(torch), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(t_first, t_first + steps):
@@ -1192,8 +1361,8 @@ def profile_trainer(torch, runner, st, data, draws, steps: int,
     OUT_DIR.mkdir(exist_ok=True)
     trace = OUT_DIR / trace_name
     prof.export_chrome_trace(str(trace))
-    device = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("ph") == "X" and e.get("cat") in
+    events = json.loads(trace.read_text())["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
     require(bool(device), "the profiler saw no device work in the trainer")
     by_name = {}
@@ -1202,12 +1371,29 @@ def profile_trainer(torch, runner, st, data, draws, steps: int,
         by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    wire_parts = wire_breakdown(events, steps)
+    require(bool(wire_parts), "the profile saw no device work of the wire")
     return st, {"steps": steps, "wall_ms_per_step": wall_ms / steps,
                 "device_ms_per_step": busy_ms / steps,
                 "busy_share": busy_ms / wall_ms,
                 "device_ops_per_step": len(device) / steps,
                 "top": [{"name": k[:90], "ms_per_step": ms / steps,
-                         "per_step": n / steps} for k, (ms, n) in top]}
+                         "per_step": n / steps} for k, (ms, n) in top],
+                "wire": wire_parts,
+                "wire_ms_per_step": sum(p["ms_per_step"]
+                                        for p in wire_parts.values())}
+
+
+def print_wire_share(tag: str, pf) -> None:
+    """The wire's device ms a step and its parts, from a trainer profile."""
+    print(f"{tag} wire: {pf['wire_ms_per_step']:.3f} ms/step of "
+          f"{pf['device_ms_per_step']:.1f} on the device "
+          f"({pf['wire_ms_per_step'] / pf['device_ms_per_step']:.1%})",
+          flush=True)
+    for part, v in pf["wire"].items():
+        print(f"{tag}   {part}: {v['ms_per_step']:.3f} ms/step: " + "; ".join(
+            f"{o['ms_per_step']:.3f} x{o['per_step']:.0f} {o['name'][:60]}"
+            for o in v["ops"][:4]), flush=True)
 
 
 def held_out_loss(torch, runner, X, data, n_batches: int = 2) -> float:
@@ -2305,9 +2491,15 @@ def wire_case(torch, qk, ref, errs, block: int, rows: int, n_nodes: int = 8,
     x = torch.randn((R, block), generator=g, device=device)
     u = torch.rand((R, block), generator=g, device=device)
     what = f"at block {block} ({n_nodes} x {rows} rows)"
+    b3_vector = b3_vector_expected(block, 2)
+    require(device != "cuda" or qk.uses_vector_variant(
+        "qinf_quantize_pack_blocks", x, u, 2) is b3_vector,
+        f"B3 {what} must take the {'vector' if b3_vector else 'row'} "
+        f"variant")
     packed, scales = qk.qinf_quantize_pack_blocks(x, u, 2)
     check_b3(torch, ref, x, u, 2, (packed, scales), errs, what)
-    b3 = {"ms": cuda_ms(torch, lambda: qk.qinf_quantize_pack_blocks(x, u, 2)),
+    b3 = {"variant": "vector" if b3_vector else "row",
+          "ms": cuda_ms(torch, lambda: qk.qinf_quantize_pack_blocks(x, u, 2)),
           "plain_ms": cuda_ms(
               torch, lambda: ref.qinf_quantize_pack_blocks_ref(x, u, 2),
               iters=plain_iters, warmup=1), "library_ms": None}
@@ -2436,6 +2628,12 @@ def main() -> int:
                 print(f"[build] {name}: {r['kernel']}: {r['registers']} "
                       f"registers, {r['spill_bytes']} B spilled, "
                       f"{r['resident_warps']} resident warps/SM", flush=True)
+        b3_kernels = [r for r in ptxas["qinf_wire"]
+                      if r["kernel"].startswith("qinf_quantize_pack_")]
+        require(len(b3_kernels) == 8, f"B3 instances {b3_kernels}: want "
+                f"the row kernel and 7 vector instances")
+        require(all(r["spill_bytes"] == 0 for r in b3_kernels),
+                f"a B3 instance spills: {b3_kernels}")
 
         # 3. kernels against their plain versions
         errs = {k: 0.0 for k in qk.LAUNCHES}
@@ -2525,17 +2723,24 @@ def main() -> int:
         # 5. B3/B4 against their plain versions, timed at the slice's shape
         t0 = time.perf_counter()
         n, n_vector = check_wire_kernels(torch, qk, ref, errs)
+        n3, n3_vector = check_b3_variants(torch, qk, ref, errs)
         wtimes, at_slice = wire_kernels_at_slice_shape(torch, qk, ref, errs)
         print(f"[wire] {n} B4 cases ({n_vector} on the vector variant, "
-              f"{n - n_vector} on the row variant) and their B3 inputs "
-              f"against the plain versions: B3 bytes/scales, B4 qself and "
-              f"mix bit-equal; the same at the trainer's groups "
-              f"{[c['rows'] for c in at_slice]}; "
+              f"{n - n_vector} on the row variant) and their B3 inputs, "
+              f"and {n3} B3 cases ({n3_vector} on its vector variant, "
+              f"{n3 - n3_vector} on its row variant), against the plain "
+              f"versions: B3 bytes/scales, B4 qself and mix bit-equal, "
+              f"each case on the variant it must take; the same at the "
+              f"trainer's groups {[c['rows'] for c in at_slice]}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for k, v in wtimes.items():
-            print(f"[wire] {k} @ {v['rows']}: {v['ms']:.4f} ms (plain "
-                  f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} by "
-                  f"{v['bound_by']}, library none) | {smi}", flush=True)
+            row_ms = (f", row variant {v['row_variant_ms']:.4f} ms"
+                      if "row_variant_ms" in v else "")
+            print(f"[wire] {k} @ {v['rows']}: {v['ms']:.4f} ms "
+                  f"({100 * v['bound_ms'] / v['ms']:.1f} % of the bound"
+                  f"{row_ms}; plain {v['plain_ms']:.4f}, bound "
+                  f"{v['bound_ms']:.4f} by {v['bound_by']}, library none) "
+                  f"| {smi}", flush=True)
         b4t2 = b4_at_alternating_schedule(torch, qk, ref, errs)
         print(f"[wire] qinf_unpack_dequant_mix_blocks @ {b4t2['rows']} T="
               f"{b4t2['T']} ({b4t2['variant']} variant): mix and qself "
@@ -2544,6 +2749,8 @@ def main() -> int:
               f"{b4t2['bound_by']}, {b4t2['bound_gb']:.2f} GB, library "
               f"none) | {smi}", flush=True)
         result["wire_kernels"] = {"cases": n, "vector_cases": n_vector,
+                                  "b3_cases": n3,
+                                  "b3_vector_cases": n3_vector,
                                   "at_slice_shape": at_slice,
                                   "times": wtimes, "b4_t2_s6": b4t2}
 
@@ -2573,6 +2780,7 @@ def main() -> int:
         for t_ in pf["top"]:
             print(f"[slice]   {t_['ms_per_step']:9.3f} ms/step "
                   f"x{t_['per_step']:.0f}  {t_['name']}", flush=True)
+        print_wire_share("[slice]", pf)
 
         # 6b. the same trainer under the alternating schedule (T = 2)
         torch.cuda.empty_cache()
@@ -2776,6 +2984,7 @@ def main() -> int:
             for t_ in pf["top"][:6]:
                 print(f"[family]   {t_['ms_per_step']:9.3f} ms/step "
                       f"x{t_['per_step']:.0f}  {t_['name']}", flush=True)
+            print_wire_share("[family]", pf)
         for wc in fp["wire"]:
             for k in ("qinf_quantize_pack_blocks",
                       "qinf_unpack_dequant_mix_blocks"):
@@ -2836,7 +3045,9 @@ def main() -> int:
             "max_abs_err": errs[name_], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-            "rows": m["rows"], **extra})
+            "rows": m["rows"],
+            **{k: m[k] for k in ("variant", "row_variant_ms") if k in m},
+            **extra})
     result["kernels"] = kernels
     result["card"] = smi
     result["seconds"] = time.perf_counter() - T_START

@@ -15,6 +15,9 @@ constexpr int kBF16 = 2;
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
+// below this many warps a call runs 2 warps a thread block, so that its
+// rows spread over the H100's 132 SMs; 8 warps above
+constexpr long long kSmallCallWarps = 132LL * kWarpsPerBlock;
 constexpr int kVecBytes = 16;  // one vector store; rows of the vector
                                // variants are whole multiples of it
 

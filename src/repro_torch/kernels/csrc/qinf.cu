@@ -47,7 +47,7 @@
 // the codes, the tail read in place the same way.  The launcher picks the
 // variant from the shape and the alignment (qinf_quantize_blocks_vector).
 // Rows per thread block: 2 warps while a call has fewer than
-// kSmallCallRows = 132 x 8 blocks, so the dense main path's 248 blocks run
+// kSmallCallWarps = 132 x 8 blocks, so the dense main path's 248 blocks run
 // on 124 thread blocks, one an SM, instead of 31; 8 warps above.
 // ptxas -v (CUDA 12.8, sm_90a): the f32 vector kernel at block 256 (K = 2)
 // takes 35 registers, 48 resident warps an SM in 8-warp thread blocks; the
@@ -107,10 +107,9 @@ using qinf::kThreads;
 using qinf::kWarpsPerBlock;
 
 // B1's vector variant holds blocks of up to this many elements in
-// registers (32 a lane); below kSmallCallRows blocks a call runs 2 warps a
-// thread block, so that its blocks spread over the H100's 132 SMs.
+// registers (32 a lane); below kSmallCallWarps blocks (one a warp) a call
+// runs 2 warps a thread block.
 constexpr int kQuantizeVecMaxBlock = 1024;
-constexpr long long kSmallCallRows = 132LL * kWarpsPerBlock;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(double v) { return __double2float_rn(v); }
@@ -315,7 +314,7 @@ void launch_quantize(const T* x, const float* u, int8_t* codes,
                      long long D, long long ldx, int block, float levels,
                      const float* point_levels, long long per_point, int vec,
                      cudaStream_t s) {
-  const int warps = blocks < kSmallCallRows ? 2 : kWarpsPerBlock;
+  const int warps = blocks < qinf::kSmallCallWarps ? 2 : kWarpsPerBlock;
   const dim3 grid((unsigned)((blocks + warps - 1) / warps));
   if (vec)
     launch_quantize_vec<T, 1>(grid, warps * 32, s, x, u, codes, scales,

@@ -1,7 +1,8 @@
 // Wire-path QInf kernels of the neighbor-gossip backend, for Hopper, sm_90a.
 //
-// B3  qinf_quantize_pack_kernel  replaces src/repro/kernels/quantize.py::
-//     qinf_quantize_pack_blocks (Pallas body _quantize_pack_kernel).
+// B3  qinf_quantize_pack_vec_kernel / _row_kernel replace
+//     src/repro/kernels/quantize.py::qinf_quantize_pack_blocks (Pallas body
+//     _quantize_pack_kernel).
 // B4  qinf_unpack_dequant_mix_vec_kernel / _row_kernel replace
 //     src/repro/kernels/quantize.py::qinf_unpack_dequant_mix_blocks (Pallas
 //     body _unpack_dequant_mix_kernel).
@@ -23,11 +24,31 @@
 // ~4 S + 2 T S operations.  At 67 TFLOP/s (f32, no tensor cores) against
 // 3.35 TB/s the operations cost a fraction of the bytes.
 //
-// B3 design.  One warp owns one row (block) as in B1: the row's max |x| is
-// a shuffle butterfly, and lane k then handles the element pairs
-// (k, k + B/2) and writes their byte directly, so B = 128 and B = 256 (the
-// two widths of a transformer's bucket layout) and any even B work.  No row
-// padding: the TPU's R % 8 rule is gone.
+// B3 design.  B3 reads 8 B an element and writes a half byte or a byte, so what
+// counts is one trip to memory with wide loads, and lanes that do not idle at
+// narrow blocks.  Vector variant (after B1's in qinf.cu): a unit is what one
+// lane turns into one 4-byte store -- under nibble packing the pair of 16-byte
+// chunks (c, c + C/2) of a row of C = B/4 chunks (the HALVES partners of chunk
+// c's four elements are exactly chunk c + C/2's), else one chunk.  A row has U
+// = B/8 (nibble) or B/4 units. At U <= 32, a power of two, a warp holds 32/U
+// rows, U lanes each, and the row max is a butterfly of log2 U shuffles inside
+// each U-lane segment (block 256 at 2 bits: U = 32, one row a warp; block 8: 32
+// rows a warp, no shuffle, every lane stores its own scale).  At U > 32, a
+// multiple of 32, a lane holds K = U/32 units (K a template argument, blocks up
+// to kPackVecMaxBlock = 1024).  Every 16-byte load of x and u is issued before
+// the max and the row stays in registers for the codes; each lane writes its
+// units as 4-byte stores, neighbouring lanes neighbouring words, so every warp
+// store is one contiguous run; the scale is stored once a row.  The payload is
+// read back at once by the wire's torch.cat, and evict-first stores measured no
+// faster on an H100, so its stores are plain.  Rows per thread block: 2 warps
+// while a call has fewer than kSmallCallWarps warps, 8 above (B1's rule).
+// Every other shape -- an odd unit count (block 20, the vision model's gates;
+// block 4 under nibble packing), x or u off the 16-byte alignment, blocks above
+// 1024 -- takes the row variant, the first design: one warp a row, lane k the
+// element pairs (k, k + B/2) (or the element k), x read again for the codes,
+// one byte a store.  The launcher picks the variant from the shape and the
+// pointers (qinf_quantize_pack_blocks_vector).  No row padding: the TPU's R % 8
+// rule is gone.
 //
 // B4 design.  B4 takes a leading node dim: packed (N, S, R, W), scales
 // (N, S, R), weights (N, T, S); each node applies its own receiver-indexed
@@ -85,6 +106,7 @@ using qinf::kWarpsPerBlock;
 using qinf::from_f32;
 
 constexpr int kMaxSenders = 4;  // senders the B4 vector variant holds
+constexpr int kPackVecMaxBlock = 1024;  // widest row B3's vector variant holds
 constexpr bool kStreamStores = true;  // B4's outputs far exceed the L2
 
 __device__ __forceinline__ int qinf_code(float v, float uu, float levels,
@@ -96,13 +118,103 @@ __device__ __forceinline__ int qinf_code(float v, float uu, float levels,
   return (int)(sgn * mag);
 }
 
-// B3: x, u (rows, block) f32 -> packed (rows, W) u8, scales (rows,) f32.
+// Four f32 from one 16-byte load at a 16-byte aligned address; zeros
+// where ``in`` is false (nothing is read).
+__device__ __forceinline__ void load4(const float* p, bool in,
+                                      float (&v)[4]) {
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (in) a = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+// B3, vector variant: x, u (rows, block) f32, 16-byte aligned, block % 4
+// == 0 (% 8 under nibble packing) -> packed (rows, W) u8, scales (rows,)
+// f32.  A unit is what one lane turns into one 4-byte store: the chunk
+// pair (c, c + C/2) of a row (C = block / 4 chunks of 4 f32) under nibble
+// packing, whose HALVES partners are exactly each other's elements, else
+// the one chunk c.  ``units`` = U units a row; 2^log2p = min(U, 32) lanes
+// share a row, so a warp holds 32 >> log2p rows, and each lane K units of
+// its row (units lane, lane + 32, ... when U > 32).  Every 16-byte load of
+// x and u is issued before the segmented butterfly of the row max, and
+// the row stays in registers for the codes.
+template <bool kNibble, int K>
 __global__ void __launch_bounds__(kThreads)
-qinf_quantize_pack_kernel(const float* __restrict__ x,
-                          const float* __restrict__ u,
-                          uint8_t* __restrict__ packed,
-                          float* __restrict__ scales, long long rows,
-                          int block, float levels, int offset, int nibble) {
+qinf_quantize_pack_vec_kernel(const float* __restrict__ x,
+                              const float* __restrict__ u,
+                              uint8_t* __restrict__ packed,
+                              float* __restrict__ scales, long long rows,
+                              int block, int units, int log2p, float levels,
+                              int offset) {
+  constexpr int kChunks = kNibble ? 2 : 1;  // chunks a unit
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5))
+      << (5 - log2p);                          // the warp's first row
+  if (row0 >= rows) return;  // uniform across the warp: shuffles stay full
+  const long long row = row0 + (lane >> log2p);
+  const int unit0 = lane & ((1 << log2p) - 1);
+  const bool live = row < rows;
+  const int half = block >> 1;  // a high nibble's element offset
+  const float* xr = x + row * block;
+  const float* ur = u + row * block;
+
+  float xv[K][kChunks][4], uv[K][kChunks][4];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int unit = unit0 + 32 * k;
+    const bool in = live && unit < units;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int e = 4 * unit + c * half;
+      load4(xr + e, in, xv[k][c]);
+      load4(ur + e, in, uv[k][c]);
+    }
+  }
+  float maxabs = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) maxabs = fmaxf(maxabs, fabsf(xv[k][c][i]));
+  // the butterfly stays inside each 2^log2p-lane segment (one row)
+  for (int off = 1; off < (1 << log2p); off <<= 1)
+    maxabs = fmaxf(maxabs, __shfl_xor_sync(0xffffffffu, maxabs, off));
+  const float safe = maxabs > 0.0f ? maxabs : 1.0f;
+
+  uint8_t* out = packed + row * (long long)(kNibble ? half : block);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int unit = unit0 + 32 * k;
+    if (live && unit < units) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t b =
+            (uint32_t)(qinf_code(xv[k][0][i], uv[k][0][i], levels, safe) +
+                       offset);
+        if (kNibble)
+          b |= (uint32_t)(qinf_code(xv[k][kChunks - 1][i],
+                                    uv[k][kChunks - 1][i], levels, safe) +
+                          offset) << 4;
+        word |= b << (8 * i);
+      }
+      *reinterpret_cast<uint32_t*>(out + 4 * unit) = word;
+    }
+  }
+  if (live && unit0 == 0) scales[row] = __fdiv_rn(maxabs, levels);
+}
+
+// B3, row variant (any width, any alignment): one warp a row; lane k
+// handles the element pairs (k, k + B/2) (nibble packing) or the element k
+// and writes its byte; x is read a second time (from L1) for the codes.
+__global__ void __launch_bounds__(kThreads)
+qinf_quantize_pack_row_kernel(const float* __restrict__ x,
+                              const float* __restrict__ u,
+                              uint8_t* __restrict__ packed,
+                              float* __restrict__ scales, long long rows,
+                              int block, float levels, int offset,
+                              int nibble) {
   const int lane = threadIdx.x & 31;
   const long long row =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -133,6 +245,25 @@ qinf_quantize_pack_kernel(const float* __restrict__ x,
                          offset);
   }
   if (lane == 0) scales[row] = __fdiv_rn(maxabs, levels);
+}
+
+// Launches the vector variant with the smallest K (a power of two) whose
+// K * 32 lanes' units cover a row of ``units`` units.
+template <bool kNibble, int K>
+void launch_pack_vec(dim3 grid, int threads, cudaStream_t st, const float* x,
+                     const float* u, uint8_t* packed, float* scales,
+                     long long rows, int block, int units, int log2p,
+                     float levels, int offset) {
+  if constexpr (K * 32 * (kNibble ? 8 : 4) < kPackVecMaxBlock) {
+    if (units > 32 * K) {
+      launch_pack_vec<kNibble, 2 * K>(grid, threads, st, x, u, packed, scales,
+                                      rows, block, units, log2p, levels,
+                                      offset);
+      return;
+    }
+  }
+  qinf_quantize_pack_vec_kernel<kNibble, K><<<grid, threads, 0, st>>>(
+      x, u, packed, scales, rows, block, units, log2p, levels, offset);
 }
 
 // Q_s rounded through the output dtype, back in f32.
@@ -305,6 +436,22 @@ void launch_mix(const uint8_t* packed, const float* scales, const float* w,
 
 extern "C" {
 
+// Whether B3 takes its vector variant: 16-byte aligned x and u, rows of
+// whole units (block % 4 == 0, % 8 under nibble packing) and U units a row
+// either a power of two up to 32 (several rows a warp) or a multiple of 32
+// up to block kPackVecMaxBlock.
+int qinf_quantize_pack_blocks_vector(const void* x, const void* u, int block,
+                                     int bits) {
+  const bool nibble = bits + 1 <= 4;
+  const int per_unit = nibble ? 8 : 4;  // elements a unit
+  if (block <= 0 || block % per_unit != 0 || !qinf::aligned16(x) ||
+      !qinf::aligned16(u))
+    return 0;
+  const int units = block / per_unit;
+  return units <= 32 ? (units & (units - 1)) == 0
+                     : units % 32 == 0 && block <= kPackVecMaxBlock;
+}
+
 int qinf_quantize_pack_blocks_launch(const float* x, const float* u,
                                      uint8_t* packed, float* scales,
                                      long long rows, int block, int bits,
@@ -313,10 +460,27 @@ int qinf_quantize_pack_blocks_launch(const float* x, const float* u,
   qinf::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
   const float levels = (float)(1 << (bits - 1));
-  const int nibble = bits + 1 <= 4 ? 1 : 0;
-  const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  qinf_quantize_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, u, packed, scales, rows, block, levels, 1 << (bits - 1), nibble);
+  const int offset = 1 << (bits - 1);
+  const bool nibble = bits + 1 <= 4;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (qinf_quantize_pack_blocks_vector(x, u, block, bits)) {
+    const int units = block / (nibble ? 8 : 4);
+    int log2p = 0;  // lanes a row: min(units, 32), a power of two
+    while ((1 << log2p) < units && log2p < 5) ++log2p;
+    const long long warps = (rows + (32 >> log2p) - 1) >> (5 - log2p);
+    const int wpb = warps < qinf::kSmallCallWarps ? 2 : kWarpsPerBlock;
+    const dim3 grid((unsigned)((warps + wpb - 1) / wpb));
+    if (nibble)
+      launch_pack_vec<true, 1>(grid, wpb * 32, st, x, u, packed, scales, rows,
+                               block, units, log2p, levels, offset);
+    else
+      launch_pack_vec<false, 1>(grid, wpb * 32, st, x, u, packed, scales,
+                                rows, block, units, log2p, levels, offset);
+  } else {
+    const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
+    qinf_quantize_pack_row_kernel<<<grid, kThreads, 0, st>>>(
+        x, u, packed, scales, rows, block, levels, offset, nibble ? 1 : 0);
+  }
   return (int)cudaGetLastError();
 }
 

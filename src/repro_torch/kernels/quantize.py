@@ -31,10 +31,10 @@ C++ side and launches on the inputs' device and its current PyTorch
 stream.  The wrappers' own checks serve the CPU path only.  The C
 launcher switches device only if the tensors live on another one than the
 current and returns ``cudaGetLastError()``; the binding raises on any
-error, and :func:`_launch` counts the launch in :data:`LAUNCHES`.  B1, B2
-and B4 have a vector and a row variant; their C launchers pick one from
-the shape and the 16-byte alignment of inputs and outputs
-(:func:`uses_vector_variant` asks them).
+error, and :func:`_launch` counts the launch in :data:`LAUNCHES`.  Each
+kernel has a vector and a row variant; its C launcher picks one from the
+shape and the 16-byte alignment of inputs and outputs
+(:func:`uses_vector_variant` asks it).
 """
 from __future__ import annotations
 
@@ -202,6 +202,7 @@ def _libs() -> Dict[str, object]:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     q.qinf_quantize_blocks_vector.argtypes = [vp, i32, i64, i64, vp, i32]
     q.qinf_dequantize_blocks_vector.argtypes = [vp, vp, i32]
+    w.qinf_quantize_pack_blocks_vector.argtypes = [vp, vp, i32, i32]
     w.qinf_unpack_dequant_mix_blocks_vector.argtypes = [vp, vp, vp, i32, i32]
     for entry in (*LAUNCHES, *_ENTRIES):
         _LAUNCHERS[entry] = getattr(binding, entry)
@@ -231,10 +232,10 @@ def _launch(entry: str, *args):
 
 def uses_vector_variant(kernel: str, *args) -> bool:
     """Whether the C launcher of B1 (``args``: the leaf x and its noise u,
-    tensors), B2 (codes and output pointers, block) or B4 (payload, mix and
-    qself pointers, payload width, senders) takes its vector variant: the
-    choice the launcher makes at every launch, asked by the tests and
-    ``chip_smoke.py``."""
+    tensors), B2 (codes and output pointers, block), B3 (x and u, tensors,
+    and the bits) or B4 (payload, mix and qself pointers, payload width,
+    senders) takes its vector variant: the choice the launcher makes at
+    every launch, asked by the tests and ``chip_smoke.py``."""
     libs = _libs()
     if kernel == "qinf_quantize_blocks":
         x, u = args
@@ -247,6 +248,10 @@ def uses_vector_variant(kernel: str, *args) -> bool:
             ldx, u.data_ptr(), u.shape[-1]))
     if kernel == "qinf_dequantize_blocks":
         return bool(libs["qinf"].qinf_dequantize_blocks_vector(*args))
+    if kernel == "qinf_quantize_pack_blocks":
+        x, u, bits = args
+        return bool(libs["qinf_wire"].qinf_quantize_pack_blocks_vector(
+            x.data_ptr(), u.data_ptr(), x.shape[-1], bits))
     return bool(libs["qinf_wire"].qinf_unpack_dequant_mix_blocks_vector(*args))
 
 

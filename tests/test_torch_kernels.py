@@ -252,6 +252,23 @@ def test_c_constants_match_the_wrapper():
         assert header.is_file()
 
 
+def test_vector_queries_match_the_sources():
+    """Every variant query the wrapper loads (``<kernel>_vector``, one a
+    kernel) is a C function of the kernel sources, and each launcher
+    takes the variant its query names."""
+    import inspect
+    import re
+    kernels = tq.SOURCES["qinf"].read_text() + \
+        tq.SOURCES["qinf_wire"].read_text()
+    loaded = set(re.findall(r"\.(qinf_\w+_vector)\.argtypes",
+                            inspect.getsource(tq._libs)))
+    assert loaded == {f"{k}_vector" for k in tq.LAUNCHES}
+    for query in loaded:
+        assert f"int {query}(" in kernels
+        launcher = kernels[kernels.index(f"int {query[:-7]}_launch("):]
+        assert f"{query}(" in launcher[:launcher.index("\n}\n")]
+
+
 def test_launch_helper_counts_only_launches(monkeypatch):
     """_launch hands its arguments to the binding call and returns its
     outputs; it counts a launch, not a call the binding refuses (inputs

@@ -83,10 +83,12 @@ def assert_mix_close(got: torch.Tensor, want, q_abs_w: torch.Tensor, S: int,
 
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 7])
 @pytest.mark.parametrize("rows", [8, 16, 64])
-@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("block", [4, 8, 16, 20, 32, 64, 128, 256])
 def test_quantize_pack_matches_reference(bits, rows, block):
-    """Plain B3 against repro.kernels.ref and the Pallas kernel: packed
-    bytes and scales bit-exact; the bytes decode to B1's codes."""
+    """Plain B3 against repro.kernels.ref and the Pallas kernel at every
+    block width the trainers give it (``default_quant_block`` of the ten
+    families: 4 to 256): packed bytes and scales bit-exact; the bytes
+    decode to B1's codes."""
     rng = np.random.default_rng(bits * 1000 + rows + block)
     x = jnp.asarray(rng.normal(size=(rows, block)) * 3, jnp.float32)
     x = x.at[rows // 2].set(0.0)
@@ -232,6 +234,77 @@ def test_cuda_wire_kernels_match_plain(bits, block):
         before["qinf_quantize_pack_blocks"] + 1
     assert after["qinf_unpack_dequant_mix_blocks"] == \
         before["qinf_unpack_dequant_mix_blocks"] + 6
+
+
+def _b3_vector(block: int, bits: int,
+                            aligned: bool = True) -> bool:
+    """The variant rule of B3's C launcher (csrc/qinf_wire.cu): 16-byte
+    aligned x and u, U = block / 8 (nibble packing) or block / 4 units a
+    row, a power of two up to 32 or a multiple of 32 up to block 1024."""
+    per_unit = 8 if bits <= 3 else 4
+    if not aligned or block % per_unit:
+        return False
+    units = block // per_unit
+    if units <= 32:
+        return units & (units - 1) == 0
+    return units % 32 == 0 and block <= 1024
+
+
+def _check_b3_on_card(x, u, bits, vector):
+    """B3 on the card against its plain version on the same x and u: bytes
+    and scales equal, one launch, the variant the rule names."""
+    assert tq.uses_vector_variant("qinf_quantize_pack_blocks", x, u,
+                                  bits) is vector
+    before = tq.launch_counts()["qinf_quantize_pack_blocks"]
+    pk, sk = tq.qinf_quantize_pack_blocks(x, u, bits)
+    assert tq.launch_counts()["qinf_quantize_pack_blocks"] == before + 1
+    pr, sr = tref.qinf_quantize_pack_blocks_ref(x, u, bits)
+    assert torch.equal(pk, pr) and torch.equal(sk, sr)
+    return pk, sk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("block", [4, 8, 16, 20, 32, 64, 128, 256, 512,
+                                   1024, 2048])
+def test_cuda_b3_variants_match_plain(bits, block):
+    """B3 on the card at every block width the trainers use and the
+    vector variant's widest (1024) and one past it (2048, the row
+    variant): 8 x 31 + 5 rows (at blocks 8 and 64 the last warp holds
+    fewer rows than it can), an all-zero row (scale 0, every code 0, so
+    every encoded value is the offset 2^(b-1))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(bits * 10_000 + block)
+    R = 8 * 31 + 5
+    x = torch.randn((R, block), generator=g, device="cuda") * 3
+    x[5] = 0
+    u = torch.rand((R, block), generator=g, device="cuda")
+    pk, sk = _check_b3_on_card(x, u, bits,
+                               _b3_vector(block, bits))
+    L = 2 ** (bits - 1)
+    zero_byte = L | L << 4 if bits <= 3 else L
+    assert float(sk[5]) == 0.0 and bool((pk[5] == zero_byte).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block,x_off,u_off", [
+    (2, 256, 1, 0), (2, 256, 0, 1), (2, 8, 1, 1), (4, 64, 2, 0),
+    (4, 128, 0, 3), (7, 1024, 1, 1)])
+def test_cuda_b3_off_alignment_takes_row_variant(bits, block, x_off, u_off):
+    """x or u a contiguous view ``x_off`` / ``u_off`` f32 into its buffer,
+    off the 16-byte alignment, at widths that otherwise take the vector
+    variant: the row variant, bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(block + x_off + u_off)
+    R = 8 * 31 + 5
+    n = R * block
+    x = (torch.randn(n + x_off, generator=g, device="cuda") * 3)[x_off:]
+    u = torch.rand(n + u_off, generator=g, device="cuda")[u_off:]
+    x, u = x.view(R, block), u.view(R, block)
+    assert _b3_vector(block, bits)
+    _check_b3_on_card(x, u, bits, vector=False)
 
 
 def test_b4_wrapper_validates_before_any_launch():
