@@ -170,7 +170,24 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``load_checkpoint(..., device="cuda")`` restores them; the next step
    from both, same draws, bit-equal.  (e) ``python -m
    repro_torch.launch.sweep --spec`` the golden sweep ``--out`` a file:
-   exit 0, each point's final consensus equal to (a)'s.
+   exit 0, each point's final consensus equal to (a)'s.  (f)-(h) Stacked
+   grids beyond the dense Prox-LEAD family, each on phase 4's data (f32),
+   each held like (b): SWEEP_REPLAY_STEPS stacked steps teacher-forced
+   against map mode (each point's algorithm draws and, on netsim, its
+   fault draws recorded in the stacked step and replayed in the map
+   step) at phase 4's tolerance per point, SWEEP_STEPS free-running steps
+   with the counters zeroed just before and read just after, ms a step
+   stacked against the summed ms a step of the points run one by one, and
+   peak memory.  (f) The netsim grid: phase 4b's scenario x fault_seed
+   0-7 x bits 2, 4 (16 points); every round's bits of a
+   SWEEP_REPLAY_STEPS run equal to map mode's as integers; B1 and B2
+   once a step for the whole grid; every point's objective falls; a
+   profile.  (g) Fig. 1's "LessBit-LSVRG (2bit)" row (LessBit, L-SVRG,
+   2-bit QInf, eta 1/(6L)) x seed 0-7 x ``algorithm.params.theta`` 0.2,
+   0.1 (16 points): as (f), and peak memory.  (h) LEAD with RandK (frac
+   0.1) x seed 0-7, and Choco with TopK (frac 0.1) x ``gamma_c`` 0.2, 0.1
+   x eta 0.05, 0.1: as (g), with no B1/B2 (they compress nothing with
+   QInf) and no profile.
 11. Serving (``repro_torch.launch.serve``) at published widths, one model
    at a time, f32, TF32 off, random weights from a seeded generator, batch
    4, prompt 16, 32 generated tokens: mixtral-8x7b (2 of 32 layers),
@@ -1964,34 +1981,54 @@ def _objective(problem, X, lam):
     return problem.full_loss(X) + lam * X.abs().sum(dim=1).mean()
 
 
-def sweep_vmap_grid(torch, api, sweep, draws_mod, qk, device="cuda",
-                    base=None, steps: int = SWEEP_STEPS,
-                    replay_steps: int = SWEEP_REPLAY_STEPS,
-                    timed_steps: int = SWEEP_TIMED_STEPS,
-                    profile: int = SWEEP_PROFILE_STEPS):
-    """(b) The stacked grid at the dense path's full width (see the module
-    docstring): the stacked step against map mode teacher-forced, the
-    free-running run with B1/B2 counted, ms a step stacked against the
-    summed ms a step of the points run one by one, and a profile."""
+def stacked_grid(torch, sweep, draws_mod, qk, spec, objective,
+                 device="cuda", steps: int = SWEEP_STEPS,
+                 replay_steps: int = SWEEP_REPLAY_STEPS,
+                 timed_steps: int = SWEEP_TIMED_STEPS,
+                 profile: int = SWEEP_PROFILE_STEPS,
+                 b1_per_step: int = 1,
+                 trace_name: str = "sweep_trace.json"):
+    """A stacked grid (``batch='vmap'``) of ``spec`` held to map mode and
+    run: (1) teacher-forced, both modes from the same stacked state for
+    ``replay_steps`` steps, each point's algorithm draws and (netsim) its
+    fault draws recorded in the stacked step and replayed in the map step,
+    X per point at phase 4's tolerance; (2) netsim: the bits of every
+    round of a ``replay_steps`` run, stacked and map, equal as integers;
+    (3) a free-running run of ``steps`` steps, the counters zeroed just
+    before and read just after -- B1 and B2 ``b1_per_step`` times a step
+    for the whole grid -- every point's ``objective(problem, X)`` falling,
+    and peak memory; (4) ms a step stacked against the summed ms a step of
+    the points run one by one (one process); (5) a ``torch.profiler``
+    window of ``profile`` stacked steps."""
+    import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
-    spec = sweep_grid_spec(api, steps, base)
     vm = sweep.SweepRunner(spec.points(), name=spec.name, spec=spec,
                            batch="vmap", device=device)
     mp = vm.with_batch("map")
     problem, P = vm.problem, vm.n_points
-    lam = spec.base.prox.params["lam"]
+    netsim = vm.engine == "netsim"
+    on_card = device == "cuda"
 
-    # teacher-forced: both modes from the same stacked state, each point's
-    # draws recorded in the stacked step and replayed in the map step
-    st = vm.init_state()
-    mp.init_state()
+    # (1) teacher-forced; the map mode's fault streams replay the stacked
+    # grid's (its points' inits draw round 0 alike)
+    frec = [draws_mod.RecordingDraws(draws_mod.GeneratorDraws(
+        p.fault_seed, device)) for p in vm.points]
+    st = vm.init_state(fault_draws=draws_mod.StackedDraws(frec))
+    frep = [draws_mod.ReplayDraws([t.clone() for t in r.record], device)
+            for r in frec]
+    mp.init_state(fault_draws=draws_mod.StackedDraws(frep))
     worst_frac = worst_rel = 0.0
     for t in range(replay_steps):
+        seen = [len(r.record) for r in frec]
         rec = [draws_mod.RecordingDraws(draws_mod.GeneratorDraws(
             1000 * t + i, device)) for i in range(P)]
         got = vm.step(st, draws_mod.StackedDraws(rec))
-        want = mp.step(st, draws_mod.StackedDraws(
-            [draws_mod.ReplayDraws(r.record, device) for r in rec]))
+        for r, rp, n in zip(frec, frep, seen):
+            rp.pending.extend(r.record[n:])
+        replay = [draws_mod.ReplayDraws(r.record, device) for r in rec]
+        want = mp.step(st, draws_mod.StackedDraws(replay))
+        require(not any(r.pending for r in replay + frep),
+                f"the map step drew less than the stacked step at {t}")
         for i in range(P):
             g, w = got.X[i], want.X[i]
             off = (g - w).abs() > REPLAY_ELEM_TOL * w.abs().max()
@@ -1999,26 +2036,50 @@ def sweep_vmap_grid(torch, api, sweep, draws_mod, qk, device="cuda",
             worst_rel = max(worst_rel, float((g - w).abs().max()
                                              / w.abs().max()))
         require(worst_frac <= REPLAY_MAX_OFF,
-                f"stacked vs map step {t}: {worst_frac:.2e} of a point's X "
-                f"off by more than {REPLAY_ELEM_TOL} x max|X|")
+                f"{spec.name}: stacked vs map step {t}: {worst_frac:.2e} of "
+                f"a point's X off by more than {REPLAY_ELEM_TOL} x max|X|")
         st = got
+    fault_draws = sum(len(r.record) for r in frec)
+    require(not netsim or not vm.base.faults or fault_draws > 0,
+            f"{spec.name}: the stacked netsim grid drew no faults")
 
-    # the free-running stacked run, counters zeroed just before; each
-    # point's objective after its first and its last step (as phase 4's)
+    # (2) netsim: every round's bits, stacked against map, as integers
+    bits_first = None
+    if netsim:
+        _, rv = vm.run(num_steps=replay_steps)
+        _, rm = mp.run(num_steps=replay_steps)
+        require(rv.metrics["bits"].dtype == np.int64 and np.array_equal(
+            rv.metrics["bits"], rm.metrics["bits"]),
+            f"{spec.name}: stacked bits != map-mode bits")
+        bits_first = rv.metrics["bits"][:, :4].tolist()
+
+    # (3) the free-running stacked run, counters zeroed just before
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     qk.reset_launch_counts()
-    final, res = vm.run(num_steps=steps, metric_every=steps,
-                        metric_fn=lambda s: _objective(problem, s.X, lam))
+    if netsim:
+        final, res = vm.run(num_steps=steps, objective_fn=lambda X: objective(
+            problem, X))
+        obj0, obj1 = (list(map(float, c)) for c in
+                      res.metrics["objective"][:, [0, -1]].T)
+    else:
+        final, res = vm.run(num_steps=steps, metric_every=steps,
+                            metric_fn=lambda s: objective(problem, s.X))
+        obj0, obj1 = (list(map(float, c)) for c in res.metrics["metric"].T)
     launches = qk.launch_counts()
-    obj0, obj1 = (list(map(float, c)) for c in res.metrics["metric"].T)
-    on_card = device == "cuda"
-    require(not on_card or (launches[B1] == steps and launches[B2] == steps),
-            f"stacked grid launches {launches}: want one B1 and one B2 a "
-            f"step for the whole grid ({steps} steps)")
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 if on_card \
+        else None
+    want_b1 = steps * b1_per_step
+    require(not on_card or (launches[B1] == want_b1
+                            and launches[B2] == want_b1),
+            f"{spec.name}: launches {launches}: want B1 and B2 {b1_per_step}"
+            f" a step for the whole grid ({steps} steps)")
     require(bool(torch.isfinite(final.X).all()), "non-finite stacked X")
     require(all(b < a for a, b in zip(obj0, obj1)),
-            f"a point's objective did not fall: {list(zip(obj0, obj1))}")
+            f"{spec.name}: a point's objective did not fall: "
+            f"{list(zip(obj0, obj1))}")
 
-    # ms a step, one process: the stacked grid, then each point on its own
+    # (4) ms a step, one process: the stacked grid, then each point alone
     def fenced(fn):
         if on_card:
             torch.cuda.synchronize()
@@ -2041,7 +2102,7 @@ def sweep_vmap_grid(torch, api, sweep, draws_mod, qk, device="cuda",
     stacked_ms = fenced(stacked) / timed_steps * 1e3
     map_ms = []
     dm = mp.point_draws()
-    for algo, p, dp in zip(mp.point_algos(), mp.points, dm.points):
+    for algo, dp in zip(mp.point_algos(), dm.points):
         s = [algo.init(vm.X0, dp)]
         for _ in range(3):
             s[0] = algo.step(s[0], dp)
@@ -2052,24 +2113,129 @@ def sweep_vmap_grid(torch, api, sweep, draws_mod, qk, device="cuda",
 
         map_ms.append(fenced(one) / timed_steps * 1e3)
     prof = (profile_steps(torch, vm, holder[0], d, steps=profile,
-                          trace_name="sweep_trace.json") if profile else None)
+                          trace_name=trace_name) if profile else None)
     if prof is not None:
-        require(prof["b1_per_step"] == 1,
-                f"the stacked grid's profile saw {prof['b1_per_step']} B1 "
+        require(prof["b1_per_step"] == b1_per_step,
+                f"{spec.name}: the profile saw {prof['b1_per_step']} B1 "
                 f"launches a step")
     return {"spec": spec.name, "points": P, "steps": steps,
+            "engine": vm.engine, "algorithm": vm.base.algorithm.name,
             "launches": launches,
             "replay": {"steps": replay_steps, "elem_tol": REPLAY_ELEM_TOL,
                        "max_off_fraction": REPLAY_MAX_OFF,
                        "worst_off_fraction": worst_frac,
-                       "worst_rel_max": worst_rel},
+                       "worst_rel_max": worst_rel,
+                       "fault_draws_replayed": fault_draws},
+            "bits_equal_to_map": netsim, "bits_first": bits_first,
             "objective_first": obj0, "objective_last": obj1,
             "stacked_ms_per_step": stacked_ms,
             "map_ms_per_step_summed": sum(map_ms),
             "map_ms_per_step_points": map_ms,
             "points_per_s_stacked": P / stacked_ms * 1e3,
             "points_per_s_map": P / sum(map_ms) * 1e3,
-            "wall_s": res.wall_s, "profile": prof}
+            "peak_mem_mb": peak_mb, "wall_s": res.wall_s, "profile": prof}
+
+
+def sweep_vmap_grid(torch, api, sweep, draws_mod, qk, device="cuda",
+                    base=None, steps: int = SWEEP_STEPS,
+                    replay_steps: int = SWEEP_REPLAY_STEPS,
+                    timed_steps: int = SWEEP_TIMED_STEPS,
+                    profile: int = SWEEP_PROFILE_STEPS):
+    """(b) The stacked grid at the dense path's full width (see the module
+    docstring)."""
+    spec = sweep_grid_spec(api, steps, base)
+    lam = spec.base.prox.params["lam"]
+    return stacked_grid(torch, sweep, draws_mod, qk, spec,
+                        lambda problem, X: _objective(problem, X, lam),
+                        device=device, steps=steps,
+                        replay_steps=replay_steps, timed_steps=timed_steps,
+                        profile=profile)
+
+
+def netsim_grid_spec(api, steps: int, base=None):
+    """(f) Phase 4b's scenario (markov_drop on the ring with
+    SCENARIO_FAULTS) x fault_seed 0-7 x bits 2, 4: 16 points."""
+    base = base if base is not None else mnist_spec(api, steps)
+    return api.SweepSpec("netsim-scenario-fault-seed8-x-bits2",
+                         netsim_spec(api, base, steps, True), (
+        api.AxisSpec("fault_seed", tuple(range(SWEEP_SEEDS))),
+        api.AxisSpec("compressor.bits", SWEEP_BITS)))
+
+
+def lessbit_lsvrg_spec(api, steps: int, base=None):
+    """(g) Fig. 1's "LessBit-LSVRG (2bit)" row on phase 4's data: LessBit
+    (alpha 0.5) with L-SVRG and 2-bit QInf in 256-blocks, eta = 1/(6L)
+    with L = 1/2 + 2 lam2 (the softmax Hessian bound on unit-norm rows, as
+    ``paper.common.estimate_L``), x seed 0-7 x theta 0.2, 0.1: 16
+    points."""
+    base = base if base is not None else mnist_spec(api, steps)
+    lam2 = base.oracle.problem_params["lam2"]
+    eta = 1.0 / (6 * (0.5 + 2 * lam2))
+    cell = dataclasses.replace(
+        base, name="lessbit-lsvrg-2bit", steps=steps,
+        algorithm=api.AlgorithmSpec("lessbit", eta=api.constant(eta),
+                                    alpha=api.constant(0.5),
+                                    params={"theta": 0.2}),
+        prox=api.ProxSpec("none"),
+        oracle=dataclasses.replace(base.oracle, name="lsvrg"))
+    return api.SweepSpec("lessbit-lsvrg-2bit-seed8-x-theta2", cell, (
+        api.AxisSpec("seed", tuple(range(SWEEP_SEEDS))),
+        api.AxisSpec("algorithm.params.theta", (0.2, 0.1))))
+
+
+def sparsifier_specs(api, steps: int, base=None):
+    """(h) LEAD with RandK (frac 0.1; alpha 1/(1 + C) = 0.1 for its C = 9,
+    gamma 0.01: at gamma 0.02 and above it diverges on this problem) x
+    seed 0-7, and Choco with TopK (frac 0.1) x gamma_c 0.2, 0.1 x eta
+    0.05, 0.1, on phase 4's data and oracle."""
+    base = base if base is not None else mnist_spec(api, steps)
+    lead = dataclasses.replace(
+        base, name="lead-randk", steps=steps, prox=api.ProxSpec("none"),
+        algorithm=api.AlgorithmSpec("lead", eta=api.constant(0.05),
+                                    alpha=api.constant(0.1),
+                                    gamma=api.constant(0.01)),
+        compressor=api.CompressorSpec("randk", {"frac": 0.1}))
+    choco = dataclasses.replace(
+        base, name="choco-topk", steps=steps, prox=api.ProxSpec("none"),
+        algorithm=api.AlgorithmSpec("choco", eta=api.constant(0.05),
+                                    params={"gamma_c": 0.2}),
+        compressor=api.CompressorSpec("topk", {"frac": 0.1}))
+    return (api.SweepSpec("lead-randk-seed8", lead, (
+                api.AxisSpec("seed", tuple(range(SWEEP_SEEDS))),)),
+            api.SweepSpec("choco-topk-gamma_c2-x-eta2", choco, (
+                api.AxisSpec("algorithm.params.gamma_c", (0.2, 0.1)),
+                api.AxisSpec("algorithm.eta", (0.05, 0.1)))))
+
+
+def _smooth_objective(problem, X):
+    return problem.full_loss(X)
+
+
+def stacked_grids_beyond_dense(torch, api, sweep, draws_mod, qk,
+                               device="cuda", base=None,
+                               steps: int = SWEEP_STEPS,
+                               replay_steps: int = SWEEP_REPLAY_STEPS,
+                               timed_steps: int = SWEEP_TIMED_STEPS,
+                               profile: int = SWEEP_PROFILE_STEPS):
+    """(f)-(h): the netsim grid, LessBit-LSVRG and the sparsifiers (see
+    the module docstring)."""
+    lam = (base or mnist_spec(api, steps)).prox.params["lam"]
+    kw = dict(device=device, steps=steps, replay_steps=replay_steps,
+              timed_steps=timed_steps)
+    out = {"netsim": stacked_grid(
+        torch, sweep, draws_mod, qk, netsim_grid_spec(api, steps, base),
+        lambda problem, X: _objective(problem, X, lam), profile=profile,
+        trace_name="sweep_netsim_trace.json", **kw)}
+    out["lessbit_lsvrg"] = stacked_grid(
+        torch, sweep, draws_mod, qk, lessbit_lsvrg_spec(api, steps, base),
+        _smooth_objective, profile=profile,
+        trace_name="sweep_lessbit_trace.json", **kw)
+    for key, spec in zip(("randk", "topk"),
+                         sparsifier_specs(api, steps, base)):
+        out[key] = stacked_grid(torch, sweep, draws_mod, qk, spec,
+                                _smooth_objective, profile=0,
+                                b1_per_step=0, **kw)
+    return out
 
 
 def b1_point_levels(torch, ops, qk, ref, errs, device="cuda",
@@ -2204,6 +2370,8 @@ def sweep_phase(torch, api, sweep, metrics, draws_mod, ops, qk, ref, errs):
     t0 = time.perf_counter()
     res = {"golden_map": sweep_map_golden(torch, api, metrics, qk)}
     res["vmap_grid"] = sweep_vmap_grid(torch, api, sweep, draws_mod, qk)
+    res["beyond_dense"] = stacked_grids_beyond_dense(torch, api, sweep,
+                                                     draws_mod, qk)
     res["b1_point_levels"] = b1_point_levels(torch, ops, qk, ref, errs)
     res["checkpoints"] = checkpoint_resume(torch, api, draws_mod)
     res["cli"] = sweep_cli(res["golden_map"])
@@ -2903,6 +3071,37 @@ def main() -> int:
         for t_ in pf["names"][:12]:
             print(f"[sweep]   {t_['us_per_step']:8.2f} us/step "
                   f"x{t_['per_step']:.0f}  {t_['name']}", flush=True)
+        for part, g in zip("fghh", sw["beyond_dense"].values()):
+            rp = g["replay"]
+            print(f"[sweep] ({part}) {g['spec']} ({g['engine']}, "
+                  f"{g['algorithm']}): {g['points']} points stacked; "
+                  f"{rp['steps']} teacher-forced steps vs map "
+                  f"({rp['fault_draws_replayed']} fault draws replayed): "
+                  f"worst off fraction {rp['worst_off_fraction']:.2e}, "
+                  f"worst |diff|/max {rp['worst_rel_max']:.2e}"
+                  + (f"; bits of every round equal to map mode (first "
+                     f"rounds of point 0: {g['bits_first'][0]})"
+                     if g["bits_equal_to_map"] else ""), flush=True)
+            print(f"[sweep] ({part}) {g['steps']} free-running steps: "
+                  f"launches {g['launches']}; objective "
+                  f"{min(g['objective_first']):.6f}.."
+                  f"{max(g['objective_first']):.6f} -> "
+                  f"{min(g['objective_last']):.6f}.."
+                  f"{max(g['objective_last']):.6f}; peak "
+                  f"{g['peak_mem_mb']:.0f} MiB; ms a step: stacked "
+                  f"{g['stacked_ms_per_step']:.4f}, map "
+                  f"{g['map_ms_per_step_summed']:.4f} summed over the "
+                  f"points | {smi}", flush=True)
+            pf = g["profile"]
+            if pf is not None:
+                print(f"[sweep] ({part}) profile {pf['wall_ms_per_step']:.4f}"
+                      f" ms/step wall, {pf['device_ms_per_step']:.4f} on the "
+                      f"device (busy {pf['busy_share']:.1%}), "
+                      f"{pf['device_ops_per_step']:.0f} device ops/step",
+                      flush=True)
+                for t_ in pf["names"][:8]:
+                    print(f"[sweep]   {t_['us_per_step']:8.2f} us/step "
+                          f"x{t_['per_step']:.1f}  {t_['name']}", flush=True)
         for r in sw["b1_point_levels"]:
             print(f"[sweep] (c) B1 per-point L @ {r['case']} {r['shape']} "
                   f"bits {sorted(set(r['bits']))}: bit-equal to fixed-bits "
@@ -3021,7 +3220,9 @@ def main() -> int:
                 "drop_rate_trainer_launches": dr["launches"][name_]}
             extra["sweep_launches"] = {
                 "golden_map": sw["golden_map"]["launches"][name_],
-                "stacked_grid": sw["vmap_grid"]["launches"][name_]}
+                "stacked_grid": sw["vmap_grid"]["launches"][name_],
+                **{"stacked_" + k: g["launches"][name_]
+                   for k, g in sw["beyond_dense"].items()}}
             if name_ == "qinf_quantize_blocks":
                 extra["main_path_leaf"] = b1_main
                 extra["per_point_levels"] = sw["b1_point_levels"]

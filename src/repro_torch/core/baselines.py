@@ -18,6 +18,13 @@ Random numbers come from a draw source (``core.draws``) in the reference's
 order: ``init`` of PG-EXTRA and NIDS makes the oracle's draws once; every
 ``step`` makes the oracle's draws, then (Choco, LessBit) the compressor's
 draws for each leaf.  Identity compression is skipped, not called.
+
+Under a stacked grid (``repro_torch.sweep``, ``batch='vmap'``) every
+state leaf carries a leading point axis, (P, n, ...), and ``eta``,
+``gamma_c``, ``theta`` and ``alpha`` may be per-point (P, 1, ..., 1) f64
+operands: each coefficient is formed in f64 and rounded once to the
+leaf's dtype (``core.comm.coef``), as a host float is.  The inits of
+PG-EXTRA and NIDS take a first step and stay serial, point by point.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import registry
-from repro_torch.core.comm import Mixer
+from repro_torch.core.comm import Mixer, coef
 from repro_torch.core.compression import Compressor, Identity
 from repro_torch.core.draws import Draws
 from repro_torch.core.oracles import Oracle, OracleState
@@ -79,9 +86,9 @@ class ProxDGD(Baseline):
 
     def step(self, state, draws):
         G, ostate = self.oracle.sample(state.X, state.oracle, draws)
-        X = self.prox.tree_call(tree_map(lambda wx, g: wx - self.eta * g,
-                                         self.mixer(state.X, state.k), G),
-                                self.eta)
+        X = self.prox.tree_call(
+            tree_map(lambda wx, g: wx - coef(self.eta, g) * g,
+                     self.mixer(state.X, state.k), G), self.eta)
         return SimpleState(X, state.aux, ostate, state.k + 1)
 
 
@@ -104,7 +111,8 @@ class PGExtra(Baseline):
         Z, Xprev, Gprev = state.aux
         G, ostate = self.oracle.sample(state.X, state.oracle, draws)
         Znew = tree_map(
-            lambda z, wx, hx, g, gp: z + wx - hx - self.eta * (g - gp),
+            lambda z, wx, hx, g, gp: z + wx - hx - coef(self.eta, g) * (
+                g - gp),
             Z, self.mixer(state.X, state.k),
             _half_mix(self.mixer, Xprev, state.k), G, Gprev)
         return SimpleState(self.prox.tree_call(Znew, self.eta),
@@ -130,8 +138,8 @@ class NIDSIndependent(Baseline):
     def step(self, state, draws):
         Z, Xprev, Gprev = state.aux
         G, ostate = self.oracle.sample(state.X, state.oracle, draws)
-        Y = tree_map(lambda x, xp, g, gp: 2 * x - xp - self.eta * (g - gp),
-                     state.X, Xprev, G, Gprev)
+        Y = tree_map(lambda x, xp, g, gp: 2 * x - xp - coef(self.eta, g) * (
+            g - gp), state.X, Xprev, G, Gprev)
         Znew = tree_map(lambda z, x, my: z - x + my, Z, state.X,
                         _half_mix(self.mixer, Y, state.k))
         return SimpleState(self.prox.tree_call(Znew, self.eta),
@@ -155,12 +163,13 @@ class ChocoSGD(Baseline):
 
     def step(self, state, draws):
         G, ostate = self.oracle.sample(state.X, state.oracle, draws)
-        Xp = tree_map(lambda x, g: x - self.eta * g, state.X, G)
+        Xp = tree_map(lambda x, g: x - coef(self.eta, g) * g, state.X, G)
         q = _compress(self.compressor,
                       tree_map(lambda a, b: a - b, Xp, state.aux), draws)
         xhat = tree_map(lambda h, qq: h + qq, state.aux, q)
-        X = tree_map(lambda xp, wxh, xh: xp + self.gamma_c * (wxh - xh),
-                     Xp, self.mixer(xhat, state.k), xhat)
+        X = tree_map(
+            lambda xp, wxh, xh: xp + coef(self.gamma_c, xh) * (wxh - xh),
+            Xp, self.mixer(xhat, state.k), xhat)
         return SimpleState(X, xhat, ostate, state.k + 1)
 
 
@@ -184,26 +193,29 @@ class LessBit(Baseline):
     def step(self, state, draws):
         d, h = state.aux
         G, ostate = self.oracle.sample(state.X, state.oracle, draws)
-        X = tree_map(lambda x, g, dd: x - self.eta * (g + dd), state.X, G, d)
+        X = tree_map(lambda x, g, dd: x - coef(self.eta, g) * (g + dd),
+                     state.X, G, d)
         q = _compress(self.compressor, tree_map(lambda a, b: a - b, X, h),
                       draws)
         xhat = tree_map(lambda hh, qq: hh + qq, h, q)
-        h = tree_map(lambda hh, xh: (1 - self.alpha) * hh + self.alpha * xh,
-                     h, xhat)
+        h = tree_map(lambda hh, xh: coef(1 - self.alpha, hh) * hh
+                     + coef(self.alpha, xh) * xh, h, xhat)
         lap = tree_map(lambda xh, wxh: xh - wxh, xhat,
                        self.mixer(xhat, state.k))
-        d = tree_map(lambda dd, l: dd + self.theta / 2.0 * l, d, lap)
+        d = tree_map(lambda dd, l: dd + coef(self.theta / 2.0, l) * l, d,
+                     lap)
         return SimpleState(X, (d, h), ostate, state.k + 1)
 
 
-def _node_mean(t: torch.Tensor) -> torch.Tensor:
-    return t.mean(0, keepdim=True).expand_as(t).contiguous()
+def _node_mean(t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    return t.mean(axis, keepdim=True).expand_as(t).contiguous()
 
 
 @dataclasses.dataclass
 class Centralized(Baseline):
     """Prox-SGD on the exact node-averaged gradient (an all-reduce), from
-    the node mean of X0 replicated."""
+    the node mean of X0 replicated.  The node axis is the leading one, or
+    the one behind a stacked grid's point axis (an oracle over points)."""
     name: str = "centralized"
 
     def init(self, X0, draws):
@@ -212,9 +224,10 @@ class Centralized(Baseline):
 
     def step(self, state, draws):
         G, ostate = self.oracle.sample(state.X, state.oracle, draws)
+        axis = 1 if self.oracle.points else 0
         X = self.prox.tree_call(
-            tree_map(lambda x, g: x - self.eta * g, state.X,
-                     tree_map(_node_mean, G)), self.eta)
+            tree_map(lambda x, g: x - coef(self.eta, g) * _node_mean(g, axis),
+                     state.X, G), self.eta)
         return SimpleState(X, state.aux, ostate, state.k + 1)
 
 

@@ -133,8 +133,10 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 def mix_with(W: torch.Tensor, leaf: torch.Tensor,
              node_axis: int = 0) -> torch.Tensor:
     """W (n, n) applied along the node axis of ``leaf`` (the leading one,
-    or the one after a stacked grid's point axes: one batched product for
-    every point), in W's dtype, the result cast back to the leaf's."""
+    or the one after a stacked grid's point axis: one batched product for
+    every point), in W's dtype, the result cast back to the leaf's.  Under
+    a point axis W may also be (P, n, n), one matrix a point (a netsim
+    grid's fault-masked W_k)."""
     x = leaf.to(W.dtype)
     if node_axis == 0:
         return torch.tensordot(W, x, dims=([1], [0])).to(leaf.dtype)
@@ -226,8 +228,9 @@ def comm(Z, state: CommState, alpha: float, compressor: Compressor,
             # a straggler skipped its send: its Q is dropped everywhere
             # (wire AND its own H update), so the replicas stay consistent
             # and the miss folds into the next round's difference
-            q = q * send.to(q.dtype).reshape(send.shape
-                                             + (1,) * (q.dim() - 1))
+            # (a stacked grid's send mask is (P, n) against (P, n, ...))
+            q = q * send.to(q.dtype).reshape(
+                send.shape + (1,) * (q.dim() - send.dim()))
         zh = h + q
         zw = (mixer.comm_mix(h, q, step_idx, j) if recompute
               else hw + mixer.mix_leaf(q, step_idx))

@@ -6,7 +6,9 @@ E||Q(x) - x||^2 <= C ||x||^2.  ``compress`` returns the payload that would
 go on the wire (int8 codes and one f32 scale per block for QInf, indices
 and values for the sparsifiers), ``decompress`` the float estimate.
 RandK and TopK act on the whole tensor, its leading node axis included,
-as the reference's ``x.size`` does.
+as the reference's ``x.size`` does; over a stacked grid's leading point
+axis (:meth:`Compressor.over_points`) they act on each point's slice as
+the serial compressor acts on the point's whole tensor.
 
 QInf blocks the LAST axis of any tensor (``kernels.ops``), draws its
 stochastic-rounding noise from the draw source with the blocked shape, and
@@ -17,6 +19,7 @@ otherwise; here every shape goes through the kernel.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, ClassVar
 
@@ -39,6 +42,23 @@ class Compressor:
     #: Q acts on every last-axis row on its own, so Q of a stack of
     #: tensors is the stack of their Qs (what ``empirical_C`` relies on)
     rowwise: ClassVar[bool] = False
+    #: stacked grid points (0: none; see :meth:`over_points`)
+    points: ClassVar[int] = 0
+
+    def over_points(self, points: int) -> "Compressor":
+        """This compressor over ``points`` grid points stacked on a leading
+        axis: a row-wise one is already point-wise; any other compresses
+        each point's slice on its own (its draws (P, ...) from a
+        ``StackedDraws``)."""
+        if self.rowwise:
+            return self
+        other = copy.copy(self)
+        object.__setattr__(other, "points", int(points))
+        return other
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` flat, (N,), or over stacked points one row a point."""
+        return x.reshape(self.points, -1) if self.points else x.reshape(-1)
 
     def compress(self, x: torch.Tensor, draws: Draws) -> Payload:
         raise NotImplementedError
@@ -121,12 +141,14 @@ def _kept(frac: float, n: int) -> int:
     return max(1, int(round(frac * n)))
 
 
-def _scatter(payload, shape, dtype) -> torch.Tensor:
-    """A ``shape`` tensor of zeros with ``vals`` at the flat ``idx``."""
+def _scatter(payload, shape, dtype, points: int = 0) -> torch.Tensor:
+    """A ``shape`` tensor of zeros with ``vals`` at the flat ``idx`` (of
+    each point's slice, for stacked points)."""
     n = int(np.prod(tuple(shape), dtype=np.int64))
     vals = payload["vals"]
-    flat = torch.zeros((n,), dtype=dtype, device=vals.device)
-    flat[payload["idx"]] = vals.to(dtype)
+    rows = (points, n // points) if points else (n,)
+    flat = torch.zeros(rows, dtype=dtype, device=vals.device)
+    flat.scatter_(-1, payload["idx"], vals.to(dtype))
     return flat.reshape(tuple(shape))
 
 
@@ -143,13 +165,14 @@ class RandK(Compressor):
         return 1.0 / self.frac - 1.0
 
     def compress(self, x, draws):
-        n = x.numel()
+        flat = self._rows(x)
+        n = flat.shape[-1]
         k = _kept(self.frac, n)
         idx = draws.choice(n, k)
-        return {"idx": idx, "vals": x.reshape(-1)[idx] * (n / k)}
+        return {"idx": idx, "vals": flat.gather(-1, idx) * (n / k)}
 
     def decompress(self, payload, shape, dtype):
-        return _scatter(payload, shape, dtype)
+        return _scatter(payload, shape, dtype, self.points)
 
     def payload_bits(self, shape, dtype=torch.float32):
         # a value and a ceil(log2 n)-bit coordinate index per kept entry
@@ -174,13 +197,14 @@ class TopK(Compressor):
         return 1.0 - self.frac  # contraction constant, NOT Assumption 2's C
 
     def compress(self, x, draws):
-        flat = x.reshape(-1)
-        order = torch.sort(flat.abs(), descending=True, stable=True).indices
-        idx = order[:_kept(self.frac, flat.numel())]
-        return {"idx": idx, "vals": flat[idx]}
+        flat = self._rows(x)
+        order = torch.sort(flat.abs(), dim=-1, descending=True,
+                           stable=True).indices
+        idx = order[..., :_kept(self.frac, flat.shape[-1])]
+        return {"idx": idx, "vals": flat.gather(-1, idx)}
 
     def decompress(self, payload, shape, dtype):
-        return _scatter(payload, shape, dtype)
+        return _scatter(payload, shape, dtype, self.points)
 
     def payload_bits(self, shape, dtype=torch.float32):
         n = int(np.prod(tuple(shape), dtype=np.int64))

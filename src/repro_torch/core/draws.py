@@ -189,8 +189,10 @@ class StackedDraws(Draws):
     ``randint(n, high)`` -> (P, n); ``uniform(shape)`` with ``shape[0] ==
     P`` fills point i's slice of one (P, ...) buffer from its own source
     (``uniform(shape[1:], out=buf[i])``), so each point gets the values a
-    draw of ``shape[1:]`` would give it alone.  The Bernoulli and choice
-    draws (L-SVRG, RandK) have no stacked form."""
+    draw of ``shape[1:]`` would give it alone; ``bernoulli(p, shape)`` ->
+    (P, *shape); ``choice(n, k)`` -> (P, k).  Each call draws point 0's
+    part first, so every point's own stream sees its serial sequence of
+    calls."""
 
     def __init__(self, points: Sequence[Draws]) -> None:
         if not points:
@@ -217,9 +219,7 @@ class StackedDraws(Draws):
         return out
 
     def bernoulli(self, p, shape=()):
-        raise NotImplementedError("a stacked grid draws no Bernoulli coins "
-                                  "(L-SVRG runs point by point)")
+        return torch.stack([d.bernoulli(p, shape) for d in self.points])
 
     def choice(self, n, k):
-        raise NotImplementedError("a stacked grid draws no choices (RandK "
-                                  "runs point by point)")
+        return torch.stack([d.choice(n, k) for d in self.points])

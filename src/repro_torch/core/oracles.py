@@ -18,9 +18,10 @@ A stacked grid (``repro_torch.sweep``, ``batch='vmap'``) puts P points on
 a leading axis of every iterate, (P, n, ...), and of the oracle state
 (SAGA's table (P, n, m, ...)); :meth:`Oracle.over_points` gives the
 oracle that samples them, its draw source handing out (P, n) indices
-(``core.draws.StackedDraws``).  The problem's data stays shared: a
-point's gradients are those of its nodes, folded into one call of
-``grad_batches`` with P x n node rows.
+(``core.draws.StackedDraws``; L-SVRG's coin is then one per point).  The
+problem's data stays shared: a point's sampled gradients are those of its
+nodes, folded into one call of ``grad_batches`` with P x n node rows; a
+full gradient is one call a point over the data (``full_grad``).
 """
 from __future__ import annotations
 
@@ -76,13 +77,16 @@ class FiniteSumProblem:
 
     def full_grad(self, X, points: int = 0):
         """Deterministic gradient of every node: (n, ...); of every node of
-        ``points`` stacked points when ``points`` > 0, (P, n, ...)."""
+        ``points`` stacked points when ``points`` > 0, (P, n, ...): one
+        call a point over the shared data, each the serial call on the
+        point's X (folding the points into one call would need the data
+        P times over)."""
         if not points:
             return tree_map(lambda g: g.mean(1),
                             self.grad_batches(X, self.data))
-        data = tree_map(lambda d: d.repeat((points,) + (1,) * (d.dim() - 1)),
-                        self.data)
-        return tree_map(lambda g: g.mean(2), self._folded(X, data, points))
+        per_point = [self.full_grad(tree_map(lambda x: x[i], X))
+                     for i in range(points)]
+        return tree_map(lambda *gs: torch.stack(gs), *per_point)
 
     def full_loss(self, X) -> torch.Tensor:
         if self.loss_batches is None:
@@ -155,6 +159,18 @@ class LSVRG(Oracle):
         g_new = p.sampled_grad(X, ls)
         g_old = p.sampled_grad(state.ref, ls)
         G = tree_map(lambda a, b, c: a - b + c, g_new, g_old, state.ref_grad)
+        if self.points:
+            # a stacked grid: omega is (P,), each point's refresh a select
+            # (as the reference's vmapped lax.cond), so the full gradient
+            # of every point is formed every step and nothing waits
+            full = p.full_grad(X, self.points)
+
+            def pick(new, old):
+                hit = omega.reshape((-1,) + (1,) * (old.dim() - 1))
+                return torch.where(hit, new, old)
+
+            return G, OracleState(state.kind, tree_map(pick, X, state.ref),
+                                  tree_map(pick, full, state.ref_grad))
         if bool(omega):    # a host sync on the card; L-SVRG is off the main path
             return G, OracleState(state.kind, X, p.full_grad(X))
         return G, state

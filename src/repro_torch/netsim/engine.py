@@ -27,6 +27,14 @@ then each (fault, leaf) noise at its first use.  Every reader of the round
 the reference's re-derivations do.  Rounds are drawn in increasing order
 (round None counts as 0); asking for an earlier round than the current one
 raises.
+
+A stacked grid (``repro_torch.sweep``, ``batch='vmap'``) runs one SimMixer
+over every point (``SimMixer.stacked``): the schedule is shared, the
+leaves carry a leading point axis, and each point's faults draw from its
+own source -- one draw call a point and fault, the masks of the P points
+then formed together, (P, n, n) and (P, n); each leaf's noise drawn point
+by point into one (P, n, ...) array.  Each point's source sees the calls
+of its serial run, in its order.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm import acc_dtype, mix_with
-from repro_torch.core.draws import Draws, GeneratorDraws
+from repro_torch.core.draws import Draws, GeneratorDraws, StackedDraws
 from repro_torch.core.prox_lead import ProxLEAD
 from repro_torch.netsim import faults as faults_mod
 from repro_torch.netsim import metrics as metrics_mod
@@ -56,14 +64,17 @@ class SimMixer(ScheduledMixer):
     the channel.  ``fault_draws`` is the faults' own draw source; a mixer
     serves one run, so a run that starts again from round 0 needs a new
     mixer over a new source.  ``mask_log``, when a list, receives (k, COMM
-    edge mask, send mask) for every round drawn."""
+    edge mask, send mask) for every round drawn.  ``points`` > 0: the
+    mixer of a stacked grid (see the module docstring), ``fault_draws`` a
+    :class:`StackedDraws` of the points' fault sources."""
 
     def __init__(self, schedule: TopologySchedule,
                  faults: Sequence[faults_mod.FaultModel],
-                 fault_draws: Draws):
-        super().__init__(schedule)
+                 fault_draws: Draws, points: int = 0):
+        super().__init__(schedule, node_axis=1 if points else 0)
         self.faults = tuple(faults)
         self.fault_draws = fault_draws
+        self.points = int(points)
         uniform = all(np.array_equal(schedule.W_stack[t], schedule.W_stack[0])
                       for t in range(schedule.T_cycle))
         # static-and-clean keeps the paper's incremental Hw recursion
@@ -73,6 +84,24 @@ class SimMixer(ScheduledMixer):
         self._k: Optional[int] = None
         self._masks: List[faults_mod.Masks] = []
         self._noise: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    @classmethod
+    def stacked(cls, mixers: Sequence["SimMixer"]) -> "SimMixer":
+        """One mixer over the points of ``mixers`` (one a point, each past
+        its point's serial init): each point's fault stream continues from
+        its own mixer, whose current round (an init may have drawn round
+        0) is stacked and kept."""
+        m0 = mixers[0]
+        out = cls(m0.schedule, m0.faults,
+                  StackedDraws([m.fault_draws for m in mixers]),
+                  points=len(mixers))
+        out._k = m0._k
+        out._masks = [_stack_masks([m._masks[i] for m in mixers])
+                      for i in range(len(m0._masks))]
+        out._noise = {key: None if v is None else torch.stack(
+                          [m._noise[key] for m in mixers])
+                      for key, v in m0._noise.items()}
+        return out
 
     # --- the round's draws, made once --------------------------------------
     def _round(self, k, device) -> List[faults_mod.Masks]:
@@ -86,7 +115,7 @@ class SimMixer(ScheduledMixer):
             draws = self.fault_draws
             dev = device if device is not None else draws.device
             self._k, self._noise = k, {}
-            self._masks = [f.masks(draws, self.schedule.n, dev)
+            self._masks = [f.masks(draws, self.schedule.n, dev, self.points)
                            for f in self.faults]
             if self.mask_log is not None:
                 self.mask_log.append((k, self._edge(True), self._send()))
@@ -131,7 +160,7 @@ class SimMixer(ScheduledMixer):
             if (i, leaf_idx) not in self._noise:
                 self._noise[i, leaf_idx] = f.payload_draw(
                     q, self.fault_draws)
-            q = f.payload(q, self._noise[i, leaf_idx])
+            q = f.payload(q, self._noise[i, leaf_idx], self.node_axis)
         return q
 
     def _W(self, k, dtype, device, mask):
@@ -145,7 +174,7 @@ class SimMixer(ScheduledMixer):
         acc = acc_dtype(h.dtype)
         W = self._W(k, acc, h.device, self.edge_mask_at(k, True, h.device))
         payload = h.to(acc) + self._wire(q.to(acc), k, leaf_idx)
-        return mix_with(W, payload).to(h.dtype)
+        return mix_with(W, payload, self.node_axis).to(h.dtype)
 
     # --- raw-iterate gossip (baselines mixing X / xhat directly) ----------
     def __call__(self, X, k=None):
@@ -158,8 +187,16 @@ class SimMixer(ScheduledMixer):
             W = self._W(k, acc, leaf.device,
                         self.edge_mask_at(k, False, leaf.device))
             q = self._wire(leaf.to(acc), k, j)
-            out.append(mix_with(W, q).to(leaf.dtype))
+            out.append(mix_with(W, q, self.node_axis).to(leaf.dtype))
         return unflatten(treedef, out)
+
+
+def _stack_masks(per_point: Sequence[faults_mod.Masks]) -> faults_mod.Masks:
+    """The points' (edge, send) masks of one fault, each stacked on a
+    leading point axis (None stays None)."""
+    return tuple(None if per_point[0][j] is None
+                 else torch.stack([m[j] for m in per_point])
+                 for j in range(2))
 
 
 def _support_stack(schedule: TopologySchedule, device) -> torch.Tensor:
@@ -178,26 +215,39 @@ def make_step_record(algo, mixer: SimMixer, schedule: TopologySchedule, *,
     error, objective (0 without ``objective_fn``) and the exact bits on
     the wire (int64: payload bits per directed edge times the directed
     edges that carried one).  Every record entry is a 0-d tensor on the
-    device; nothing waits for it.  ``algo`` must already carry ``mixer``."""
+    device; nothing waits for it.  ``algo`` must already carry ``mixer``.
+
+    Over a stacked grid's mixer (``mixer.points`` = P) every entry is (P,),
+    one a point: ``bits_per_edge`` is then a (P,) int64 tensor (each
+    point's compressor prices its payload) and ``objective_fn`` takes one
+    point's X."""
     supp = _support_stack(schedule, device)
     T = schedule.T_cycle
     comm_style = isinstance(algo, ProxLEAD)
-    zero = torch.zeros((), dtype=torch.float64, device=device)
+    P = mixer.points
+    zero = torch.zeros((P,) if P else (), dtype=torch.float64, device=device)
+
+    def objective(X):
+        if objective_fn is None:
+            return zero
+        if not P:
+            return objective_fn(X)
+        return torch.stack([objective_fn(X[i]) for i in range(P)])
 
     def step(state, draws):
         k = state.k                       # round index the step will use
         new = algo.step(state, draws)
-        alive = supp[k % T]
+        alive = supp[k % T]               # (n, n), or (P, n, n) when masked
         emask = mixer.edge_mask_at(k, comm=comm_style, device=device)
         if emask is not None:
             alive = alive & (emask > 0)
         if comm_style:
             send = mixer.send_mask(k, device=device)
-            if send is not None:
-                alive = alive & (send[None, :] > 0)   # sender is the column
-        rec = (metrics_mod.consensus_error(new.X),
-               objective_fn(new.X) if objective_fn is not None else zero,
-               alive.sum() * bits_per_edge)
+            if send is not None:          # sender is the column
+                alive = alive & (send.unsqueeze(-2) > 0)
+        bits = alive.sum((-2, -1)) * bits_per_edge
+        rec = (metrics_mod.consensus_error(new.X, 1 if P else 0),
+               objective(new.X), bits)
         return new, rec
 
     return step

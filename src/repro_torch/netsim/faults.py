@@ -22,7 +22,9 @@ compliant every round.
 
 Randomness comes from a draw source (``core.draws``), never from keys: a
 fault's :meth:`FaultModel.masks` makes the round's draw and returns both
-views of it, :meth:`FaultModel.payload_draw` draws a leaf's noise and
+views of it (for a stacked grid's P points at once from a ``StackedDraws``:
+one draw call a point, each point's the call its serial run makes, then
+the masks of all P formed together), :meth:`FaultModel.payload_draw` draws a leaf's noise and
 :meth:`FaultModel.payload` applies it.  The netsim mixer
 (``netsim.engine.SimMixer``) draws each once per round (and leaf) and
 keeps the draws for the round, so every reader of a round -- COMM,
@@ -42,8 +44,8 @@ Masks = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
 def _with_unit_diagonal(alive: torch.Tensor) -> torch.Tensor:
-    eye = torch.eye(alive.shape[0], dtype=torch.bool, device=alive.device)
-    return torch.where(eye, torch.ones_like(alive), alive)
+    eye = torch.eye(alive.shape[-1], dtype=torch.bool, device=alive.device)
+    return alive.masked_fill(eye, 1.0)
 
 
 class FaultModel:
@@ -53,11 +55,13 @@ class FaultModel:
     #: (its edge mask is only for raw-iterate gossip)
     comm_via_send: bool = False
 
-    def masks(self, draws: Draws, n: int, device) -> Masks:
+    def masks(self, draws: Draws, n: int, device, points: int = 0) -> Masks:
         """One round's draw -> (edge mask, send mask): an (n, n) symmetric
         f32 {0,1} mask of the links alive (diagonal 1) and an (n,) f32
         {0,1} mask of the nodes whose send succeeds, each None when the
-        fault does not act that way.  Draws nothing when both are None."""
+        fault does not act that way.  Draws nothing when both are None.
+        ``points`` > 0: ``draws`` is a ``StackedDraws`` of the points'
+        sources and the masks are (P, n, n) and (P, n)."""
         return None, None
 
     def payload_draw(self, q: torch.Tensor, draws: Draws
@@ -66,10 +70,11 @@ class FaultModel:
         fault leaves payloads alone and draws nothing)."""
         return None
 
-    def payload(self, q: torch.Tensor, noise: Optional[torch.Tensor]
-                ) -> torch.Tensor:
-        """Corrupt the wire payload of one leaf (leading node dim) with
-        the round's draw from :meth:`payload_draw`."""
+    def payload(self, q: torch.Tensor, noise: Optional[torch.Tensor],
+                node_axis: int = 0) -> torch.Tensor:
+        """Corrupt the wire payload of one leaf (its node axis leading, or
+        behind a stacked grid's point axis) with the round's draw from
+        :meth:`payload_draw`."""
         return q
 
     def mean_edge_survival(self) -> float:
@@ -90,10 +95,11 @@ class LinkDrop(FaultModel):
     rate: float = 0.1
     name: str = "linkdrop"
 
-    def masks(self, draws, n, device):
-        u = draws.uniform((n, n), dtype=torch.float64).to(device)
+    def masks(self, draws, n, device, points=0):
+        lead = (points,) if points else ()
+        u = draws.uniform(lead + (n, n), dtype=torch.float64).to(device)
         u = torch.triu(u, 1)
-        u = u + u.T                                   # symmetric per edge
+        u = u + u.transpose(-2, -1)                   # symmetric per edge
         keep = (u >= self.rate).to(torch.float32)
         return _with_unit_diagonal(keep), None
 
@@ -113,9 +119,9 @@ class Straggler(FaultModel):
     name: str = "straggler"
     comm_via_send: bool = True
 
-    def masks(self, draws, n, device):
-        slow = draws.bernoulli(self.rate, (n,)).to(device)
-        alive = (~(slow[:, None] | slow[None, :])).to(torch.float32)
+    def masks(self, draws, n, device, points=0):
+        slow = draws.bernoulli(self.rate, (n,)).to(device)   # (P,) n
+        alive = (~(slow.unsqueeze(-1) | slow.unsqueeze(-2))).to(torch.float32)
         return _with_unit_diagonal(alive), (~slow).to(torch.float32)
 
     def mean_edge_survival(self):
@@ -134,8 +140,8 @@ class NoisyChannel(FaultModel):
         return draws.uniform(tuple(q.shape), dtype=q.dtype, low=-1.0,
                              high=1.0)
 
-    def payload(self, q, noise):
-        axes = tuple(range(1, q.dim()))
+    def payload(self, q, noise, node_axis=0):
+        axes = tuple(range(node_axis + 1, q.dim()))
         amp = self.sigma * q.abs().amax(dim=axes, keepdim=True)
         return q + amp * noise
 
@@ -152,13 +158,15 @@ def apply_edge_mask(W: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Drop masked edges of W and move their weight onto both endpoints'
     diagonal.  Preserves symmetry and double stochasticity exactly (row
     sums are untouched), so the renormalized W_k still satisfies
-    Assumption 1."""
+    Assumption 1.  Acts on the last two axes: a (P, n, n) mask (a stacked
+    grid's, one a point) against an (n, n) W gives (P, n, n)."""
     n = W.shape[-1]
     eye = torch.eye(n, dtype=W.dtype, device=W.device)
     off = W * (1.0 - eye)
     kept = off * mask.to(W.dtype)
-    corr = (off - kept).sum(dim=1)
-    return kept + torch.diag(torch.diagonal(W) + corr)
+    corr = (off - kept).sum(dim=-1)
+    return kept + torch.diag_embed(
+        torch.diagonal(W, dim1=-2, dim2=-1) + corr)
 
 
 def effective_C(faults: Sequence[FaultModel], C: float, dim: int) -> float:

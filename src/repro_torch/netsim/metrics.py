@@ -22,9 +22,14 @@ from repro_torch.core.compression import Compressor, Identity
 from repro_torch.tree import leaves
 
 
-def consensus_error(X) -> torch.Tensor:
-    """sum_leaves || X - mean_node(X) ||_F^2 over the leading node dim."""
-    return sum(((l - l.mean(0, keepdim=True)) ** 2).sum() for l in leaves(X))
+def consensus_error(X, node_axis: int = 0) -> torch.Tensor:
+    """sum_leaves || X - mean_node(X) ||_F^2 over the leading node dim; with
+    ``node_axis`` 1 (a stacked grid's leaves (P, n, ...)) one error a
+    point, (P,)."""
+    def err(l):
+        sq = (l - l.mean(node_axis, keepdim=True)) ** 2
+        return sq.sum() if node_axis == 0 else sq.flatten(node_axis).sum(-1)
+    return sum(err(l) for l in leaves(X))
 
 
 def _payload_bits(compressor: Optional[Compressor], shape) -> int:

@@ -220,10 +220,12 @@ class ScheduledMixer(Mixer):
 
     One (T, n, n) stack per (dtype, device), each slice cast by the same
     exact-stochastic correction DenseMixer applies, so a static schedule
-    is bit for bit the DenseMixer path."""
+    is bit for bit the DenseMixer path.  ``node_axis`` is 0, or 1 under a
+    stacked grid's leading point axis (the schedule is shared)."""
 
-    def __init__(self, schedule: TopologySchedule):
+    def __init__(self, schedule: TopologySchedule, node_axis: int = 0):
         self.schedule = schedule
+        self.node_axis = node_axis
         self._stacks: Dict = {}     # (dtype, device) -> (T, n, n) tensor
 
     def materialized(self, dtype: torch.dtype, device) -> torch.Tensor:
@@ -242,4 +244,5 @@ class ScheduledMixer(Mixer):
         return self.materialized(dtype, device)[self.round_of(k)]
 
     def mix_leaf(self, leaf, k=None):
-        return mix_with(self.W_k(k, acc_dtype(leaf.dtype), leaf.device), leaf)
+        return mix_with(self.W_k(k, acc_dtype(leaf.dtype), leaf.device), leaf,
+                        self.node_axis)

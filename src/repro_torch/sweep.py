@@ -36,20 +36,26 @@ leaf by leaf on a leading point axis.
 mechanism here is stacking): every state leaf gains a leading point axis
 (P, n, ...), the per-point scalars become (P, 1, ..., 1) f64 operands
 (``eta``, ``alpha``, ``gamma``; a harmonic schedule as ``vt0 / (k + t0)``
-with ``vt0`` the host-double product ``value * t0``), each rounded once to
-the state's dtype where it is used (``core.comm.coef``), and one step of
-the port's own ``ProxLEAD`` advances every point: the mixer contracts the
-node axis for all points in one batched product, the oracle folds the
-points into one gradient call (``Oracle.over_points``), and each step
-launches B1 and B2 once for the whole grid -- a ``compressor.bits`` axis
-through B1's per-point level count.  Each point still draws from its own
-stream (``core.draws.StackedDraws``) and starts from its serial init.
-Stacked products may sum in another order than a point's own, so this
-mode is held to a tolerance (rtol = atol = 1e-12 in f64 on the CPU), not
-to bits.  Its scope: the dense engine; ``prox_lead``, ``lead`` and
-``nids``; the ``full``, ``sgd`` and ``saga`` oracles; ``identity`` and
-``qinf``; the axes ``seed``, the schedule fields and ``compressor.bits``.
-Anything else raises, naming the slice that brings it; map mode runs it.
+with ``vt0`` the host-double product ``value * t0``; any numeric
+``algorithm.params`` field such as Choco's ``gamma_c`` or LessBit's
+``theta``), each rounded once to the state's dtype where it is used
+(``core.comm.coef``), and one step of the template's algorithm advances
+every point: the mixer contracts the node axis for all points in one
+batched product, the oracle folds the points into one sampled-gradient
+call (``Oracle.over_points``), RandK and TopK compress each point's slice
+(``Compressor.over_points``), and each step launches B1 and B2 once for
+the whole grid -- a ``compressor.bits`` axis through B1's per-point level
+count.  Each point still draws from its own stream
+(``core.draws.StackedDraws``) and starts from its serial init.  On the
+netsim engine one SimMixer serves the grid (``SimMixer.stacked``): the
+schedule is shared, each point's faults draw from its own
+``fault_seed`` stream, and the records -- consensus, objective and the
+int64 bits priced by each point's own compressor -- are one a point every
+round.  Every registered algorithm, oracle and compressor stacks, and
+every axis of :data:`SUPPORTED_AXES`.  Stacked products may sum in
+another order than a point's own, so this mode is held to a tolerance
+(rtol = atol = 1e-12 in f64 on the CPU), not to bits; netsim bits stay
+exact.  A tree-valued iterate is refused (map mode runs it).
 """
 from __future__ import annotations
 
@@ -82,14 +88,6 @@ SUPPORTED_AXES = (
     "algorithm.params.<numeric field>",
     "compressor.bits",
 )
-
-#: what ``batch='vmap'`` stacks; the rest waits for a later slice
-VMAP_ALGORITHMS = ("prox_lead", "lead", "nids")
-VMAP_ORACLES = ("full", "sgd", "saga")
-VMAP_COMPRESSORS = ("identity", "qinf")
-VMAP_LATER = ("a later slice of the stacked grid (ROADMAP A: vmap mode for "
-              "netsim, the baselines, L-SVRG and RandK/TopK); "
-              "batch='map' runs it")
 
 
 @dataclasses.dataclass
@@ -292,19 +290,6 @@ class SweepResult:
             meta={**self.meta, "point": self.names[i]})
 
 
-def _vmap_scope(base) -> None:
-    """Refuse what ``batch='vmap'`` does not stack yet, naming the slice."""
-    osp = api.default_oracle_spec(base)
-    for what, have, scope in (
-            ("engine", base.execution.engine, ("dense",)),
-            ("algorithm", base.algorithm.name, VMAP_ALGORITHMS),
-            ("oracle", osp.name, VMAP_ORACLES),
-            ("compressor", base.compressor.name, VMAP_COMPRESSORS)):
-        if have not in scope:
-            raise ValueError(f"batch='vmap' stacks {what} {list(scope)}; "
-                             f"{what} {have!r} arrives with {VMAP_LATER}")
-
-
 class SweepRunner:
     """A grid of points on one device (see the module docstring).
 
@@ -345,13 +330,6 @@ class SweepRunner:
                 f"{base.topology.schedule!r} schedule: the netsim sweep "
                 f"shares ONE materialized schedule stack across points; "
                 f"sweep fault_seed instead, or run seeds serially")
-        if batch == "vmap":
-            _vmap_scope(base)
-            if self.plan.params:
-                raise ValueError(
-                    f"batch='vmap' stacks the axes seed, "
-                    f"algorithm.{{eta|alpha|gamma}} and compressor.bits; "
-                    f"algorithm.params axes arrive with {VMAP_LATER}")
         # the template: problem, data, X0, mixer, oracle (and the netsim
         # schedule and faults) built once and shared by every point
         self._template = (template if template is not None
@@ -359,7 +337,8 @@ class SweepRunner:
         X0 = self._template.X0
         if batch == "vmap" and not torch.is_tensor(X0):
             raise ValueError("batch='vmap' stacks a single-tensor iterate; "
-                             "a tree of leaves arrives with " + VMAP_LATER)
+                             "a tree of leaves is ROADMAP A item 4 "
+                             "(batch='map' runs it)")
         if batch == "vmap" and X0.dtype != torch.float64:
             warnings.warn(
                 f"batch='vmap' in {X0.dtype}: the stacked products (the "
@@ -407,17 +386,24 @@ class SweepRunner:
         return StackedDraws([GeneratorDraws(p.seed, self.device)
                              for p in self.points])
 
-    def point_algos(self) -> List:
+    def point_fault_draws(self) -> StackedDraws:
+        """Every point's fault stream as its serial run makes it: a
+        generator seeded ``point.fault_seed`` on the run's device."""
+        return StackedDraws([GeneratorDraws(p.fault_seed, self.device)
+                             for p in self.points])
+
+    def point_algos(self, fault_draws: Optional[StackedDraws] = None
+                    ) -> List:
         """Each point's algorithm for a run; on the netsim engine over a
-        fresh SimMixer whose faults draw from ``point.fault_seed`` (a new
-        fault stream, as ``NetsimRunner.init_state`` starts one)."""
+        fresh SimMixer whose faults draw from ``fault_draws.points[i]``
+        (default :meth:`point_fault_draws`: a new fault stream, as
+        ``NetsimRunner.init_state`` starts one)."""
         algos = [self._point_algo(p) for p in self.points]
         if self.engine == "netsim":
             t = self._template
+            srcs = (fault_draws or self.point_fault_draws()).points
             algos = [dataclasses.replace(a, mixer=netsim_engine.SimMixer(
-                t.schedule, t.faults, GeneratorDraws(p.fault_seed,
-                                                     self.device)))
-                     for a, p in zip(algos, self.points)]
+                t.schedule, t.faults, src)) for a, src in zip(algos, srcs)]
         return algos
 
     def _ops(self, name: str) -> torch.Tensor:
@@ -426,11 +412,16 @@ class SweepRunner:
                                device=self.device).reshape(shape)
 
     def stacked_algo(self):
-        """The template's algorithm over the stacked grid: per-point
-        operands bound to the fields its factory takes, the mixer over
-        the node axis behind the point axis, the oracle over the points,
-        and for a bits axis :class:`PointLevelsQInf` (``batch='vmap'``)."""
+        """The template's algorithm over the stacked grid (``batch=
+        'vmap'``): per-point operands bound to the fields its factory
+        takes and to the swept ``algorithm.params`` fields (as the
+        reference's ``_bind_algo``), the oracle and the compressor over
+        the points (for a bits axis :class:`PointLevelsQInf`), and the
+        mixer over the node axis behind the point axis -- on the netsim
+        engine the points' own mixers stacked (``SimMixer.stacked``), so
+        it needs :meth:`init_state` first."""
         t = self._template
+        P = self.n_points
         accepted = registry.accepts("algorithm", self.base.algorithm.name)
         repl = {}
         for field, base_sched in self.plan.sched.items():
@@ -442,23 +433,37 @@ class SweepRunner:
                 vt0, t0 = self._ops(f"{field}:vt0"), self._ops(f"{field}:t0")
                 repl[field] = (lambda vt0, t0: lambda k: vt0 / (k + t0))(
                     vt0, t0)
-        if self.plan.bits:
+        for name in self.plan.params:
+            repl[name] = self._ops(f"param:{name}")
+        comp = getattr(t.algo, "compressor", None)
+        if comp is not None and self.plan.bits:
             levels = torch.as_tensor(self.plan.operands["levels"],
                                      device=self.device)
-            repl["compressor"] = PointLevelsQInf(levels,
-                                                 t.algo.compressor.block)
-        return dataclasses.replace(
-            t.algo, mixer=dataclasses.replace(t.algo.mixer, node_axis=1),
-            oracle=t.algo.oracle.over_points(self.n_points), **repl)
+            repl["compressor"] = PointLevelsQInf(levels, comp.block)
+        elif comp is not None:
+            repl["compressor"] = comp.over_points(P)
+        if self.engine == "netsim":
+            if self._algos is None:
+                raise RuntimeError("a stacked netsim grid continues its "
+                                   "points' fault streams: init_state first")
+            mixer = netsim_engine.SimMixer.stacked(
+                [a.mixer for a in self._algos])
+        else:
+            mixer = dataclasses.replace(t.algo.mixer, node_axis=1)
+        return dataclasses.replace(t.algo, mixer=mixer,
+                                   oracle=t.algo.oracle.over_points(P),
+                                   **repl)
 
     # --- the runner protocol -------------------------------------------------
-    def init_state(self, draws: Optional[StackedDraws] = None):
+    def init_state(self, draws: Optional[StackedDraws] = None,
+                   fault_draws: Optional[StackedDraws] = None):
         """Every point's serial init (from ``draws.points[i]``; default
         :meth:`point_draws`), stacked.  Starts a run: the netsim points'
-        fault streams start here, and ``step`` continues them."""
+        fault streams (``fault_draws``, default :meth:`point_fault_draws`)
+        start here, and ``step`` continues them."""
         if draws is None:
             draws = self.point_draws()
-        self._algos = self.point_algos()
+        self._algos = self.point_algos(fault_draws)
         X0 = self._template.X0
         states = [a.init(X0, d) for a, d in zip(self._algos, draws.points)]
         if self.batch == "vmap":
@@ -480,9 +485,8 @@ class SweepRunner:
 
     @property
     def metrics_fns(self) -> Dict[str, Callable]:
-        return {"consensus": lambda st: torch.stack([
-                    netsim_metrics.consensus_error(point_state(st, i).X)
-                    for i in range(self.n_points)]),
+        return {"consensus": lambda st: netsim_metrics.consensus_error(
+                    st.X, node_axis=1),
                 "iteration": lambda st: st.k}
 
     def point_state(self, state, i: int):
@@ -570,6 +574,9 @@ class SweepRunner:
         return final, metrics, point_s
 
     def _run_netsim(self, num_steps, objective_fn, draws, fault_draws):
+        if self.batch == "vmap":
+            return self._run_netsim_stacked(num_steps, objective_fn, draws,
+                                            fault_draws)
         t = self._template
         finals, trajs, point_s = [], [], []
         for i, p in enumerate(self.points):
@@ -589,6 +596,39 @@ class SweepRunner:
             "objective": np.stack([tr.objective for tr in trajs]),
             "bits": np.stack([tr.bits for tr in trajs]).astype(np.int64)}
         return stack_states(finals), metrics, point_s
+
+    def _run_netsim_stacked(self, num_steps, objective_fn, draws,
+                            fault_draws):
+        """The stacked grid under ``simulate``'s record: every round's
+        consensus, objective and int64 bits, one a point, priced by each
+        point's own compressor as its serial run prices them."""
+        t = self._template
+        if draws is None:
+            draws = self.point_draws()
+        state = self.init_state(draws, fault_draws)
+        algo = self._stacked
+        bpe = torch.as_tensor(
+            [netsim_metrics.payload_bits_per_node(
+                getattr(a, "compressor", None), t.X0) for a in self._algos],
+            dtype=torch.int64, device=self.device)
+        step = netsim_engine.make_step_record(
+            algo, algo.mixer, t.schedule, device=self.device,
+            objective_fn=objective_fn, bits_per_edge=bpe)
+        recs = []
+        with span("netsim_loop", self.device):
+            for _ in range(num_steps):
+                state, rec = step(state, draws)
+                recs.append(rec)
+        if recs:                          # one copy to the host, at the end
+            cons, obj, bits = (torch.stack(c, dim=1).cpu()
+                               for c in zip(*recs))
+        else:
+            cons = obj = bits = torch.zeros((self.n_points, 0),
+                                            dtype=torch.int64)
+        return state, {
+            "consensus": cons.to(torch.float64).numpy(),
+            "objective": obj.to(torch.float64).numpy(),
+            "bits": bits.numpy().astype(np.int64)}, None
 
 
 def runner_for_points(points: Sequence, *, name: str = "sweep",

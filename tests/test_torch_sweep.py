@@ -10,8 +10,7 @@
 * Map mode held to the reference's ``SweepRunner`` (x64): each point with
   the reference's draws replayed, within C2's bar.
 * Vmap mode (the stacked grid) within rtol = atol = 1e-12 of the serial
-  runs in f64, and every configuration outside its scope refused, naming
-  the slice.
+  runs in f64 (the whole of its scope: ``test_torch_sweep_vmap.py``).
 
 The tiny sizes of ``tests/test_sweep.py::tiny_spec`` (4 nodes, ``logreg2d``
 8 x 3), f64.
@@ -627,7 +626,7 @@ def test_vmap_in_f32_warns_and_stays_close():
                                    serial.X.numpy(), rtol=1e-5, atol=1e-6)
 
 
-OUT_OF_SCOPE = {
+ONCE_REFUSED = {
     "netsim": (_netsim_base(), [("seed", (2, 3))]),
     "lessbit": (tiny_dict(algorithm={"name": "lessbit", "eta": 0.05,
                                      "alpha": 0.5},
@@ -652,18 +651,25 @@ OUT_OF_SCOPE = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(OUT_OF_SCOPE))
-def test_vmap_refuses_what_it_does_not_stack(case):
-    """Outside the stacked grid's scope: a ValueError naming the later
-    slice (and map mode runs the same grid)."""
-    base, axes = OUT_OF_SCOPE[case]
+@pytest.mark.parametrize("case", sorted(ONCE_REFUSED))
+def test_vmap_stacks_the_configs_it_once_refused(case):
+    """The netsim engine, the baselines, L-SVRG, RandK/TopK and an
+    ``algorithm.params`` axis stack: every point within rtol = atol =
+    1e-12 of its serial run (netsim: its bits equal as int64)."""
+    base, axes = ONCE_REFUSED[case]
     ss = tapi.SweepSpec.from_dict(sweep_dict(base, axes))
-    with pytest.raises(ValueError, match="later slice"):
-        tsweep.SweepRunner(ss.points(), batch="vmap", device="cpu",
-                           dtype=F64)
-    runner = tsweep.SweepRunner(ss.points(), device="cpu", dtype=F64)
-    final, _ = runner.run(num_steps=2)
-    assert bool(torch.isfinite(_leaves(final)[0]).all())
+    runner = tsweep.SweepRunner(ss.points(), batch="vmap", device="cpu",
+                                dtype=F64)
+    final, res = runner.run(num_steps=3)
+    assert _leaves(final)[0].shape[0] == runner.n_points
+    for i, p in enumerate(runner.points):
+        serial, traj = _serial(p, num_steps=3)
+        for a, b in zip(_leaves(runner.point_state(final, i)),
+                        _leaves(serial)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=VMAP_RTOL,
+                                       atol=VMAP_ATOL, err_msg=p.name)
+        if case == "netsim":
+            np.testing.assert_array_equal(res.metrics["bits"][i], traj.bits)
 
 
 def test_stacked_draws_give_each_point_its_serial_stream():
@@ -676,10 +682,17 @@ def test_stacked_draws_give_each_point_its_serial_stream():
         assert torch.equal(r[i], g.randint(5, 7))
     with pytest.raises(ValueError, match="leading axis"):
         sd.uniform((3, 5))
-    with pytest.raises(NotImplementedError, match="L-SVRG"):
-        sd.bernoulli(0.5)
-    with pytest.raises(NotImplementedError, match="RandK"):
-        sd.choice(5, 2)
+    coin, mask, pick = sd.bernoulli(0.5), sd.bernoulli(0.3, (6,)), \
+        sd.choice(9, 4)
+    assert coin.shape == (2,) and mask.shape == (2, 6)
+    assert pick.shape == (2, 4)
+    for i, s in enumerate((3, 4)):
+        g = GeneratorDraws(s, "cpu")
+        g.uniform((5, 6))
+        g.randint(5, 7)
+        assert torch.equal(coin[i], g.bernoulli(0.5))
+        assert torch.equal(mask[i], g.bernoulli(0.3, (6,)))
+        assert torch.equal(pick[i], g.choice(9, 4))
     with pytest.raises(ValueError, match="at least one"):
         StackedDraws([])
 
