@@ -89,6 +89,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    trainer's shape (6b): the block-256 group with T = 2 rounds and S = 6
    senders (self plus the five hops of the ring/exponential union, the
    plan's own weights; B4's row variant), checked and timed the same way.
+   Every B3/B4 bound here and in phase 12 (c) is over the bytes
+   ``repro_torch.obs.roofline_gate.kernel_roofline`` prices the launch at
+   (its per-node model x the nodes the launch covers); the launch's own
+   tensors must hold the same bytes (B3) or those plus B4's weight table.
 6. The trainer path: ``api.build(spec)`` on the card for
    qwen3-1.7b at its published widths (2 of 28 layers, the first eighth of
    the vocabulary), 8 nodes on a ring, the neighbor-gossip backend with
@@ -104,12 +108,21 @@ Phases, in order; any failure exits non-zero before the result lines:
    time by kernel, and the wire's share: the device ops launched inside
    ``pack_to_wire``, ``mix_from_wire`` and the rest of the exchange (the
    noise draws, the hops' copies), each a ``record_function`` range) are
-   reported.
+   reported.  Then ``[contracts]``: one more step audited by
+   ``repro_torch.check.contracts`` (the second of two) under
+   ``torch.cuda.set_sync_debug_mode("error")``: 2 x 2 u8 ``pp`` calls,
+   each hop's pair 92,460,464 B a node, no f64 op, no host read; and
+   ``[roofline]``: ``repro_torch.obs.roofline.analyze`` over two more
+   steps (t_compute, t_memory, t_collective, the bottleneck, the median
+   measured step, mfu = model FLOPs / (median step x PEAK_FLOPS), counted
+   FlopCounterMode FLOPs over the analytic ones) beside the run report's
+   wire roofline.
 6b. The same trainer under ``schedule='alternating'`` (ring <->
    exponential, T = 2 Hw slots, 5 union hops): SLICE_STEPS steps with the
    counters zeroed just before and read just after, B3 and B4 once per
    bucket group per step, the loss falling, ``bits_per_step`` equal to 5
-   hops x 739,683,712 bits; step time and peak memory.
+   hops x 739,683,712 bits; step time and peak memory; its
+   ``[contracts]`` (2 x 5 u8 calls) and ``[roofline]`` lines.
 7. Bucketed against per-leaf wire on the card, at the slice's widths, on
    the leaves ``blocks/w_gate`` (whole), ``embed`` and ``blocks/q_norm``:
    the same diffs and noise through both exchanges; codes, scales and
@@ -216,12 +229,19 @@ Phases, in order; any failure exits non-zero before the result lines:
    256-blocks, f32, SLICE_STEPS steps as phase 6: B3 and B4 once per bucket
    group a step, the loss falling and finite, ``bits_per_step`` equal to 2
    hops x a host recount from the parameter shapes, peak memory below
-   FAMILY_PEAK_GB, step time and a ``torch.profiler`` window.  (c) B3/B4
+   FAMILY_PEAK_GB, step time and a ``torch.profiler`` window; each
+   trainer's ``[contracts]`` and ``[roofline]`` lines, as phase 6's.  (c) B3/B4
    against their plain versions, bit-equal, at every block width below 256
    of the six families' published widths and depth (8, 20, 64, 128) and at
    each bucket group of (b)'s trainers (16 and 256), ring payloads (S =
    3), each timed beside its bound, B3 on the variant it must take (the
    row one at block 20 only).
+14. (Run after phase 12, before the result lines.)  The contract audit
+   over every golden spec on the card (``repro_torch.check.contracts.
+   audit_spec_dir``): each spec's second step recorded under
+   ``set_sync_debug_mode("error")``; every finding printed; any FAIL fails
+   the run; a sharded spec's (4, 2) variant is listed as waiting for
+   ROADMAP A item 3.
 13. Result lines: ``{"kernels": [...]}`` (B1-B4; B3's entry also names
    its variant at each shape and the row variant's ms at the trainer's
    shape), the nvidia-smi line,
@@ -253,8 +273,6 @@ REPLAY_ELEM_TOL = 1e-4   # an element of X agrees within this x max|X| ...
 REPLAY_MAX_OFF = 1e-3    # ... except at most this fraction of X per step
 LARGE = (8, 12_582_912)  # 8 nodes x 2048*6144 parameters
 MAIN_SHAPE_ITERS = 200   # back-to-back calls timed at the main path's shape
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 B1_OPS_PER_ELEMENT = 10     # |x|, max, mul, div, add, floor, min, sign, mul, cvt
 B2_OPS_PER_ELEMENT = 2      # cvt, mul
 PROFILE_STEPS = 20          # main-path steps under torch.profiler
@@ -330,14 +348,42 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound_ms(nbytes: int, ops: int):
-    """(least time in ms, "bytes" or "operations") on an H100 SXM."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    """(least time in ms, "bytes" or "operations") on an H100 SXM: the
+    rates of ``repro_torch.obs.roofline`` (HBM_BW, PEAK_FLOPS: f32 outside
+    the tensor cores)."""
+    from repro_torch.obs.roofline import HBM_BW, PEAK_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BW, ops / PEAK_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def wire_bound(torch, kernel: str, block: int, rows: int, n_nodes: int,
+               counted: int, slack: int = 0, *, hops: int = 2,
+               receivers: int = 1, ops: int = 0):
+    """B3's or B4's bound (``bound_ms``) over the bytes
+    ``repro_torch.obs.roofline_gate.kernel_roofline`` prices a launch at:
+    its per-node model of one bucket group of ``rows`` rows of ``block``
+    (2 bits, f32 scales; B4 with ``hops`` received payloads and
+    ``receivers`` mix rows) times the ``n_nodes`` the launch covers.  The
+    bytes of the launch's own tensors, ``counted``, must agree: exactly
+    (B3), or within ``slack`` (B4: the weight table the model leaves
+    out)."""
+    from repro_torch.core import bucket
+    from repro_torch.obs import kernel_roofline
+    layout = bucket.compute_layout([(rows, block)], [torch.float32], bits=2,
+                                   block_for=lambda shape: block)
+    part = {"B3": "quantize_pack", "B4": "unpack_dequant_mix"}[kernel]
+    model = int(kernel_roofline(layout, hops=hops, receivers=receivers)
+                [part]["hbm_bytes"]) * n_nodes
+    require(0 <= counted - model <= slack,
+            f"{kernel} at {n_nodes} x {rows} x {block}: roofline_gate "
+            f"prices {model:,} bytes, its tensors hold {counted:,} (slack "
+            f"{slack})")
+    return bound_ms(model, ops)
 
 
 # --- phase 2 -------------------------------------------------------------------
@@ -1161,8 +1207,10 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
                   "plain_ms": cuda_ms(
                       torch, lambda: ref.qinf_quantize_pack_blocks_ref(
                           x, u, 2), iters=plain_iters, warmup=1)}
-            b3["bound_ms"], b3["bound_by"] = bound_ms(
-                nbytes(x, u, packed, scales), B3_OPS_PER_ELEMENT * x.numel())
+            b3["bound_ms"], b3["bound_by"] = wire_bound(
+                torch, "B3", block, rows_, n_nodes,
+                nbytes(x, u, packed, scales),
+                ops=B3_OPS_PER_ELEMENT * x.numel())
             b3["library_ms"] = None
             del xo, uo, runs
         del x, u, bx, bu
@@ -1184,9 +1232,10 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
                   "plain_ms": cuda_ms(
                       torch, lambda: ref.qinf_unpack_dequant_mix_blocks_ref(
                           P, Sc, w, 2), iters=plain_iters, warmup=1)}
-            b4["bound_ms"], b4["bound_by"] = bound_ms(
-                nbytes(P, Sc, w, mix, qself),
-                b4_ops_per_element(3, 1) * qself.numel())
+            b4["bound_ms"], b4["bound_by"] = wire_bound(
+                torch, "B4", block, rows_, n_nodes,
+                nbytes(P, Sc, w, mix, qself), nbytes(w),
+                ops=b4_ops_per_element(3, 1) * qself.numel())
             b4["library_ms"] = None
         del P, Sc, mix, qself
         if device == "cuda":
@@ -1239,8 +1288,10 @@ def b4_at_alternating_schedule(torch, qk, ref, errs,
              what)
     out = {"rows": [n_nodes, S, group_rows, 256], "T": T, "S": S,
            "variant": "row"}
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        nbytes(P, Sc, w, mix, qself), b4_ops_per_element(S, T) * qself.numel())
+    out["bound_ms"], out["bound_by"] = wire_bound(
+        torch, "B4", 256, group_rows, n_nodes, nbytes(P, Sc, w, mix, qself),
+        nbytes(w), hops=S - 1, receivers=T,
+        ops=b4_ops_per_element(S, T) * qself.numel())
     out["bound_gb"] = nbytes(P, Sc, w, mix, qself) / 1e9
     del mix, qself
     out["ms"] = cuda_ms(torch, lambda: qk.qinf_unpack_dequant_mix_blocks(
@@ -1427,6 +1478,79 @@ def held_out_loss(torch, runner, X, data, n_batches: int = 2) -> float:
     return total / n_batches
 
 
+def contracts_and_roofline(torch, runner, held, data, draws, hops: int,
+                           bits_per_hop: int, step_s: float):
+    """One trainer at its own width, from the state in ``held`` (a list;
+    the state is popped and consumed): (1) the contract audit of one step
+    (``repro_torch.check.contracts``: the second of two, under
+    ``set_sync_debug_mode("error")`` on the card): 2 x ``hops`` u8 ``pp``
+    calls, each hop's pair ``bits_per_hop`` / 8 bytes a node, no f64 op,
+    no host read; (2) ``repro_torch.obs.roofline.analyze`` over two more
+    steps: the analytic compute, memory and link terms beside the
+    FlopCounterMode FLOPs and ATen bytes of the second, the median
+    measured step ``step_s`` and ``mfu`` = model FLOPs / (``step_s`` x
+    PEAK_FLOPS)."""
+    from repro_torch import tree
+    from repro_torch.check import contracts
+    from repro_torch.obs import roofline
+    tr, spec = runner.trainer, runner.spec
+    state = held.pop()
+    leaves = [torch.empty(x.shape, dtype=x.dtype, device="meta")
+              for x in tree.leaves(state.plead.X)]
+    holder = [state]
+    del state
+    facts, state = contracts.trainer_step_facts(
+        runner, state=holder.pop(), data=data, draws=draws)
+    findings = contracts.audit_trainer(runner, spec.name, facts, leaves)
+    failed = [f for f in findings if f[1] is not True]
+    require(not failed and state is not None,
+            f"contracts of {spec.name}: {failed}")
+    pairs = [facts.calls[i][1] + facts.calls[i + 1][1]
+             for i in range(0, len(facts.calls), 2)]
+    require(len(facts.calls) == 2 * hops
+            and pairs == [bits_per_hop // 8] * hops,
+            f"{spec.name}: pp calls {facts.calls}, want {hops} pairs of "
+            f"{bits_per_hop // 8:,} B a node")
+    holder = [state]
+    del state
+    rf = roofline.analyze(runner, tr.mcfg, roofline.train_shape(spec),
+                          spec.n_nodes, state=holder.pop(), data=data,
+                          draws=draws)
+    out = dict(rf.as_dict(), measured_step_s=step_s,
+               mfu=rf.model_flops_per_chip / (step_s * roofline.PEAK_FLOPS),
+               counted_to_analytic_flops=rf.hlo_flops / rf.flops_per_chip,
+               aten_bytes_ms=rf.hlo_bytes / roofline.HBM_BW * 1e3)
+    return {"roofline": out,
+            "contracts": {"findings": findings,
+                          "pp_calls": [[str(d), b] for d, b in facts.calls],
+                          "reads": [list(r) for r in facts.reads]}}
+
+
+def print_contracts_and_roofline(tag: str, tp, smi: str) -> None:
+    """The ``[contracts]`` and ``[roofline]`` lines of a trainer."""
+    c, r, w = tp["contracts"], tp["roofline"], tp["run_report"]["roofline"]
+    calls = c["pp_calls"]
+    print(f"[contracts] {tag} {tp['spec']}: {len(calls)} pp calls a step, "
+          f"{sorted({d for d, _ in calls})}, {sum(b for _, b in calls):,} B "
+          f"a node ({calls[0][1]:,} + {calls[1][1]:,} a hop); "
+          + "; ".join(f"{'PASS' if ok else 'FAIL'} {cl.split(': ', 1)[1]}"
+                      for cl, ok, _ in c["findings"])
+          + " (set_sync_debug_mode error)", flush=True)
+    print(f"[roofline] {tag} {tp['spec']}: t_compute "
+          f"{r['t_compute_s'] * 1e3:.2f} ms, t_memory "
+          f"{r['t_memory_s'] * 1e3:.2f} ms, t_collective "
+          f"{r['t_collective_s'] * 1e3:.3f} ms, bottleneck "
+          f"{r['bottleneck']}; measured {r['measured_step_s'] * 1e3:.1f} ms "
+          f"(median); mfu {r['mfu']:.4f}; counted/analytic FLOPs "
+          f"{r['counted_to_analytic_flops']:.4f} ({r['hlo_flops_raw']:.4e} / "
+          f"{r['flops_per_chip']:.4e}); ATen bytes {r['hlo_bytes_raw']:.4e} "
+          f"({r['aten_bytes_ms']:.2f} ms at HBM_BW); wire (report) "
+          f"predicted {w['predicted_step_s'] * 1e3:.3f} ms = kernels "
+          f"{w['predicted_kernel_s'] * 1e3:.3f} + link "
+          f"{w['predicted_wire_s'] * 1e3:.3f}, {w['utilization']:.4f} of "
+          f"the run's mean step | {smi}", flush=True)
+
+
 def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
                  profile_steps: int = SLICE_PROFILE_STEPS, spec=None,
                  device: str = "cuda", hops: int = 2,
@@ -1500,7 +1624,13 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
     if profile_steps and device == "cuda":
         state, profile = profile_trainer(torch, runner, state, data, draws,
                                          profile_steps, trace_name)
-    return {"spec": spec.name, "steps": steps, "dtype": str(cfg.dtype),
+    held = [state]
+    del state
+    audited = contracts_and_roofline(
+        torch, runner, held, data, draws, hops, int(bits) // hops,
+        step_s[len(step_s) // 2] if step_s else report.s_per_step)
+    return {**audited, "spec": spec.name, "steps": steps,
+            "dtype": str(cfg.dtype),
             "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
                        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
                        "d_ff": cfg.d_ff, "vocab": cfg.vocab,
@@ -2529,7 +2659,7 @@ def serve_arch(torch, configs, TR, serve, arch: str, overrides: dict, *,
     profile = bound = None
     if on_card:
         last, cache = serve.prefill(cfg, sp, toks, prompt + gen, extras)
-        bound = decode_bytes(TR, cfg, cache, batch) / HBM_BYTES_PER_S * 1e3
+        bound = bound_ms(decode_bytes(TR, cfg, cache, batch), 0)[0]
         profile = profile_decode(torch, TR, cfg, sp, cache, last.argmax(-1),
                                  prompt)
         del last, cache
@@ -2571,6 +2701,32 @@ def serve_phase(torch, configs, TR, serve, device: str = "cuda",
                      device=device)
     win["window"] = window
     return {"archs": rows, "window": win}
+
+
+# --- phase 14 ------------------------------------------------------------------
+
+def golden_contracts(torch, device: str = "cuda", spec_dir=None):
+    """Phase 14: ``repro_torch.check.contracts.audit_spec_dir`` over every
+    golden spec on ``device`` (the audited step under
+    ``set_sync_debug_mode("error")`` on the card), every finding printed;
+    any FAIL fails the run.  A (4, 2) variant waits for ROADMAP A item 3
+    and is listed as such."""
+    from repro_torch.check import contracts
+    spec_dir = pathlib.Path(spec_dir or ROOT / "tests" / "golden_specs")
+    findings = contracts.audit_spec_dir(spec_dir, device)
+    for claim, ok, detail in findings:
+        mark = "WAIT" if ok is None else ("PASS" if ok else "FAIL")
+        print(f"[contracts] (14) {mark} {claim}"
+              + (f"   [{detail}]" if detail else ""), flush=True)
+    failed = [f for f in findings if f[1] is False]
+    waiting = [f for f in findings if f[1] is None]
+    n = len(findings) - len(waiting)
+    require(findings and not failed,
+            f"contract audit: {len(failed)} of {n} checks fail: {failed}")
+    return {"findings": findings,
+            "summary": f"OK: {n}/{n} checks hold over "
+                       f"{len(list(spec_dir.glob('*.json')))} golden specs, "
+                       f"{len(waiting)} wait for ROADMAP A item 3"}
 
 
 # --- phase 12 ------------------------------------------------------------------
@@ -2671,8 +2827,9 @@ def wire_case(torch, qk, ref, errs, block: int, rows: int, n_nodes: int = 8,
           "plain_ms": cuda_ms(
               torch, lambda: ref.qinf_quantize_pack_blocks_ref(x, u, 2),
               iters=plain_iters, warmup=1), "library_ms": None}
-    b3["bound_ms"], b3["bound_by"] = bound_ms(
-        nbytes(x, u, packed, scales), B3_OPS_PER_ELEMENT * x.numel())
+    b3["bound_ms"], b3["bound_by"] = wire_bound(
+        torch, "B3", block, rows, n_nodes, nbytes(x, u, packed, scales),
+        ops=B3_OPS_PER_ELEMENT * x.numel())
     del x, u
     P, Sc = ring_payloads(torch, packed, scales, n_nodes, rows)
     del packed, scales
@@ -2684,8 +2841,9 @@ def wire_case(torch, qk, ref, errs, block: int, rows: int, n_nodes: int = 8,
     check_b4(torch, ref, P, Sc, w, 2, torch.float32, (mix, qself), errs,
              what)
     b4 = {"variant": "vector" if vector else "row", "library_ms": None}
-    b4["bound_ms"], b4["bound_by"] = bound_ms(
-        nbytes(P, Sc, w, mix, qself), b4_ops_per_element(3, 1) * qself.numel())
+    b4["bound_ms"], b4["bound_by"] = wire_bound(
+        torch, "B4", block, rows, n_nodes, nbytes(P, Sc, w, mix, qself),
+        nbytes(w), ops=b4_ops_per_element(3, 1) * qself.numel())
     del mix, qself
     b4["ms"] = cuda_ms(torch, lambda: qk.qinf_unpack_dequant_mix_blocks(
         P, Sc, w, 2))
@@ -2949,6 +3107,7 @@ def main() -> int:
             print(f"[slice]   {t_['ms_per_step']:9.3f} ms/step "
                   f"x{t_['per_step']:.0f}  {t_['name']}", flush=True)
         print_wire_share("[slice]", pf)
+        print_contracts_and_roofline("(6)", sp, smi)
 
         # 6b. the same trainer under the alternating schedule (T = 2)
         torch.cuda.empty_cache()
@@ -2969,6 +3128,7 @@ def main() -> int:
               f"({ss['step_ms_min']:.1f} min), peak "
               f"{ss['peak_mem_gb']:.2f} GiB allocated, set-up "
               f"{ss['setup_s']:.1f} s | {smi}", flush=True)
+        print_contracts_and_roofline("(6b)", ss, smi)
 
         # 7. bucketed against per-leaf wire at the slice's widths
         bp = bucketed_vs_per_leaf(torch, api, draws_mod, wire, ref)
@@ -3184,6 +3344,7 @@ def main() -> int:
                 print(f"[family]   {t_['ms_per_step']:9.3f} ms/step "
                       f"x{t_['per_step']:.0f}  {t_['name']}", flush=True)
             print_wire_share("[family]", pf)
+            print_contracts_and_roofline("(12b)", ft, smi)
         for wc in fp["wire"]:
             for k in ("qinf_quantize_pack_blocks",
                       "qinf_unpack_dequant_mix_blocks"):
@@ -3195,6 +3356,15 @@ def main() -> int:
                       f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} by "
                       f"{v['bound_by']}, library none) | {smi}", flush=True)
         print(f"[family] phase {fp['seconds']:.1f} s", flush=True)
+
+        # 14. the contract audit over every golden spec on the card
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        ca = golden_contracts(torch)
+        ca["seconds"] = time.perf_counter() - t0
+        result["contracts"] = ca
+        print(f"[contracts] (14) {ca['summary']}; {ca['seconds']:.1f} s | "
+              f"{smi}", flush=True)
 
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -56,6 +56,7 @@ from repro_torch.core import prox as _prox                      # noqa: F401
 from repro_torch.core import prox_lead as _prox_lead            # noqa: F401
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.comm import DenseMixer
+from repro_torch.core.compression import Identity
 from repro_torch.core.draws import Draws, GeneratorDraws
 from repro_torch.data import synthetic as _synthetic            # noqa: F401
 from repro_torch.data.pipeline import DecentralizedBatches
@@ -64,6 +65,7 @@ from repro_torch.netsim import engine as netsim_engine
 from repro_torch.netsim import metrics as netsim_metrics
 from repro_torch.netsim import schedule as sched_mod
 from repro_torch.obs import (Meters, RunReport, build_report, span,
+                             step_roofline, trainer_wire_layout,
                              using_meters)
 from repro_torch.obs.report import device_label  # noqa: F401 (re-export)
 from repro_torch.optim import decentralized as dec
@@ -938,13 +940,28 @@ class TrainerRunner(Runner):
                 if callback is not None and log_every and t % log_every == 0:
                     logs.append(callback(state, metrics, t))
         tcfg = self.trainer.tcfg
+        mean_step = tsp.elapsed_s / num_steps if num_steps else 0.0
         self.last_report = build_report(
             name=sp.name if sp else "trainer", engine="sharded",
             device=self.device, steps=num_steps, total_s=tsp.elapsed_s,
             bits_per_step=self.bits_per_step(state), meters=meters,
+            roofline=self._wire_roofline(state, mean_step),
             extra={"backend": tcfg.backend, "wire_mode": tcfg.wire_mode,
                    "meters": meters.as_dict()})
         return state, logs
+
+    def _wire_roofline(self, state, mean_step_s: float) -> dict:
+        """Kernel/wire roofline of the bucketed neighbor wire
+        (:func:`repro_torch.obs.roofline_gate.step_roofline`; empty when
+        this trainer has no bucket layout to price: the dense backend, the
+        per-leaf wire, identity compression)."""
+        tr = self.trainer
+        if tr.plan is None or isinstance(tr.compressor, Identity) \
+                or tr.tcfg.wire_mode != "bucketed":
+            return {}
+        layout, _model = trainer_wire_layout(tr, tree.leaves(state.plead.X))
+        return step_roofline(layout, hops=len(tr.plan.hops),
+                             measured_step_s=mean_step_s or None)
 
     def bits_per_step(self, state=None) -> float:
         """Exact bits ONE node ships per train step.  Neighbor/ring: hops x

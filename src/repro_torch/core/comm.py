@@ -152,8 +152,12 @@ class NeighborMixer(Mixer):
 
     The plan's *dense reference semantics* on stacked (n, ...) leaves: hop
     by hop a gather stands in for the exchange, gated by the receiver's
-    weight for round ``k % T``."""
+    weight for round ``k % T``.  The per-round weights, gates and gather
+    indices are built on the device once per (dtype, device) and indexed
+    by round, so a mix moves nothing from the host."""
     plan: Any                       # repro_torch.core.topology.ExchangePlan
+    _cache: Dict[Any, Any] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def recompute_hw(self) -> bool:
@@ -171,6 +175,29 @@ class NeighborMixer(Mixer):
                 "round 0 would mix with the wrong W_k")
         return int(k) % self.plan.T
 
+    def _tables(self, acc: torch.dtype, device: torch.device):
+        """(self weights (T, n), [(gate (T, n), gets (n,)) per hop]) in
+        ``acc`` on ``device``, built once: a hop's gate is the receiver's
+        weight times whether it receives on that hop."""
+        key = (acc, device)
+        if key not in self._cache:
+            plan = self.plan
+            w_self = torch.as_tensor(plan.self_weights(np.float32),
+                                     device=device).to(acc)
+            hops = []
+            for hop in plan.hops:
+                gets = np.zeros(plan.n, np.int64)
+                mask = np.zeros(plan.n, np.float32)   # dst receives?
+                for (s, d) in hop.pairs:
+                    gets[d] = s
+                    mask[d] = 1.0
+                w = np.asarray(hop.weights, np.float32)
+                gate = (torch.as_tensor(w, device=device).to(acc)
+                        * torch.as_tensor(mask, device=device).to(acc))
+                hops.append((gate, torch.as_tensor(gets, device=device)))
+            self._cache[key] = (w_self, hops)
+        return self._cache[key]
+
     def mix_leaf(self, leaf, k=None):
         return self.mix_stacked((leaf,), k)[0]
 
@@ -180,26 +207,16 @@ class NeighborMixer(Mixer):
     def mix_stacked(self, X, k=None):
         """Apply the plan to stacked (n, ...) leaves."""
         t = self._round_idx(k)
-        plan = self.plan
-        w_self = plan.self_weights(np.float32)[t]
+        n = self.plan.n
 
         def mix_leaf(leaf):
             acc = acc_dtype(leaf.dtype)
             x = leaf.to(acc)
-            bshape = (plan.n,) + (1,) * (leaf.dim() - 1)
-            out = torch.as_tensor(w_self, device=x.device).to(acc) \
-                .reshape(bshape) * x
-            for hop in plan.hops:
-                gets = np.zeros(plan.n, np.int64)
-                mask = np.zeros(plan.n, np.float32)   # dst receives?
-                for (s, d) in hop.pairs:
-                    gets[d] = s
-                    mask[d] = 1.0
-                w = np.asarray(hop.weights, np.float32)[t]
-                gate = (torch.as_tensor(w, device=x.device).to(acc)
-                        * torch.as_tensor(mask, device=x.device).to(acc))
-                out = out + gate.reshape(bshape) * x[
-                    torch.as_tensor(gets, device=x.device)]
+            w_self, hops = self._tables(acc, x.device)
+            bshape = (n,) + (1,) * (leaf.dim() - 1)
+            out = w_self[t].reshape(bshape) * x
+            for gate, gets in hops:
+                out = out + gate[t].reshape(bshape) * x[gets]
             return out.to(leaf.dtype)
 
         return tree_map(mix_leaf, X)

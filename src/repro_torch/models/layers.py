@@ -11,6 +11,7 @@ carry the node dim are broadcast by the caller.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -71,6 +72,15 @@ def sinusoidal_pos(seq_len: int, dim: int, offset: int = 0) -> torch.Tensor:
     pe[:, 0::2] = np.sin(pos * div)
     pe[:, 1::2] = np.cos(pos * div)
     return torch.from_numpy(pe)
+
+
+@functools.lru_cache(maxsize=8)
+def sinusoidal_pos_on(seq_len: int, dim: int, device: torch.device,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """:func:`sinusoidal_pos` on ``device`` in ``dtype``, built once per
+    (seq_len, dim, device, dtype): a forward uploads nothing from the host
+    (a blocking copy that would stall the card's queue every step)."""
+    return sinusoidal_pos(seq_len, dim).to(device=device, dtype=dtype)
 
 
 def _mask(T: int, S: int, *, causal: bool, window: Optional[int],

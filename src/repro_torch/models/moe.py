@@ -61,7 +61,10 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
 
     # queue position of each (token, slot) in its expert, slots in (T, k)
     # order: the count of earlier slots routed to the same expert
-    assign = F.one_hot(gate_idx, E).reshape(N, B, T * top_k, E)
+    # one-hot by a scatter: F.one_hot range-checks its input on the host
+    assign = torch.zeros(gate_idx.shape + (E,), dtype=torch.int64,
+                         device=x.device).scatter_(
+        -1, gate_idx.unsqueeze(-1), 1).reshape(N, B, T * top_k, E)
     before = (assign.cumsum(dim=2) - assign).gather(
         -1, gate_idx.reshape(N, B, T * top_k, 1))[..., 0]
     pos = before.reshape(N, B, T, top_k)

@@ -23,6 +23,7 @@ single step in both.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -140,6 +141,13 @@ def rec_block(cfg, p, x, cache):
     return out, new_cache
 
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> torch.Tensor:
+    """sqrt(d_model) rounded to ``dtype``, a 0-d CPU tensor made once (a
+    forward lifts nothing from the host)."""
+    return torch.tensor(d_model ** 0.5, dtype=dtype)
+
+
 def forward(cfg, params, batch, *, mode="train", cache=None, pos=None):
     """(rec x (plen - 1), attn) units, then the trailing rec blocks ->
     (logits, new cache or None, 0.0).  The attention blocks run RoPE and
@@ -148,7 +156,7 @@ def forward(cfg, params, batch, *, mode="train", cache=None, pos=None):
                                                 attn_block, embed_tokens,
                                                 lm_logits, mlp_block)
     x = embed_tokens(cfg, params, batch["tokens"])
-    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
+    x = x * _embed_scale(cfg.d_model, cfg.dtype)
     plen = len(cfg.block_pattern)
     n_super = cfg.n_layers // plen
     n_rec = cfg.n_layers - n_super

@@ -400,7 +400,7 @@ def attn_block(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
         if g("k_norm") is not None:
             k = L.rmsnorm(k, _bc(g("k_norm"), k))
         if rope:
-            positions = (torch.tensor([pos], device=x.device)
+            positions = (torch.arange(pos, pos + 1, device=x.device)
                          if mode == "decode"
                          else torch.arange(T, device=x.device))
             cos, sin = L.rope_freqs(hd, cfg.rope_theta, positions)
@@ -570,8 +570,8 @@ def _forward_encdec(cfg, params, batch, *, mode, cache, pos):
     enc_out = None
     if mode != "decode":
         frames = batch["frames"].to(cfg.dtype)     # (N, B, S_enc, D) stub
-        pe = L.sinusoidal_pos(frames.shape[2], cfg.d_model).to(
-            device=frames.device, dtype=cfg.dtype)
+        pe = L.sinusoidal_pos_on(frames.shape[2], cfg.d_model,
+                                 frames.device, cfg.dtype)
         h, _, _ = run_stack(cfg, params["enc_blocks"], frames + pe,
                             mode="train", causal=False)
         enc_out = _norm(cfg, h, params["enc_final_norm"],

@@ -1,0 +1,188 @@
+"""What one step does, recorded: its ATen ops and its ``pp`` calls.
+
+Two recorders, shared by :func:`repro_torch.obs.roofline.analyze` and the
+contract audit (:mod:`repro_torch.check.contracts`):
+
+* :class:`StepRecorder` -- a ``TorchDispatchMode`` over a step.  It
+  records the ops that produce float64, the host reads (:class:`Read`)
+  and, when asked, the bytes every op reads and writes.  A host read is
+  one of:
+
+  - ``scalar``    -- ``aten._local_scalar_dense`` (``.item()``,
+    ``float(t)``, ``bool(t)``): the host waits for the value;
+  - ``shape``     -- an op whose output shape depends on the data
+    (``nonzero``, ``masked_select``, ``unique``, a boolean index, ...):
+    on the card it copies a count back before it can allocate;
+  - ``upload``    -- host data lifted into a tensor (``torch.tensor``,
+    ``torch.as_tensor``, ``torch.from_numpy`` of host values): where the
+    step runs on the card, a blocking host-to-device copy follows unless
+    the tensor stays on the CPU, and the CPU, which has no copy to make,
+    sees the same lift;
+  - ``transfer``  -- a copy between the CPU and a device.
+
+  Each read names the innermost frame of ``repro_torch`` that made it.
+* :class:`RecordingPP` -- a ``pp(x, pairs)`` seam that records each call's
+  dtype and the bytes one node sends (a row of the node-stacked ``x``)
+  before handing the call on; :func:`recording_pp` puts one in a
+  trainer's seam for a block.
+
+Kernels B1-B4 launch through the binding, not through ATen: no recorder
+here sees them.
+"""
+from __future__ import annotations
+
+import contextlib
+import pathlib
+import traceback
+from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent     # src/repro_torch
+_SELF = pathlib.Path(__file__).resolve()
+
+#: ops whose output shape depends on the values of their input
+DATA_DEPENDENT = frozenset({
+    "aten::nonzero", "aten::masked_select", "aten::unique_dim",
+    "aten::_unique", "aten::_unique2", "aten::unique_consecutive",
+    "aten::bincount", "aten::histc", "aten::argwhere", "aten::nonzero_numpy",
+})
+_INDEXING = frozenset({"aten::index", "aten::index_put", "aten::index_put_",
+                       "aten::_index_put_impl_"})
+_COPIES = frozenset({"aten::_to_copy", "aten::copy_"})
+
+
+class Read(NamedTuple):
+    """One host read: its kind (see the module docstring), the op, and
+    where in ``repro_torch`` it was made (``path:line function``)."""
+    kind: str
+    op: str
+    where: str
+
+
+def caller(frames=None) -> str:
+    """``path:line function`` of the innermost ``repro_torch`` frame of
+    ``frames`` (default: the stack) outside this module (path relative to
+    the package), or ``"?"``."""
+    for fr in reversed(frames or traceback.extract_stack()):
+        p = pathlib.Path(fr.filename).resolve()
+        if p == _SELF or _PKG not in p.parents:
+            continue
+        return f"{p.relative_to(_PKG).as_posix()}:{fr.lineno} {fr.name}"
+    return "?"
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _tensors(o)
+
+
+def _bool_index(args) -> bool:
+    return any(t.dtype == torch.bool for a in args[1:2]
+               for t in _tensors(a))
+
+
+class StepRecorder(TorchDispatchMode):
+    """Records the f64 ops, host reads and (``count_bytes``) op bytes of
+    the ATen calls made inside it (see the module docstring)."""
+
+    def __init__(self, *, count_bytes: bool = False) -> None:
+        super().__init__()
+        self.count_bytes = count_bytes
+        self.f64: List[str] = []       # ops with a float64 output
+        self.reads: List[Read] = []
+        self.bytes = 0                 # operand + output bytes, views free
+
+    def _read(self, kind: str, name: str) -> None:
+        self.reads.append(Read(kind, name, caller()))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func._schema.name
+        outs = list(_tensors(out))
+        if any(t.dtype == torch.float64 for t in outs):
+            self.f64.append(str(func))
+        if name == "aten::_local_scalar_dense":
+            self._read("scalar", str(func))
+        elif name in DATA_DEPENDENT or (
+                name == "aten::repeat_interleave"
+                and func._overloadname == "Tensor"
+                and kwargs.get("output_size") is None):
+            self._read("shape", str(func))
+        elif name in _INDEXING and _bool_index(args):
+            self._read("shape", str(func))
+        elif name == "aten::lift_fresh":
+            self._read("upload", str(func))
+        elif name in _COPIES:
+            src = [t.device.type for t in _tensors(args[:2])]
+            if any(t.device.type != s for t in outs for s in src):
+                self._read("transfer", str(func))
+        if self.count_bytes and not func.is_view:
+            self.bytes += sum(t.numel() * t.element_size()
+                              for t in _tensors((args, kwargs)))
+            self.bytes += sum(t.numel() * t.element_size() for t in outs)
+        return out
+
+
+class RecordingPP:
+    """A ``pp(x, pairs)`` seam that records ``(dtype, bytes one node
+    sends)`` for each call in ``calls`` and hands the call on to ``inner``
+    (default: :func:`repro_torch.optim.wire.stacked_pp`)."""
+
+    def __init__(self, inner: Optional[Callable] = None) -> None:
+        self.inner = inner
+        self.calls: List[Tuple[torch.dtype, int]] = []
+
+    def __call__(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        if self.inner is None:
+            from repro_torch.optim.wire import stacked_pp
+            self.inner = stacked_pp
+        per_node = x.numel() // x.shape[0] if x.dim() else x.numel()
+        self.calls.append((x.dtype, per_node * x.element_size()))
+        return self.inner(x, pairs)
+
+
+def warm_trainer(runner, state=None, data=None, draws=None):
+    """The first of two steps of a :class:`repro_torch.api.TrainerRunner`
+    from ``state`` (default: a fresh one; consumed) over ``data`` (default:
+    the spec's stream) with ``draws`` (default: a generator seeded
+    ``spec.seed``): it builds the caches and lazy index tensors a step
+    keeps.  -> (the state after it, the second step's batch, draws): the
+    second step is the one to record."""
+    from repro_torch.core.draws import GeneratorDraws
+    if state is None:
+        state = runner.init_state()
+    if data is None:
+        data = runner.default_data()
+    if draws is None:
+        draws = GeneratorDraws(runner.spec.seed if runner.spec else 0,
+                               runner.device)
+    t0 = int(state.step)
+    state, _ = runner.step(state, data.batch_at(t0), draws)
+    return state, data.batch_at(t0 + 1), draws
+
+
+@contextlib.contextmanager
+def recording_pp(trainer):
+    """A :class:`RecordingPP` in ``trainer.pp`` for the block, its
+    ``calls`` empty on entry: the trainer's own when it already has one
+    (``build_trainer_runner(..., pp=RecordingPP())``), else one wrapped
+    around its seam and taken out again on exit."""
+    if isinstance(trainer.pp, RecordingPP):
+        trainer.pp.calls.clear()
+        yield trainer.pp
+        return
+    rec = RecordingPP(trainer.pp)
+    trainer.pp = rec
+    try:
+        yield rec
+    finally:
+        trainer.pp = rec.inner

@@ -18,6 +18,9 @@ timing     the measured mean step time beside the analytic time of the
 wire       scope, bits per step and in all, and the wire gauges (bytes a
            hop, hops, collectives a step) of the run's meters.
 meters     the run's :class:`~repro_torch.obs.meters.Meters` snapshot.
+roofline   :func:`repro_torch.obs.roofline_gate.step_roofline` of the
+           run's wire when the engine has a bucket layout to price (the
+           neighbor trainer's bucketed wire with QInf), else empty.
 extra      engine-specific fields (algo, schedule, points, ...).
 =========  ================================================================
 """
@@ -29,10 +32,7 @@ import pathlib
 from typing import Any, Dict, Optional
 
 from repro_torch.obs.meters import Meters, env_info
-
-#: one direction of an H100 SXM's NVLink (900 GB/s both ways, NVIDIA's
-#: H100 data sheet), bytes/s: the link the analytic wire time assumes
-LINK_BW = 450e9
+from repro_torch.obs.roofline import LINK_BW
 
 
 @dataclasses.dataclass
@@ -49,6 +49,7 @@ class RunReport:
     timing: Dict[str, float] = dataclasses.field(default_factory=dict)
     wire: Dict[str, Any] = dataclasses.field(default_factory=dict)
     meters: Dict[str, float] = dataclasses.field(default_factory=dict)
+    roofline: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def s_per_step(self) -> float:
@@ -95,6 +96,7 @@ def build_report(*, name: str, engine: str, device, steps: int,
                  total_s: float, bits_per_step: float = 0.0,
                  bits_total: Optional[float] = None, scope: str = "node",
                  meters: Optional[Meters] = None,
+                 roofline: Optional[Dict] = None,
                  extra: Optional[Dict] = None) -> RunReport:
     """A RunReport from a run's measured seconds and exact bit accounting,
     the shared sections filled in here, so every engine reports through
@@ -117,4 +119,4 @@ def build_report(*, name: str, engine: str, device, steps: int,
         total_s=float(total_s), bits_per_step=float(bits_per_step),
         extra=dict(extra or {}), scope=scope, env=env_info(device),
         timing=wire_breakdown(total_s, steps, bits_per_step), wire=wire,
-        meters=m)
+        meters=m, roofline=dict(roofline or {}))

@@ -56,7 +56,13 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/rwkv6.py",
                  "src/repro_torch/models/rglru.py",
-                 "src/repro_torch/configs/shapes.py", "chip_smoke.py",
+                 "src/repro_torch/configs/shapes.py",
+                 "src/repro_torch/obs/roofline.py",
+                 "src/repro_torch/obs/roofline_gate.py",
+                 "src/repro_torch/obs/record.py",
+                 "src/repro_torch/check/__init__.py",
+                 "src/repro_torch/check/contracts.py",
+                 "src/repro_torch/check/__main__.py", "chip_smoke.py",
                  "launch_cost.py"):
         assert must in names
 

@@ -490,6 +490,71 @@ def test_engines_refuse_what_they_do_not_run():
         tapi.ExperimentSpec.from_dict(dict(d, execution={"engine": "warp"}))
 
 
+def _mix_per_call(plan, leaf, k):
+    """``NeighborMixer.mix_stacked`` as it was built before its tables were
+    cached: every round's weights, gates and gather indices made from the
+    plan's numpy arrays at each call."""
+    t = 0 if plan.T == 1 else int(k) % plan.T
+    acc = tcomm.acc_dtype(leaf.dtype)
+    x = leaf.to(acc)
+    bshape = (plan.n,) + (1,) * (leaf.dim() - 1)
+    out = torch.as_tensor(plan.self_weights(np.float32)[t]).to(acc) \
+        .reshape(bshape) * x
+    for hop in plan.hops:
+        gets = np.zeros(plan.n, np.int64)
+        mask = np.zeros(plan.n, np.float32)
+        for (s, d) in hop.pairs:
+            gets[d] = s
+            mask[d] = 1.0
+        w = np.asarray(hop.weights, np.float32)[t]
+        gate = torch.as_tensor(w).to(acc) * torch.as_tensor(mask).to(acc)
+        out = out + gate.reshape(bshape) * x[torch.as_tensor(gets)]
+    return out.to(leaf.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sched", ["alternating", "random_matching"])
+def test_neighbor_mixer_cached_tables_change_nothing(sched, dtype):
+    """The mixer builds its per-round tables once and indexes them by
+    round: its output equals the per-call construction element for
+    element at every round k = 0..T-1 of a scheduled plan (and k = T, the
+    cycle's wrap), the tables built once per (dtype, device)."""
+    s = tnetsim.make_schedule(sched, 8, rounds=4)
+    plan = ttopo.compile_plan(s.W_stack, name=s.name)
+    mixer = tcomm.NeighborMixer(plan)
+    X = torch.as_tensor(np.random.default_rng(1).normal(size=(8, 6, 4)),
+                        dtype=dtype)
+    assert plan.T == s.T_cycle > 1
+    for k in range(plan.T + 1):
+        assert torch.equal(mixer.mix_stacked((X,), k)[0],
+                           _mix_per_call(plan, X, k))
+    assert list(mixer._cache) == [(tcomm.acc_dtype(dtype),
+                                   torch.device("cpu"))]
+
+
+@pytest.mark.cuda
+def test_cuda_neighbor_mixer_moves_nothing_from_the_host():
+    """On the card a mix after the first reads its tables from the device:
+    no blocking host-to-device copy (``set_sync_debug_mode("error")``), and
+    the result equals the plain CPU mix."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s = tnetsim.make_schedule("alternating", 8)
+    plan = ttopo.compile_plan(s.W_stack, name=s.name)
+    mixer = tcomm.NeighborMixer(plan)
+    X = torch.randn(8, 6, 4, dtype=torch.float64)
+    Xc = X.cuda()
+    mixer.mix_stacked((Xc,), 0)
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [mixer.mix_stacked((Xc,), k)[0] for k in range(plan.T)]
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+    for k in range(plan.T):
+        assert torch.equal(got[k].cpu(), mixer.mix_stacked((X,), k)[0])
+
+
 # --- B4 at the alternating schedule's T = 2, S = 6 (card) --------------------------
 
 @pytest.mark.cuda
