@@ -240,11 +240,29 @@ Phases, in order; any failure exits non-zero before the result lines:
    over every golden spec on the card (``repro_torch.check.contracts.
    audit_spec_dir``): each spec's second step recorded under
    ``set_sync_debug_mode("error")``; every finding printed; any FAIL fails
-   the run; a sharded spec's (4, 2) variant is listed as waiting for
-   ROADMAP A item 3.
+   the run; each sharded spec is audited at (8, 1) and at (4, 2), and
+   none waits.
+15. Model-sharded meshes: the node's leaves cut into M model shards on the
+   bucketed wire, all M in one process.  (a) The golden
+   ``trainer_neighbor_alternating_4x2`` spec: GOLDEN_4X2_STEPS steps card
+   against CPU (phase 8's check, B3/B4 once per bucket group a step); the
+   contract audit of a step, its ``pp`` bytes GOLDEN_4X2_SHARD_BYTES a
+   model shard (the reference's figure on its 8-device mesh); every B3
+   and B4 launch of a step bit-equal to its plain version on the same
+   operands.  (b) Phase 6's slice on the mesh (8, 2), SLICE_STEPS steps:
+   B3 and B4 once per bucket group a step, ``bits_per_step`` = 2 hops x
+   SLICE_8X2_BITS_PER_HOP, the ``[contracts]`` (each hop's pair 92,736,352
+   B a node) and ``[roofline]`` lines, peak memory, the median step beside
+   phase 6's from the same call.  (c) B3/B4 at that layout's two groups (8
+   nodes x 2 shards x 351,272 rows of 256, and of 4 rows of 128) against
+   their plain versions, timed beside their bounds.  Several processes
+   (``DistPP``) are not run: the machine has one card, and NCCL refuses
+   two ranks on one device; the gloo path is tested on the CPU
+   (``tests/test_torch_dist.py``).
 13. Result lines: ``{"kernels": [...]}`` (B1-B4; B3's entry also names
    its variant at each shape and the row variant's ms at the trainer's
-   shape), the nvidia-smi line,
+   shape; B3's and B4's the (8, 2) groups and launches), the nvidia-smi
+   line,
    and last ``{"ok": true, "device": {...}}``.  Everything is also written to
    ``chiprun_out/chip_smoke.json``.
 
@@ -363,22 +381,22 @@ def nbytes(*ts) -> int:
 
 def wire_bound(torch, kernel: str, block: int, rows: int, n_nodes: int,
                counted: int, slack: int = 0, *, hops: int = 2,
-               receivers: int = 1, ops: int = 0):
+               receivers: int = 1, ops: int = 0, shards: int = 1):
     """B3's or B4's bound (``bound_ms``) over the bytes
     ``repro_torch.obs.roofline_gate.kernel_roofline`` prices a launch at:
     its per-node model of one bucket group of ``rows`` rows of ``block``
-    (2 bits, f32 scales; B4 with ``hops`` received payloads and
-    ``receivers`` mix rows) times the ``n_nodes`` the launch covers.  The
-    bytes of the launch's own tensors, ``counted``, must agree: exactly
-    (B3), or within ``slack`` (B4: the weight table the model leaves
-    out)."""
+    a model shard (2 bits, f32 scales; B4 with ``hops`` received payloads
+    and ``receivers`` mix rows; ``shards`` model shards a node) times the
+    ``n_nodes`` the launch covers.  The bytes of the launch's own tensors,
+    ``counted``, must agree: exactly (B3), or within ``slack`` (B4: the
+    weight table the model leaves out)."""
     from repro_torch.core import bucket
     from repro_torch.obs import kernel_roofline
     layout = bucket.compute_layout([(rows, block)], [torch.float32], bits=2,
                                    block_for=lambda shape: block)
     part = {"B3": "quantize_pack", "B4": "unpack_dequant_mix"}[kernel]
-    model = int(kernel_roofline(layout, hops=hops, receivers=receivers)
-                [part]["hbm_bytes"]) * n_nodes
+    model = int(kernel_roofline(layout, hops=hops, receivers=receivers,
+                                shards=shards)[part]["hbm_bytes"]) * n_nodes
     require(0 <= counted - model <= slack,
             f"{kernel} at {n_nodes} x {rows} x {block}: roofline_gate "
             f"prices {model:,} bytes, its tensors hold {counted:,} (slack "
@@ -1149,14 +1167,18 @@ def check_wire_kernels(torch, qk, ref, errs, n_nodes=2, rows=8 * 31 + 5,
     return n_checked, n_vector
 
 
-def ring_payloads(torch, packed, scales, n_nodes: int, group_rows: int):
+def ring_payloads(torch, packed, scales, n_nodes: int, group_rows: int,
+                  shift: int = 1):
     """What B4 gets on a ring: each node's own payload (sender 0) and
     those of its two neighbours, node-stacked (N, 3, rows, W) and
-    (N, 3, rows, 1)."""
+    (N, 3, rows, 1).  With M model shards a node the N rows are shard
+    rows and a neighbour is ``shift`` = M rows away."""
     p = packed.reshape(n_nodes, group_rows, -1)
     s = scales.reshape(n_nodes, group_rows, 1)
-    return (torch.stack([p, p.roll(1, 0), p.roll(-1, 0)], 1).contiguous(),
-            torch.stack([s, s.roll(1, 0), s.roll(-1, 0)], 1).contiguous())
+    return (torch.stack([p, p.roll(shift, 0), p.roll(-shift, 0)],
+                        1).contiguous(),
+            torch.stack([s, s.roll(shift, 0), s.roll(-shift, 0)],
+                        1).contiguous())
 
 
 def wire_kernels_at_slice_shape(torch, qk, ref, errs,
@@ -2709,24 +2731,154 @@ def golden_contracts(torch, device: str = "cuda", spec_dir=None):
     """Phase 14: ``repro_torch.check.contracts.audit_spec_dir`` over every
     golden spec on ``device`` (the audited step under
     ``set_sync_debug_mode("error")`` on the card), every finding printed;
-    any FAIL fails the run.  A (4, 2) variant waits for ROADMAP A item 3
-    and is listed as such."""
+    any FAIL fails the run.  Each sharded spec's (4, 2) variant is audited
+    too: none waits."""
     from repro_torch.check import contracts
     spec_dir = pathlib.Path(spec_dir or ROOT / "tests" / "golden_specs")
     findings = contracts.audit_spec_dir(spec_dir, device)
     for claim, ok, detail in findings:
-        mark = "WAIT" if ok is None else ("PASS" if ok else "FAIL")
-        print(f"[contracts] (14) {mark} {claim}"
+        print(f"[contracts] (14) {'PASS' if ok else 'FAIL'} {claim}"
               + (f"   [{detail}]" if detail else ""), flush=True)
-    failed = [f for f in findings if f[1] is False]
-    waiting = [f for f in findings if f[1] is None]
-    n = len(findings) - len(waiting)
+    failed = [f for f in findings if f[1] is not True]
+    n = len(findings)
     require(findings and not failed,
             f"contract audit: {len(failed)} of {n} checks fail: {failed}")
     return {"findings": findings,
             "summary": f"OK: {n}/{n} checks hold over "
                        f"{len(list(spec_dir.glob('*.json')))} golden specs, "
-                       f"{len(waiting)} wait for ROADMAP A item 3"}
+                       f"none waits"}
+
+
+# --- phase 15 ------------------------------------------------------------------
+
+GOLDEN_4X2 = ROOT / "tests" / "golden_specs" / \
+    "trainer_neighbor_alternating_4x2.json"
+GOLDEN_4X2_SHARD_BYTES = 86_076  # a model shard a step (the reference's audit)
+GOLDEN_4X2_STEPS = 3
+MESH_8X2 = (8, 2)
+SLICE_8X2_BITS_PER_HOP = 741_890_816   # a node's two shard payloads a hop
+
+
+@contextlib.contextmanager
+def captured_wire_kernels(qk):
+    """Every B3 and B4 call in the block, with clones of its operands and
+    results: ``calls`` [(kernel, args, results)].  Restored on exit."""
+    calls = []
+    saved = {k: getattr(qk, k) for k in ("qinf_quantize_pack_blocks",
+                                         "qinf_unpack_dequant_mix_blocks")}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def inner(*a, **k):
+            out = fn(*a, **k)
+            calls.append((name, [x.clone() if hasattr(x, "clone") else x
+                                 for x in a], [o.clone() for o in out]))
+            return out
+        return inner
+
+    for name, fn in saved.items():
+        setattr(qk, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(qk, name, fn)
+
+
+def golden_mesh_on_card(torch, api, convert, draws_mod, tree, qk, ref, errs,
+                        device: str = "cuda", steps: int = GOLDEN_4X2_STEPS):
+    """Phase 15 (a): the golden ``trainer_neighbor_alternating_4x2`` spec
+    (4 nodes x 2 model shards, alternating schedule, 3 hops, T = 2) on the
+    card.  (1) ``steps`` steps card against CPU (phase 8's check: the CPU
+    path draws, the card replays; phase 4's tolerance), B3 and B4 once per
+    bucket group a step; (2) the contract audit of a step: 2 x 3 u8 ``pp``
+    calls, GOLDEN_4X2_SHARD_BYTES a model shard (2 x that a node), no f64,
+    no host read; (3) every B3 and B4 launch of a step against its plain
+    version on the same operands, bit-equal (its four groups, 8 shard rows
+    a launch, B4 at S = 4 senders and T = 2 rounds)."""
+    from repro_torch.check import contracts
+    from repro_torch.obs.record import RecordingPP
+    spec = api.ExperimentSpec.load(GOLDEN_4X2)
+    out = {"spec": spec.name, "mesh": list(spec.execution.mesh)}
+    out["card_vs_cpu"] = trainer_card_vs_cpu(
+        torch, api, convert, draws_mod, tree, steps=steps, device=device,
+        spec=spec, qk=qk)
+    runner = api.build_trainer_runner(spec, device=device, pp=RecordingPP())
+    tr = runner.trainer
+    hops = len(tr.plan.hops)
+    state = runner.init_state()
+    leaves = [torch.empty(x.shape, dtype=x.dtype, device="meta")
+              for x in tree.leaves(state.plead.X)]
+    facts, state = contracts.trainer_step_facts(runner, state=state)
+    findings = contracts.audit_trainer(runner, spec.name, facts, leaves)
+    per_node = sum(b for _, b in facts.calls)
+    require(all(ok for _, ok, _ in findings) and state is not None,
+            f"contracts of {spec.name}: {findings}")
+    require(len(facts.calls) == 2 * hops and per_node == 2 *
+            GOLDEN_4X2_SHARD_BYTES, f"{spec.name}: pp calls {facts.calls}, "
+            f"want {2 * hops} summing to 2 x {GOLDEN_4X2_SHARD_BYTES:,} B")
+    out.update(findings=findings, pp_calls=[[str(d), b] for d, b in
+                                            facts.calls],
+               pp_bytes_a_shard=per_node // tr.wire_shards,
+               bits_per_step=runner.bits_per_step())
+    data = runner.default_data()
+    draws = draws_mod.GeneratorDraws(spec.seed, runner.device)
+    with captured_wire_kernels(qk) as calls:
+        runner.step(state, data.batch_at(int(state.step)), draws)
+    groups = tr.wire_layout().groups
+    require(len(calls) == 2 * len(groups), f"{spec.name}: {len(calls)} "
+            f"B3/B4 calls in a step, want 2 x {len(groups)} groups")
+    checked = []
+    for name, args, res in calls:
+        what = f"at {spec.name}'s group of {tuple(args[0].shape)}"
+        if name == "qinf_quantize_pack_blocks":
+            check_b3(torch, ref, args[0], args[1], args[2], res, errs, what)
+        else:
+            check_b4(torch, ref, args[0], args[1], args[2], args[3],
+                     args[4] if len(args) > 4 else torch.float32, res, errs,
+                     what)
+        checked.append([name, list(args[0].shape)])
+    out["wire_kernels_checked"] = checked
+    return out
+
+
+def mesh_slice_phase(torch, api, draws_mod, tree, qk, ref, errs,
+                     device: str = "cuda", steps: int = SLICE_STEPS,
+                     profile_steps: int = SLICE_PROFILE_STEPS, wire=True,
+                     spec=None):
+    """Phase 15 (b): the slice's trainer (phase 6's spec) on the mesh
+    (8, 2): each node's leaves cut into 2 model shards on the bucketed
+    wire, 8 x 2 shard rows a B3/B4 launch.  ``trainer_path``: the launch
+    counters zeroed just before the run and read just after (B3 and B4
+    once per bucket group a step), ``bits_per_step`` = 2 hops x
+    SLICE_8X2_BITS_PER_HOP, the contract audit (each hop's pair 92,736,352
+    B a node) and the roofline, peak memory, step times.  (c) B3/B4 at
+    the two groups of this layout (8 x 2 x 351,272 rows of 256, 8 x 2 x 4
+    of 128), against their plain versions and timed beside their bounds
+    (``roofline_gate.kernel_roofline`` with 2 shards a node).  ``spec``:
+    another base than phase 6's (a small one rehearses this on the
+    CPU)."""
+    spec = spec or slice_spec(api, steps)
+    spec = dataclasses.replace(
+        spec, name=spec.name + "-mesh8x2", execution=dataclasses.replace(
+            spec.execution, mesh=MESH_8X2))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out = trainer_path(torch, api, draws_mod, qk, steps=steps, spec=spec,
+                       device=device, profile_steps=profile_steps,
+                       bits_per_hop=SLICE_8X2_BITS_PER_HOP,
+                       trace_name="slice_8x2_trace.json")
+    tr = api.build(spec, device="cpu").trainer
+    require(tr.wire_shards == MESH_8X2[1], f"{spec.name}: the wire cuts "
+            f"{tr.wire_shards} shards, not {MESH_8X2[1]}")
+    out["wire"] = []
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for g in (tr.wire_layout().groups if wire else ()):
+        out["wire"].append(wire_case(torch, qk, ref, errs, g.block, g.rows,
+                                     n_nodes=MESH_8X2[0],
+                                     shards=MESH_8X2[1], device=device))
+    return out
 
 
 # --- phase 12 ------------------------------------------------------------------
@@ -2805,16 +2957,18 @@ def family_wire_cases(api, tree, TR, trainer_specs):
 
 
 def wire_case(torch, qk, ref, errs, block: int, rows: int, n_nodes: int = 8,
-              plain_iters: int = 3, device: str = "cuda"):
-    """B3 on (n_nodes x rows, block) f32 rows and B4 on their ring payloads
-    (S = 3, T = 1, weights 1/3, f32 out), each against its plain version
-    (bit-equal) and timed (CUDA events) beside its bytes-or-operations
-    bound."""
+              plain_iters: int = 3, device: str = "cuda", shards: int = 1):
+    """B3 on (n_nodes x shards x rows, block) f32 rows and B4 on their
+    ring payloads (S = 3, T = 1, weights 1/3, f32 out), each against its
+    plain version (bit-equal) and timed (CUDA events) beside its
+    bytes-or-operations bound; ``shards``: model shards a node, ``rows``
+    a shard's."""
     g = torch.Generator(device=device).manual_seed(block)
-    R = n_nodes * rows
+    R = n_nodes * shards * rows
     x = torch.randn((R, block), generator=g, device=device)
     u = torch.rand((R, block), generator=g, device=device)
-    what = f"at block {block} ({n_nodes} x {rows} rows)"
+    what = (f"at block {block} ({n_nodes} x {shards} x {rows} rows)"
+            if shards > 1 else f"at block {block} ({n_nodes} x {rows} rows)")
     b3_vector = b3_vector_expected(block, 2)
     require(device != "cuda" or qk.uses_vector_variant(
         "qinf_quantize_pack_blocks", x, u, 2) is b3_vector,
@@ -2829,11 +2983,12 @@ def wire_case(torch, qk, ref, errs, block: int, rows: int, n_nodes: int = 8,
               iters=plain_iters, warmup=1), "library_ms": None}
     b3["bound_ms"], b3["bound_by"] = wire_bound(
         torch, "B3", block, rows, n_nodes, nbytes(x, u, packed, scales),
-        ops=B3_OPS_PER_ELEMENT * x.numel())
+        ops=B3_OPS_PER_ELEMENT * x.numel(), shards=shards)
     del x, u
-    P, Sc = ring_payloads(torch, packed, scales, n_nodes, rows)
+    P, Sc = ring_payloads(torch, packed, scales, n_nodes * shards, rows,
+                          shift=shards)
     del packed, scales
-    w = torch.full((n_nodes, 1, 3), 1.0 / 3.0, device=device)
+    w = torch.full((n_nodes * shards, 1, 3), 1.0 / 3.0, device=device)
     mix, qself = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, 2)
     vector = device == "cuda" and qk.uses_vector_variant(
         "qinf_unpack_dequant_mix_blocks", P.data_ptr(), mix.data_ptr(),
@@ -2843,7 +2998,8 @@ def wire_case(torch, qk, ref, errs, block: int, rows: int, n_nodes: int = 8,
     b4 = {"variant": "vector" if vector else "row", "library_ms": None}
     b4["bound_ms"], b4["bound_by"] = wire_bound(
         torch, "B4", block, rows, n_nodes, nbytes(P, Sc, w, mix, qself),
-        nbytes(w), ops=b4_ops_per_element(3, 1) * qself.numel())
+        nbytes(w), ops=b4_ops_per_element(3, 1) * qself.numel(),
+        shards=shards)
     del mix, qself
     b4["ms"] = cuda_ms(torch, lambda: qk.qinf_unpack_dequant_mix_blocks(
         P, Sc, w, 2))
@@ -2853,7 +3009,9 @@ def wire_case(torch, qk, ref, errs, block: int, rows: int, n_nodes: int = 8,
     del P, Sc
     if device == "cuda":
         torch.cuda.empty_cache()
-    return {"block": block, "rows": [n_nodes, rows, block],
+    return {"block": block, "rows": ([n_nodes, shards, rows, block]
+                                     if shards > 1 else
+                                     [n_nodes, rows, block]),
             "qinf_quantize_pack_blocks": b3,
             "qinf_unpack_dequant_mix_blocks": b4}
 
@@ -3366,6 +3524,63 @@ def main() -> int:
         print(f"[contracts] (14) {ca['summary']}; {ca['seconds']:.1f} s | "
               f"{smi}", flush=True)
 
+        # 15. model-sharded meshes
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        gm = golden_mesh_on_card(torch, api, convert, draws_mod, tree, qk,
+                                 ref, errs)
+        result["golden_mesh"] = gm
+        cc = gm["card_vs_cpu"]
+        print(f"[mesh] (15a) {gm['spec']} at {gm['mesh']}: card vs CPU, "
+              f"{cc['steps']} steps: worst off fraction "
+              f"{cc['worst_off_fraction']:.2e}, worst |diff|/max "
+              f"{cc['worst_rel_max']:.2e}; launches {cc['launches']} "
+              f"({cc['bucket_groups']} bucket groups); pp "
+              f"{len(gm['pp_calls'])} u8 calls a step, "
+              f"{gm['pp_bytes_a_shard']:,} B a model shard; "
+              f"{len(gm['wire_kernels_checked'])} B3/B4 launches of a step "
+              f"bit-equal to the plain versions "
+              f"{[s_ for _, s_ in gm['wire_kernels_checked']]}; "
+              + "; ".join(f"{'PASS' if ok else 'FAIL'} "
+                          f"{cl.split(': ', 1)[1]}"
+                          for cl, ok, _ in gm["findings"]), flush=True)
+        torch.cuda.empty_cache()
+        ms_ = mesh_slice_phase(torch, api, draws_mod, tree, qk, ref, errs)
+        ms_["seconds"] = time.perf_counter() - t0
+        result["mesh_slice"] = ms_
+        print(f"[mesh] (15b) {ms_['spec']}: {ms_['steps']} steps, loss "
+              f"(mean of {LOSS_WINDOW}) {ms_['loss_first_window']:.6f} -> "
+              f"{ms_['loss_last_window']:.6f}, held out "
+              f"{ms_['held_out_loss'][0]:.6f} -> "
+              f"{ms_['held_out_loss'][1]:.6f}; launches {ms_['launches']} "
+              f"({ms_['bucket_groups']} bucket groups); "
+              f"{ms_['bits_per_step']:.0f} bits/step/node", flush=True)
+        print(f"[mesh] (15b) step {ms_['step_ms_median']:.1f} ms median "
+              f"({ms_['step_ms_min']:.1f} min) vs phase 6's (8, 1) "
+              f"{sp['step_ms_median']:.1f} ms; peak {ms_['peak_mem_gb']:.2f} "
+              f"GiB vs {sp['peak_mem_gb']:.2f}; set-up {ms_['setup_s']:.1f} s "
+              f"| {smi}", flush=True)
+        pf = ms_["profile"]
+        print(f"[mesh] (15b) profile: {pf['wall_ms_per_step']:.1f} ms/step "
+              f"wall, {pf['device_ms_per_step']:.1f} ms/step on the device "
+              f"(busy {pf['busy_share']:.1%}), "
+              f"{pf['device_ops_per_step']:.0f} device ops/step", flush=True)
+        print_wire_share("[mesh]", pf)
+        print_contracts_and_roofline("(15b)", ms_, smi)
+        for wc in ms_["wire"]:
+            for k in ("qinf_quantize_pack_blocks",
+                      "qinf_unpack_dequant_mix_blocks"):
+                v = wc[k]
+                print(f"[mesh] (15c) {k} @ {wc['rows']} ({v['variant']} "
+                      f"variant): bit-equal; {v['ms']:.4f} ms "
+                      f"({100 * v['bound_ms'] / v['ms']:.1f} % of the bound; "
+                      f"plain {v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} "
+                      f"by {v['bound_by']}, library none) | {smi}",
+                      flush=True)
+        print(f"[mesh] phase {ms_['seconds']:.1f} s; several processes "
+              f"(DistPP) not run here: one card, and NCCL refuses two ranks "
+              f"on one device", flush=True)
+
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3409,6 +3624,12 @@ def main() -> int:
             extra["family_card_vs_cpu_launches"] = {
                 cc["spec"]: cc["launches"][name_]
                 for cc in fp["card_vs_cpu"]}
+            extra["mesh_8x2_launches"] = ms_["launches"][name_]
+            extra["mesh_8x2_widths"] = [
+                {"block": wc["block"], "rows": wc["rows"], **wc[name_]}
+                for wc in ms_["wire"]]
+            extra["golden_4x2_launches"] = \
+                gm["card_vs_cpu"]["launches"][name_]
         kernels.append({
             "name": name_, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + src,

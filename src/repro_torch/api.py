@@ -60,6 +60,7 @@ from repro_torch.core.compression import Identity
 from repro_torch.core.draws import Draws, GeneratorDraws
 from repro_torch.data import synthetic as _synthetic            # noqa: F401
 from repro_torch.data.pipeline import DecentralizedBatches
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as TR
 from repro_torch.netsim import engine as netsim_engine
 from repro_torch.netsim import metrics as netsim_metrics
@@ -71,16 +72,6 @@ from repro_torch.obs.report import device_label  # noqa: F401 (re-export)
 from repro_torch.optim import decentralized as dec
 
 ENGINES = ("dense", "netsim", "sharded")
-#: model-sharded meshes need more than one card
-MULTI_CARD_SLICE = ("the multi-card slice (ROADMAP: NCCL point-to-point "
-                    "behind the pp seam, 4 cards)")
-#: the reference's TrainerConfig fields that no ported path reads: a spec
-#: may set them to their defaults (field -> (default, the slice that
-#: brings it)); any other value is refused
-LATER_TRAINER_FIELDS = {
-    "shard_aligned_blocks": (False, MULTI_CARD_SLICE),
-    "tp_ways": (16, MULTI_CARD_SLICE),
-}
 
 
 # ===========================================================================
@@ -273,8 +264,9 @@ class ExecutionSpec:
     """``engine``: dense | sharded.  ``backend`` (dense | neighbor | ring),
     ``wire_mode``, ``pack_mode`` and ``params`` (extra TrainerConfig
     fields, strict) are the sharded engine's knobs; ``mesh`` is the
-    reference's (data, model) mesh: one card holds every node whole, so a
-    model dim above 1 is refused."""
+    reference's (data, model) mesh: its model dim M is the number of
+    model shards the bucketed neighbor wire cuts each node's leaves into
+    (the shards of a node stay in one process)."""
     engine: str = "dense"
     backend: str = "dense"
     wire_mode: str = "bucketed"
@@ -959,14 +951,15 @@ class TrainerRunner(Runner):
         if tr.plan is None or isinstance(tr.compressor, Identity) \
                 or tr.tcfg.wire_mode != "bucketed":
             return {}
-        layout, _model = trainer_wire_layout(tr, tree.leaves(state.plead.X))
-        return step_roofline(layout, hops=len(tr.plan.hops),
+        layout, model = trainer_wire_layout(tr, tree.leaves(state.plead.X))
+        return step_roofline(layout, hops=len(tr.plan.hops), shards=model,
                              measured_step_s=mean_step_s or None)
 
     def bits_per_step(self, state=None) -> float:
         """Exact bits ONE node ships per train step.  Neighbor/ring: hops x
         the per-edge u8 wire payload (``netsim.metrics.{bucketed,
-        sharded}_payload_bits``).  Dense: ideal per-edge payload x W
+        sharded}_payload_bits``: on a model-sharded mesh, a node's M
+        shard payloads).  Dense: ideal per-edge payload x W
         out-degree.  Without a state the count comes from the parameter
         shapes alone (``meta`` tensors, nothing allocated)."""
         tr = self.trainer
@@ -1004,20 +997,10 @@ class TrainerRunner(Runner):
             d_model=cfg.d_model, dtype=cfg.dtype, device=str(self.device))
 
 
-def _later_field(name: str, value) -> None:
-    """Accept a not-yet-ported trainer knob only at its default."""
-    default, where = LATER_TRAINER_FIELDS[name]
-    if value != default:
-        raise NotImplementedError(
-            f"trainer knob {name}={value!r} is not ported yet (only the "
-            f"default {default!r}); it arrives with {where}")
-
-
 def trainer_config_from_spec(spec: ExperimentSpec) -> dec.TrainerConfig:
     """Map an ExperimentSpec onto TrainerConfig, strictly: spec entries
-    that map onto no TrainerConfig field raise (the reference's rule), and
-    the reference's knobs that only a later slice reads are refused unless
-    at their defaults (:data:`LATER_TRAINER_FIELDS`).  The schedule's
+    that map onto no TrainerConfig field raise (the reference's rule).
+    The schedule's
     ``rounds`` and ``drop`` and the spec's ``fault_seed`` map onto
     ``schedule_rounds``, ``schedule_drop`` and ``fault_seed``; one
     ``linkdrop`` fault onto ``drop_rate``."""
@@ -1064,9 +1047,6 @@ def trainer_config_from_spec(spec: ExperimentSpec) -> dec.TrainerConfig:
     for where, params in (("compressor", spec.compressor.params),
                           ("execution", spec.execution.params)):
         for k, v in params.items():
-            if k in LATER_TRAINER_FIELDS:
-                _later_field(k, v)
-                continue
             if k not in tc_fields:
                 raise ValueError(
                     f"{where} param {k!r} has no TrainerConfig field; the "
@@ -1075,13 +1055,31 @@ def trainer_config_from_spec(spec: ExperimentSpec) -> dec.TrainerConfig:
     return dec.TrainerConfig(**kw)
 
 
+def spec_mesh(spec: ExperimentSpec) -> Optional[Mesh]:
+    """The spec's ``execution.mesh`` as a logical mesh: (data, model), or
+    (pod, data, model) for three dims."""
+    shape = spec.execution.mesh
+    if shape is None:
+        return None
+    names = {1: ("data",), 2: ("data", "model"),
+             3: ("pod", "data", "model")}.get(len(shape))
+    if names is None:
+        raise ValueError(f"spec {spec.name!r}: mesh {shape} has "
+                         f"{len(shape)} dims; have 1-3")
+    return Mesh(shape, names)
+
+
 def build_trainer_runner(spec: ExperimentSpec, *, device,
                          dtype: Optional[torch.dtype] = None,
                          model_cfg: Optional[TR.ModelConfig] = None,
-                         pp=None) -> TrainerRunner:
+                         pp=None, process_mesh=None) -> TrainerRunner:
     """The sharded engine on ``device``, with an optional prebuilt
-    ModelConfig and exchange seam ``pp`` (default: the one-card
-    :func:`repro_torch.optim.wire.stacked_pp`)."""
+    ModelConfig, exchange seam ``pp`` (default: the one-card
+    :func:`repro_torch.optim.wire.stacked_pp`, or :class:`repro_torch.
+    optim.wire.DistPP` over ``process_mesh``) and ``process_mesh`` (a
+    :class:`repro_torch.launch.mesh.ProcessMesh`: this rank's node block
+    of a ``torch.distributed`` group).  The spec's mesh sets the model
+    shards of the bucketed wire."""
     if model_cfg is None:
         if spec.model is None:
             raise ValueError(
@@ -1089,14 +1087,9 @@ def build_trainer_runner(spec: ExperimentSpec, *, device,
         model_cfg = spec.model.build()
     if dtype is not None:
         model_cfg = dataclasses.replace(model_cfg, dtype=dtype)
-    mesh = spec.execution.mesh
-    if mesh is not None and len(mesh) > 1 and mesh[1] > 1:
-        raise NotImplementedError(
-            f"spec {spec.name!r}: mesh {mesh} shards the model over "
-            f"{mesh[1]} devices; one card holds every node whole, and "
-            f"model-sharded meshes arrive with {MULTI_CARD_SLICE}")
     trainer = dec.DecentralizedTrainer(
-        model_cfg, trainer_config_from_spec(spec), device=device, pp=pp)
+        model_cfg, trainer_config_from_spec(spec), device=device, pp=pp,
+        mesh=spec_mesh(spec), process_mesh=process_mesh)
     return TrainerRunner(trainer, spec=spec)
 
 
@@ -1168,8 +1161,7 @@ def load_checkpoint(path, step: Optional[int] = None, *, device=None,
 
 def check_spec_file(path, *, device=None):
     """Round-trip one spec file through JSON and build it on ``device``;
-    raises on any failure (a model-sharded mesh raises NotImplementedError
-    naming its slice).  A JSON object with a ``base`` key is a SweepSpec
+    raises on any failure.  A JSON object with a ``base`` key is a SweepSpec
     (its build checks the axis plan), anything else an ExperimentSpec."""
     text = pathlib.Path(path).read_text()
     cls = SweepSpec if "base" in json.loads(text) else ExperimentSpec
@@ -1207,14 +1199,8 @@ def _main(argv=None) -> int:
         if not files:
             print(f"[spec-check] FAIL: no spec files under {root}")
             return 1
-        refused = 0
         for f in files:
-            try:
-                spec = check_spec_file(f, device=args.device)
-            except NotImplementedError as e:       # a later slice's spec
-                refused += 1
-                print(f"[spec-check] REFUSED {f.name}: {e}")
-                continue
+            spec = check_spec_file(f, device=args.device)
             if hasattr(spec, "axes"):
                 print(f"[spec-check] OK {f.name}: {spec.name} (sweep of "
                       f"{spec.n_points} points over "
@@ -1225,9 +1211,8 @@ def _main(argv=None) -> int:
                       f"(engine={spec.execution.engine}, "
                       f"algo={spec.algorithm.name}, "
                       f"compressor={spec.compressor.name})")
-        print(f"[spec-check] {len(files)} golden specs round-trip; "
-              f"{len(files) - refused} build, {refused} refused (a later "
-              f"slice)")
+        print(f"[spec-check] {len(files)} golden specs round-trip and "
+              f"build")
         return 0
     ap.print_help()
     return 0

@@ -1,9 +1,9 @@
 """``python -m repro_torch.check`` -- the port's contract audit over the
 golden specs, in-process.
 
-Prints ``[check] PASS/FAIL claim [detail]`` lines (``WAIT`` for a finding
-that waits for a later slice: neither a pass nor a failure) and an
-``[check] OK|FAIL: n/m checks hold`` summary; exits nonzero on any FAIL.
+Prints ``[check] PASS/FAIL claim [detail]`` lines and an ``[check]
+OK|FAIL: n/m checks hold`` summary; exits nonzero on any FAIL.  Each
+sharded spec is audited on its (8, 1) and its (4, 2) mesh.
 Runs on the card unless ``--device cpu`` is given.
 
 Flags::
@@ -31,17 +31,14 @@ def _repo_root() -> pathlib.Path:
 
 def print_findings(findings: List[GateFinding]) -> int:
     """Print the findings and the summary line; -> the count of FAILs."""
-    n_fail = n_wait = 0
+    n_fail = 0
     for claim, ok, detail in findings:
-        mark = "WAIT" if ok is None else ("PASS" if ok else "FAIL")
-        n_fail += ok is False
-        n_wait += ok is None
-        print(f"[check] {mark} {claim}" + (f"   [{detail}]" if detail
-                                           else ""))
-    n = len(findings) - n_wait
+        n_fail += not ok
+        print(f"[check] {'PASS' if ok else 'FAIL'} {claim}"
+              + (f"   [{detail}]" if detail else ""))
+    n = len(findings)
     print(f"[check] {'FAIL' if n_fail else 'OK'}: {n - n_fail}/{n} checks "
-          f"hold" + (f" ({n_wait} wait for ROADMAP A item 3)" if n_wait
-                     else ""))
+          f"hold")
     return n_fail
 
 
@@ -66,7 +63,7 @@ def main(argv=None) -> int:
         print(json.dumps({"device": str(device),
                           "contracts": [list(f) for f in findings]},
                          indent=1))
-        return 1 if any(ok is False for _, ok, _ in findings) else 0
+        return 1 if not all(ok for _, ok, _ in findings) else 0
     return 1 if print_findings(findings) else 0
 
 

@@ -7,7 +7,14 @@ step and records what it did (:mod:`repro_torch.obs.record`):
 * ``audit_wire_calls`` -- the gossip wire moves only u8 payloads through
   the ``pp(x, pairs)`` seam: exactly ``2 x hops`` calls a step (one codes
   and one scales buffer a hop, whatever the leaf count), and their bytes a
-  node equal ``hops x per_edge_bits / 8 / model_shards`` as integers;
+  node equal ``hops x per_edge_bits / 8`` as integers.  On a (4, 2) mesh
+  a node's row carries its M model shards' payloads, M x the reference's
+  per-device figure: the audit splits each row into its shards and holds
+  them to ``hops x per_edge_bits / 8 / M`` a shard, the reference's
+  count.  The reference allows GSPMD resharding copies there as long as
+  the u8 payloads dominate their bytes; one process holding a node's
+  shards makes no reshard, so the rule holds with zero other bytes, and
+  every ``pp`` payload must be u8 at any mesh;
 * ``audit_no_f64`` -- no op of a sharded step outputs float64 (the
   trainer is f32 end to end);
 * ``audit_no_host_sync`` -- no host read inside a step (a ``.item()``, an
@@ -22,9 +29,7 @@ The pure ``audit_*`` functions take recorded facts, so tests can inject
 violations.  The drivers run two steps of a spec's runner and record the
 second: the first is the warm-up, where caches, lazy index tensors and B1's
 per-point level check happen.  ``audit_spec`` dispatches on the engine;
-a sharded spec is audited on its (8, 1) realization, and its (4, 2)
-variant is reported as waiting for ROADMAP A item 3 (model-sharded
-meshes), neither a pass nor a failure.
+a sharded spec is audited on both its (8, 1) and its (4, 2) realization.
 """
 from __future__ import annotations
 
@@ -41,11 +46,8 @@ import torch
 from repro_torch.obs.record import (Read, StepRecorder, caller,
                                     recording_pp, warm_trainer)
 
-#: (claim, ok, detail); ok is None for a finding that waits for a later
-#: slice (neither a pass nor a failure)
-GateFinding = Tuple[str, Optional[bool], str]
-
-WAITS = "waits for ROADMAP A item 3"
+#: (claim, ok, detail)
+GateFinding = Tuple[str, bool, str]
 
 
 class ExpectedRead(NamedTuple):
@@ -92,7 +94,8 @@ def audit_wire_calls(calls: Sequence[Tuple[torch.dtype, int]], *, hops: int,
                      per_edge_bits: int, model_shards: int = 1,
                      name: str = "wire") -> List[GateFinding]:
     """The three gossip-wire contracts against one step's ``pp`` calls,
-    each ``(dtype, bytes one node sends)``."""
+    each ``(dtype, bytes one model shard sends)``; ``per_edge_bits``
+    counts a node's ``model_shards`` shard payloads."""
     u8 = [b for dt, b in calls if dt == torch.uint8]
     other = [(str(dt), b) for dt, b in calls if dt != torch.uint8]
     got = sum(u8)
@@ -105,10 +108,20 @@ def audit_wire_calls(calls: Sequence[Tuple[torch.dtype, int]], *, hops: int,
          f"non-u8: {other[:5]}" if other else ""),
         (f"{name}: pp bytes == bucketed payload accounting",
          exact and got == predicted,
-         f"pp {got}B a node vs plan {hops * per_edge_bits / 8 / model_shards:.0f}B "
+         f"pp {got}B a {'model shard' if model_shards > 1 else 'node'} vs "
+         f"plan {hops * per_edge_bits / 8 / model_shards:.0f}B "
          f"(hops={hops}, per_edge={per_edge_bits}b, "
          f"shards={model_shards})"),
     ]
+
+
+def shard_calls(calls: Sequence[Tuple[torch.dtype, int]], model_shards: int
+                ) -> List[Tuple[torch.dtype, int]]:
+    """Recorded ``pp`` calls (bytes a node) as the bytes one model shard
+    sends: a node's row holds its shards' payloads side by side.  A row
+    that does not split evenly keeps its bytes (and fails the count)."""
+    return [(dt, b // model_shards if b % model_shards == 0 else b)
+            for dt, b in calls]
 
 
 def audit_no_f64(ops: Sequence[str], *, name: str = "step"
@@ -215,8 +228,11 @@ def audit_trainer(runner, name: str, facts: StepFacts, leaves
         per_edge = (netsim_metrics.bucketed_payload_bits(tr, leaves)
                     if tr.tcfg.wire_mode == "bucketed"
                     else netsim_metrics.sharded_payload_bits(tr, leaves))
-        out.extend(audit_wire_calls(facts.calls, hops=len(tr.plan.hops),
-                                    per_edge_bits=per_edge, name=name))
+        M = tr.wire_shards
+        out.extend(audit_wire_calls(shard_calls(facts.calls, M),
+                                    hops=len(tr.plan.hops),
+                                    per_edge_bits=per_edge, model_shards=M,
+                                    name=name))
     out.extend(audit_no_f64(facts.f64, name=name))
     out.extend(audit_no_host_sync(facts.reads, name=name))
     return out
@@ -224,12 +240,11 @@ def audit_trainer(runner, name: str, facts: StepFacts, leaves
 
 # --- specs -------------------------------------------------------------------
 
-def mesh_variants(spec) -> List[Tuple[object, bool]]:
+def mesh_variants(spec) -> list:
     """The sharded spec on both canonical mesh shapes, as the reference's
     ``_mesh_variants`` realizes them (its own shape kept as it is, a
-    meshless spec realized on both): -> [(variant, runs here)].  One card
-    holds every node whole, so the (4, 2) variant waits for ROADMAP A
-    item 3."""
+    meshless spec realized on both).  The (4, 2) variant keeps a node's
+    two model shards in one process."""
     variants = []
     for shape in ((8, 1), (4, 2)):
         mesh = spec.execution.mesh
@@ -241,7 +256,7 @@ def mesh_variants(spec) -> List[Tuple[object, bool]]:
                 spec, name=f"{spec.name}@{shape[0]}x{shape[1]}",
                 n_nodes=shape[0],
                 execution=dataclasses.replace(spec.execution, mesh=shape))
-        variants.append((variant, shape[1] == 1))
+        variants.append(variant)
     return variants
 
 
@@ -267,12 +282,7 @@ def audit_spec(spec, device="cpu") -> List[GateFinding]:
         out.extend(audit_no_host_sync(runner_step_facts(runner).reads,
                                       name=spec.name))
         return out
-    for variant, runs in mesh_variants(spec):
-        if not runs:
-            out.append((f"{variant.name}: {WAITS}", None,
-                        f"mesh {variant.execution.mesh} shards the model "
-                        f"over {variant.execution.mesh[1]} cards"))
-            continue
+    for variant in mesh_variants(spec):
         runner = api.build_trainer_runner(variant, device=device,
                                           pp=RecordingPP())
         state = runner.init_state()

@@ -86,44 +86,66 @@ def qinf_wire_bits(shape, bits: int, block: int, scale_bits: int = 32) -> int:
     return rows * nb * (block * wire_bits_per_element(bits) + scale_bits)
 
 
+def _model_local_shapes(trainer, leaves):
+    """(model_size, per-shard leaf shapes) as the reference's full-manual
+    ``shard_map`` sees them.
+
+    Under the full-manual bucketed wire a node spans model_size shards
+    and each shard moves its LOCAL slices: leaves the model axis shards
+    quantize (and pad) per slice, every other leaf is moved redundantly by
+    all model_size shards -- a node's edge payload is model_size x the
+    per-shard bytes.  Otherwise (partial-manual, or no model axis) the
+    size is 1 and the shapes are the per-node leaves'."""
+    from repro_torch.models.sharding import model_local_shape
+    locals_ = [tuple(leaf.shape[1:]) for leaf in leaves]   # per-node
+    model = trainer.wire_shards
+    if model > 1:
+        locals_ = [model_local_shape(shape, sp, model)
+                   for shape, sp in zip(locals_, trainer.leaf_specs)]
+    return model, locals_
+
+
 def sharded_payload_bits(trainer, leaves) -> int:
     """Exact bits ONE directed edge carries per hop on the neighbor
     backend: packed u8 codes (with block padding) plus byte-cast scales,
-    summed over state leaves (raw leaves under identity compression).
-    ``leaves`` are node-stacked (N, ...) tensors (``meta`` tensors will do)
-    in ``plead.X`` order; the per-edge payload is the per-node slice.
-    Valid for both wire modes: the bucketed buffers concatenate exactly the
-    per-leaf payloads (:func:`bucketed_payload_bits`)."""
+    summed over state leaves (raw leaves under identity compression),
+    times the model-shard redundancy.  ``leaves`` are node-stacked
+    (N, ...) tensors (``meta`` tensors will do) in ``plead.X`` order; the
+    per-edge payload is the per-node slice.  Valid for both wire modes:
+    the bucketed buffers concatenate exactly the per-leaf payloads
+    (:func:`bucketed_payload_bits`)."""
     tcfg = trainer.tcfg
     scale_bits = 16 if tcfg.scales_bf16 else 32
-    total = 0
-    for leaf in leaves:
-        local = tuple(leaf.shape[1:])
+    model, locals_ = _model_local_shapes(trainer, leaves)
+    per_shard = 0
+    for leaf, local in zip(leaves, locals_):
         if isinstance(trainer.compressor, Identity):
-            total += (int(np.prod(local, dtype=np.int64))
-                      * leaf.element_size() * 8)
+            per_shard += (int(np.prod(local, dtype=np.int64))
+                          * leaf.element_size() * 8)
         else:
             blk = trainer._quant_block((1,) + local)
-            total += qinf_wire_bits(local, tcfg.bits, blk, scale_bits)
-    return total
+            per_shard += qinf_wire_bits(local, tcfg.bits, blk, scale_bits)
+    return model * per_shard
 
 
 def bucketed_payload_bits(trainer, leaves) -> int:
     """Exact bits ONE directed edge carries per hop with
-    ``wire_mode='bucketed'``, from the static BucketLayout: the flat
-    packed-codes buffer plus the flat byte-cast-scales buffer.  Equal to
+    ``wire_mode='bucketed'``, from the static BucketLayout of the
+    model-local shapes: the flat packed-codes buffer plus the flat
+    byte-cast-scales buffer, times the model-shard redundancy.  Equal to
     :func:`sharded_payload_bits`; under identity compression the per-leaf
     path runs, so its count is returned."""
     from repro_torch.core import bucket
     if isinstance(trainer.compressor, Identity):
         return sharded_payload_bits(trainer, leaves)
     tcfg = trainer.tcfg
+    model, locals_ = _model_local_shapes(trainer, leaves)
     layout = bucket.compute_layout(
-        [(1,) + tuple(leaf.shape[1:]) for leaf in leaves],
+        [(1,) + tuple(s) for s in locals_],
         [leaf.dtype for leaf in leaves], bits=tcfg.bits,
         block_for=trainer._quant_block,
         scale_bytes=2 if tcfg.scales_bf16 else 4)
-    return layout.wire_bits
+    return model * layout.wire_bits
 
 
 @dataclasses.dataclass

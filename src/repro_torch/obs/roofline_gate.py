@@ -24,8 +24,9 @@ through HBM even though they never ship):
   bucketed_payload_bits` counts).
 
 A kernel launch covers every node of the stacked group, so its bound is
-these bytes x the nodes it covers.  Hardware constants come from
-:mod:`repro_torch.obs.roofline` (one H100 SXM).
+these bytes x the nodes it covers; on a model-sharded mesh a node is M
+shards, each moving one shard's layout (``shards``).  Hardware constants
+come from :mod:`repro_torch.obs.roofline` (one H100 SXM).
 """
 from __future__ import annotations
 
@@ -40,11 +41,14 @@ def _elems(layout: BucketLayout) -> int:
 
 
 def kernel_roofline(layout: BucketLayout, *, hops: int = 1,
-                    receivers: int = 1) -> Dict[str, Dict[str, float]]:
+                    receivers: int = 1, shards: int = 1
+                    ) -> Dict[str, Dict[str, float]]:
     """Predicted HBM bytes and roofline seconds per kernel (one node, one
-    COMM exchange).  See the module docstring for the traffic model."""
-    elems = _elems(layout)
-    wire_bytes = layout.codes_bytes + layout.scales_bytes
+    COMM exchange).  See the module docstring for the traffic model.
+    ``layout`` is one model shard's; a node's ``shards`` shards each move
+    it."""
+    elems = shards * _elems(layout)
+    wire_bytes = shards * (layout.codes_bytes + layout.scales_bytes)
     qp_bytes = 2 * 4 * elems + wire_bytes
     um_bytes = (1 + hops) * wire_bytes + (receivers + 1) * 4 * elems
     return {
@@ -58,12 +62,14 @@ def kernel_roofline(layout: BucketLayout, *, hops: int = 1,
 
 
 def step_roofline(layout: BucketLayout, *, hops: int, receivers: int = 1,
+                  shards: int = 1,
                   measured_step_s: Optional[float] = None) -> Dict:
     """Whole-exchange roofline: kernel + wire seconds, plus
     ``utilization = predicted / measured`` when a measured step time is
     given (1.0 = the exchange alone at its roofline would fill the
     step)."""
-    k = kernel_roofline(layout, hops=hops, receivers=receivers)
+    k = kernel_roofline(layout, hops=hops, receivers=receivers,
+                        shards=shards)
     wire_s = k["wire"]["t_s"]
     kernel_s = k["quantize_pack"]["t_s"] + k["unpack_dequant_mix"]["t_s"]
     out = {
@@ -81,17 +87,21 @@ def step_roofline(layout: BucketLayout, *, hops: int, receivers: int = 1,
 
 def trainer_wire_layout(trainer, leaves) -> Tuple[BucketLayout, int]:
     """(BucketLayout, model-shard redundancy) for a trainer's wire path:
-    the layout :meth:`repro_torch.optim.wire.WireExchange.layout` builds
-    (the trainer's ``_quant_block``, bits and scale width), so
-    ``layout.wire_bits`` equals ``bucketed_payload_bits``.  ``leaves`` are
+    the layout of one model shard's local slices
+    (:func:`repro_torch.netsim.metrics._model_local_shapes`; the
+    trainer's ``_quant_block``, bits and scale width), so ``model x
+    layout.wire_bits`` equals ``bucketed_payload_bits``.  ``leaves`` are
     the stacked (N, ...) ``plead.X`` leaves (``meta`` tensors will do).
-    The redundancy is 1: one card holds every node whole; model-sharded
-    meshes arrive with ROADMAP A item 3."""
+    The redundancy is the mesh's model axis under the full-manual
+    bucketed wire (a node's M shard payloads, all on this card), else
+    1."""
     from repro_torch.core import bucket
+    from repro_torch.netsim import metrics as netsim_metrics
     tcfg = trainer.tcfg
+    model, locals_ = netsim_metrics._model_local_shapes(trainer, leaves)
     layout = bucket.compute_layout(
-        [(1,) + tuple(leaf.shape[1:]) for leaf in leaves],
+        [(1,) + tuple(s) for s in locals_],
         [leaf.dtype for leaf in leaves], bits=tcfg.bits,
         block_for=trainer._quant_block,
         scale_bytes=2 if tcfg.scales_bf16 else 4)
-    return layout, 1
+    return layout, model

@@ -38,6 +38,28 @@ consumed), writes the diffs straight into the bucket group's row table,
 and frees each gradient leaf, the noise and the wire buffers as soon as
 they are used.
 
+Model-sharded meshes.  ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`)
+of shape (N, M) shards each node's model over M devices in the
+reference, and the neighbor backend runs inside ``shard_map``.  On the
+JAX the reference is tested with (>= 0.6, where ``shard_map`` exists) the
+per-leaf wire runs it partial-manual: whole leaves, one noise draw, the
+model axis left to GSPMD -- so the port's per-leaf and identity wires run
+as at (N, 1).  The bucketed wire runs full-manual: every model shard
+quantizes, packs and moves its own model-local slice of each leaf
+(``repro_torch.models.sharding``).  The port keeps a node's M shards in
+one process, cuts each diff into them (:func:`sharding.shard_view`), runs
+the bucketed exchange over N x M rows and updates the state through the
+same views; a model-replicated leaf rides the wire M times with the same
+bytes and noise, and its shard 0 updates the state (see
+:mod:`repro_torch.optim.wire` for the draw rule).
+
+Several processes.  With a :class:`repro_torch.launch.mesh.ProcessMesh`
+the node axis splits over the ranks of a ``torch.distributed`` group:
+rank r holds the node block [lo, hi), its state, data rows and weight
+rows; the hops cross ranks through :class:`repro_torch.optim.wire.DistPP`;
+the loss and consensus metrics are all-reduced.  Each rank draws the noise
+of its own rows.
+
 The first trainer step folds Algorithm 1's warm-up (lines 1-3) into the
 k=1 update with H^1 = 0, D^1 = 0, as the reference does.
 """
@@ -59,9 +81,11 @@ from repro_torch.core.draws import Draws, GeneratorDraws
 from repro_torch.core.oracles import OracleState
 from repro_torch.core.prox import Prox
 from repro_torch.core.prox_lead import ProxLEADState
+from repro_torch.models import sharding
 from repro_torch.models import transformer as TR
 from repro_torch.netsim import SimMixer, make_schedule
-from repro_torch.optim.wire import WIRE_MODES, WireExchange, stacked_pp
+from repro_torch.optim.wire import (WIRE_MODES, DistPP, WireExchange,
+                                    stacked_pp)
 
 #: B3/B4 pack and unpack codes of 1..7 bits (ROADMAP C10)
 WIRE_MAX_BITS = 7
@@ -69,9 +93,8 @@ WIRE_MAX_BITS = 7
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The reference's TrainerConfig, less the fields that only a later
-    slice reads (``repro_torch.api.LATER_TRAINER_FIELDS``).  Refuses QInf
-    above 7 bits on the neighbor backend (C10)."""
+    """The reference's TrainerConfig.  Refuses QInf above 7 bits on the
+    neighbor backend (C10)."""
     n_nodes: int
     eta: float = 1e-2
     alpha: float = 0.5
@@ -95,6 +118,8 @@ class TrainerConfig:
     pack_mode: str = "lastdim"      # lastdim | flat
     wire_mode: str = "bucketed"     # bucketed | per_leaf
     scales_bf16: bool = False
+    shard_aligned_blocks: bool = False  # quantization blocks never cross
+    tp_ways: int = 16               # a model shard of this many ways
     aux_weight: float = 0.01
     precondition: str = "none"      # none | adam
     adam_b1: float = 0.9
@@ -123,13 +148,44 @@ class TrainState(NamedTuple):
 
 
 class DecentralizedTrainer:
+    """``mesh``: the (N, M) mesh whose model axis M the bucketed wire cuts
+    each node's leaves into (default: none, M = 1; the node count is
+    ``tcfg.n_nodes`` whatever the mesh says).  ``process_mesh``: this
+    rank's node block, when the nodes split over a process group (its
+    ``pp`` defaults to :class:`DistPP`).  ``pp``: the exchange seam
+    (default: the one-card :func:`stacked_pp`)."""
+
     def __init__(self, model_cfg: TR.ModelConfig, tcfg: TrainerConfig, *,
-                 device, pp=None):
+                 device, pp=None, mesh=None, process_mesh=None):
         self.mcfg = model_cfg
         self.tcfg = tcfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.process_mesh = process_mesh
+        if process_mesh is not None:
+            if process_mesh.n_nodes != tcfg.n_nodes:
+                raise ValueError(
+                    f"process mesh over {process_mesh.n_nodes} nodes, "
+                    f"trainer of {tcfg.n_nodes}")
+            pp = pp or DistPP(process_mesh)
         #: the exchange seam: ppermute semantics on node-stacked tensors
         self.pp = pp or stacked_pp
+        #: nodes this process holds, from node ``node_lo`` on
+        self.n_local = (process_mesh.n_local if process_mesh is not None
+                        else tcfg.n_nodes)
+        self.node_lo = process_mesh.lo if process_mesh is not None else 0
+        paths = tree.flatten_with_paths(TR.abstract_params(model_cfg))
+        #: per-node partition spec of every leaf, in leaf order
+        self.leaf_specs = [sharding.spec_for_path(path, leaf.dim())
+                           for path, leaf in paths]
+        self.model_shards = sharding.model_axis_size(mesh)
+        self._layout: Optional[bucket.BucketLayout] = None
+        sizes = {"model": self.model_shards}
+        for (path, leaf), spec in zip(paths, self.leaf_specs):
+            if not sharding.shard_dim_ok(leaf.shape, spec, sizes):
+                raise ValueError(
+                    f"leaf {path} {tuple(leaf.shape)} does not split into "
+                    f"{self.model_shards} model shards along {spec}")
         self.topo = topo_mod.make_topology(tcfg.topology, tcfg.n_nodes)
         kw = registry.kwargs_subset(
             "compressor", tcfg.compressor,
@@ -146,11 +202,14 @@ class DecentralizedTrainer:
         self._wmat = None
         if self.plan is not None:
             # (1 + n_hops, T, n): row 0 the exact-stochastic self weight,
-            # then one row per hop -- receiver-indexed
+            # then one row per hop -- receiver-indexed, this process's
+            # receivers
+            lo = self.node_lo
             self._wmat = torch.as_tensor(np.concatenate(
                 [self.plan.self_weights(np.float32)[None]]
                 + [h.weights[None] for h in self.plan.hops], 0
-            ).astype(np.float32), device=self.device)
+            )[:, :, lo:lo + self.n_local].astype(np.float32),
+                device=self.device)
 
     @property
     def sharded(self) -> bool:
@@ -234,12 +293,13 @@ class DecentralizedTrainer:
                    ) -> TrainState:
         """One replica of freshly initialised parameters per node (drawn
         from ``generator``, default: seeded by ``tcfg.seed`` on the
-        trainer's device)."""
+        trainer's device); on a rank, the rows of its nodes (every rank
+        seeds the same replica)."""
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(self.tcfg.seed)
         params = TR.init_params(self.mcfg, generator, self.device)
-        X = TR.stack_nodes(params, self.tcfg.n_nodes)
+        X = TR.stack_nodes(params, self.n_local)   # this process's rows
         del params
         return self.state_from_stacked(X)
 
@@ -277,9 +337,11 @@ class DecentralizedTrainer:
     def train_step(self, state: TrainState, batch, draws: Draws
                    ) -> Tuple[TrainState, dict]:
         """One step; ``draws`` supplies the stochastic-rounding noise (one
-        ``uniform`` per leaf, in leaf order).  Consumes ``state`` on the
-        neighbor backend (D, H and Hw are updated in place)."""
-        ce, G = self.loss_and_grad(state.plead.X, batch)
+        ``uniform`` per leaf, in leaf order; :mod:`repro_torch.optim.wire`
+        for the model-sharded draw rule).  Consumes ``state`` on the
+        neighbor backend (D, H and Hw are updated in place).  ``batch``
+        holds every node's rows or this process's."""
+        ce, G = self.loss_and_grad(state.plead.X, self.local_batch(batch))
         precond = state.precond
         if self.tcfg.precondition == "adam":
             G, precond = self._adam_precondition(G, precond, state.step)
@@ -289,10 +351,42 @@ class DecentralizedTrainer:
         else:
             plead = self.alg.update(state.plead, G, draws)
         del G
-        consensus = sum(((leaf - leaf.mean(0, keepdim=True)) ** 2).sum()
-                        for leaf in tree.leaves(plead.X))
+        if self.process_mesh is None:
+            consensus = sum(((leaf - leaf.mean(0, keepdim=True)) ** 2).sum()
+                            for leaf in tree.leaves(plead.X))
+        else:
+            ce, consensus = self._reduced_metrics(ce, tree.leaves(plead.X))
         metrics = {"loss": ce, "consensus": consensus, "step": state.step}
         return TrainState(plead, state.step + 1, precond), metrics
+
+    def local_batch(self, batch):
+        """This process's rows of a batch of every node's rows (a batch of
+        its own rows passes through)."""
+        if self.n_local == self.tcfg.n_nodes:
+            return batch
+        lo, hi = self.node_lo, self.node_lo + self.n_local
+        return {k: v[lo:hi] if v.shape[0] == self.tcfg.n_nodes else v
+                for k, v in batch.items()}
+
+    def _reduced_metrics(self, ce, leaves):
+        """The mean node loss and the consensus error over every rank's
+        nodes: one all-reduce of the node sums (for the node mean), one of
+        the loss and consensus partial sums."""
+        import torch.distributed as dist
+        group, N = self.process_mesh.group, self.tcfg.n_nodes
+        sums = torch.cat([leaf.sum(0).reshape(-1) for leaf in leaves])
+        dist.all_reduce(sums, group=group)
+        parts, off = [], 0
+        for leaf in leaves:
+            n = leaf[0].numel()
+            mean = (sums[off:off + n] / N).view(leaf.shape[1:])
+            parts.append(((leaf - mean) ** 2).sum())
+            off += n
+        del sums
+        total = sum(parts)
+        tot = torch.stack([(ce * self.n_local).to(total.dtype), total])
+        dist.all_reduce(tot, group=group)
+        return tot[0] / N, tot[1]
 
     def _adam_precondition(self, G, precond, step: int):
         """Beyond-paper: per-node Adam normalization of the gradient before
@@ -309,20 +403,68 @@ class DecentralizedTrainer:
         return Gp, (m, v)
 
     # ---------------------------------------------------- neighbor backend
+    @property
+    def _partial_manual(self) -> bool:
+        """Does the reference's gossip ``shard_map`` leave the model axis
+        to GSPMD?  On the JAX it is held to (>= 0.6, ``shard_map`` with
+        partial-manual ppermute), the per-leaf wire does (identity
+        compression always takes it); the bucketed wire reshapes across
+        trailing dims, which must not gather the model axis, so it runs
+        full-manual: each model shard quantizes its local slice."""
+        use_bucket = (self.tcfg.wire_mode == "bucketed"
+                      and not isinstance(self.compressor, Identity))
+        return not use_bucket
+
+    @property
+    def wire_shards(self) -> int:
+        """Model shards the wire cuts a node's leaves into: M under the
+        full-manual bucketed wire, else 1."""
+        return 1 if self._partial_manual else self.model_shards
+
+    @property
+    def model_sharded_leaf(self) -> Tuple[bool, ...]:
+        """Per leaf, in leaf order: does the model axis shard it?  Empty
+        under partial-manual, where no leaf is cut (the reference's
+        ``model_sharded_leaf``)."""
+        if self._partial_manual:
+            return ()
+        return tuple(sharding.spec_mentions(sp, "model")
+                     for sp in self.leaf_specs)
+
     def wire_layout(self) -> bucket.BucketLayout:
-        """The bucketed wire layout of this model's parameters (per node,
-        from their shapes alone)."""
-        params = tree.leaves(TR.abstract_params(self.mcfg))
-        return bucket.compute_layout(
-            [(1,) + tuple(p.shape) for p in params],
-            [p.dtype for p in params], bits=self.tcfg.bits,
-            block_for=self._quant_block,
-            scale_bytes=2 if self.tcfg.scales_bf16 else 4)
+        """The bucketed wire layout of one model shard of a node (one node
+        at M = 1), from the parameter shapes alone (built once)."""
+        if self._layout is None:
+            from repro_torch.netsim.metrics import _model_local_shapes
+            params = tree.leaves(TR.abstract_params(self.mcfg))
+            _, local = _model_local_shapes(self, [p[None] for p in params])
+            self._layout = bucket.compute_layout(
+                [(1,) + tuple(s) for s in local],
+                [p.dtype for p in params], bits=self.tcfg.bits,
+                block_for=self._quant_block,
+                scale_bytes=2 if self.tcfg.scales_bf16 else 4)
+        return self._layout
 
     def _quant_block(self, diff_shape) -> int:
-        """Quantization block size for a per-node leaf shape: the
-        configured block, never wider than an even last dim."""
-        return bucket.default_quant_block(diff_shape, self.tcfg.block)
+        """Quantization block size for a leaf as the quantizer sees it
+        (the whole per-node leaf under partial-manual, its model-local
+        slice under full-manual): the configured block, never wider than
+        an even last dim; with ``shard_aligned_blocks`` the largest even
+        divisor of the shard's last dim up to the block (2 if none), the
+        shard being the last dim / ``tp_ways`` under partial-manual when
+        that divides, else the slice itself, already local."""
+        tcfg = self.tcfg
+        blk = bucket.default_quant_block(diff_shape, tcfg.block)
+        if tcfg.shard_aligned_blocks:
+            ld = diff_shape[-1]
+            if self._partial_manual and ld % tcfg.tp_ways == 0:
+                shard = ld // tcfg.tp_ways
+            else:
+                shard = ld
+            evens = [d for d in range(2, min(tcfg.block, shard) + 1, 2)
+                     if shard % d == 0]
+            blk = max(evens) if evens else 2
+        return blk
 
     def _sharded_update(self, plead: ProxLEADState, G, draws: Draws
                         ) -> ProxLEADState:
@@ -331,7 +473,9 @@ class DecentralizedTrainer:
         reference's ``local_step``).  ``G`` is the list of gradient leaves
         in X's leaf order; each is freed once used.  Under a time-varying
         plan the exchange mixes every round t' of the cycle, each Hw slot
-        takes its round's W_t' Q, and round k % T is read."""
+        takes its round's W_t' Q, and round k % T is read.  The update runs
+        on each leaf's model shards (:func:`sharding.shard_view`, views of
+        the state), a replicated leaf on its shard 0."""
         tcfg = self.tcfg
         T = self.plan.T
         t = plead.k % T
@@ -341,15 +485,14 @@ class DecentralizedTrainer:
         leaves_X, treedef = tree.flatten(plead.X)
         D, H, Hw = (tree.leaves(t) for t in (plead.D, plead.comm.H,
                                              plead.comm.Hw))
+        n, M, specs = leaves_X[0].shape[0], self.wire_shards, self.leaf_specs
         wx = WireExchange(bits=tcfg.bits, block=tcfg.block,
                           scales_bf16=tcfg.scales_bf16,
                           pack_mode=tcfg.pack_mode,
                           block_for=self._quant_block)
         rows = None
         if use_q and tcfg.wire_mode == "bucketed":
-            layout = wx.layout(wx.local_shapes(leaves_X),
-                               [x.dtype for x in leaves_X])
-            rows = bucket.RowTables(layout, tcfg.n_nodes, self.device)
+            rows = bucket.RowTables(self.wire_layout(), n * M, self.device)
         zs, diffs = [], []
         for j, (x, d, h) in enumerate(zip(leaves_X, D, H)):
             z = x - eta * G[j] - eta * d
@@ -357,32 +500,44 @@ class DecentralizedTrainer:
             if rows is None:
                 diffs.append(z - h)
             else:                     # the diff lands in its group's rows
-                rows.leaf_view(j).copy_(z - h)
+                rows.leaf_view(j).unflatten(0, (n, M)).copy_(
+                    sharding.shard_view(z - h, specs[j], M))
             zs.append(z)
         # COMM: per leaf, the dequantized self payload and W Q
         if not use_q:
             wq, qs = wx.identity(diffs, self._wmat, hop_pairs, self.pp)
         elif rows is not None:
-            wq, qs = wx.bucketed(rows, draws, self._wmat, hop_pairs, self.pp)
+            wq, qs = wx.bucketed(rows, draws, self._wmat, hop_pairs, self.pp,
+                                 sharded=self.model_sharded_leaf)
         else:
             wq, qs = wx.per_leaf(diffs, draws, self._wmat, hop_pairs,
                                  self.pp)
         del rows, diffs
         nX = []
         for j, (z, d, h, hw) in enumerate(zip(zs, D, H, Hw)):
-            zhat = qs[j].add_(h)                  # h + Q_self
+            sp = specs[j]
+            # (n, Mj, ...): the M shards, or one for a replicated leaf
+            zv, dv, hv = (sharding.shard_view(a, sp, M) for a in (z, d, h))
+            mj = hv.shape[1]
+            q = qs[j].unflatten(0, (n, M))[:, :mj]
+            w = wq[j].unflatten(0, (n, M))[:, :mj]        # (n, Mj, T, ...)
+            zhat = q.add_(hv)                             # h + Q_self
             if T == 1:
-                zhat_w = wq[j][:, 0].add_(hw)     # Hw + (W Q)
-                hw.mul_(1 - alpha).add_(alpha * zhat_w)
+                hwv = sharding.shard_view(hw, sp, M)
+                zhat_w = w[:, :, 0].add_(hwv)             # Hw + (W Q)
+                hwv.mul_(1 - alpha).add_(alpha * zhat_w)
             else:
-                zhat_w = hw[:, t] + wq[j][:, t]   # slot k % T
+                hwv = sharding.shard_view(hw, sp, M, lead=2)
+                zhat_w = hwv[:, :, t] + w[:, :, t]        # slot k % T
                 # Hw[t'] tracks W_t' H: H += alpha Q => += alpha W_t' Q
-                hw.add_(wq[j], alpha=alpha)
-            h.mul_(1 - alpha).add_(alpha * zhat)
-            e = zhat.sub_(zhat_w)                 # zhat - zhat_w
-            d.add_(gamma / (2 * eta) * e)
-            nX.append(self.prox(z.sub_(gamma / 2.0 * e), eta))
+                hwv.add_(w, alpha=alpha)
+            hv.mul_(1 - alpha).add_(alpha * zhat)
+            e = zhat.sub_(zhat_w)                         # zhat - zhat_w
+            dv.add_(gamma / (2 * eta) * e)
+            zv.sub_(gamma / 2.0 * e)
+            nX.append(self.prox(z, eta))
             zs[j] = qs[j] = wq[j] = None
+            del zv, dv, hv, hwv, q, w, zhat, zhat_w, e
         unf = lambda ls: tree.unflatten(treedef, ls)    # noqa: E731
         return ProxLEADState(unf(nX), plead.D,
                              CommState(plead.comm.H, plead.comm.Hw),

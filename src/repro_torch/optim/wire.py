@@ -27,6 +27,34 @@ is the one-card seam.
 self weight), as the reference's trainer builds it.  Randomness comes from
 the draw source: one ``uniform`` per leaf, in leaf order, of the
 node-stacked blocked shape (N, ..., nb, block); row n is node n's noise.
+
+Model shards (the bucketed wire on an (N, M) mesh, M > 1).  The reference
+runs one device per (node, model shard), each quantizing its model-local
+slice of every leaf (full-manual ``shard_map``).  Here a node's M shards
+are rows ``n M + m`` of the row tables (N x M rows, the layout computed
+from model-local shapes), so B3 and B4 run once per group over all N x M
+rows.  The draw rule, which keeps the replicated copies equal:
+
+  * a leaf the model axis shards draws its noise once for all its shards,
+    ``(N, M, ..., nb, block)`` in one ``uniform`` -- shard m's noise is
+    its own, as the reference folds the shard index into its key;
+  * a model-replicated leaf (norms, biases) draws ``(N, ..., nb, block)``
+    once, and every shard quantizes with that same noise: the reference
+    draws it from one key on every shard, or its replicated copies would
+    diverge.
+
+The wire buffers are laid out ``(N, M x bytes)``: a node's M shard
+payloads side by side, so the node-dim ``pp`` moves all M shards of a
+node with the hop pairs as they are, and a process holding whole nodes
+(:class:`DistPP`) sends each node's M payloads as one row.  B4's per-node
+weights repeat for each shard.  A node sends M x the per-shard bytes a
+hop, as the reference's M devices of a node do together.
+
+Several processes.  :class:`DistPP` is ``pp`` over a
+:class:`repro_torch.launch.mesh.ProcessMesh`: a rank holds the rows of its
+node block, pairs within it are copied in place, pairs across ranks are
+``torch.distributed`` point-to-point transfers (gloo on CPU tensors, NCCL
+on CUDA ones).
 """
 from __future__ import annotations
 
@@ -60,6 +88,49 @@ def stacked_pp(x: torch.Tensor, pairs) -> torch.Tensor:
         src, dst = _pair_index(tuple(map(tuple, pairs)), x.device)
         out[dst] = x[src]
     return out
+
+
+class DistPP:
+    """``pp(x, pairs)`` with :func:`stacked_pp`'s semantics over a
+    process mesh: ``x`` is this rank's rows ``(n_local, ...)`` of a
+    node-stacked tensor, ``pairs`` the global (src, dst) node pairs.
+    Every rank must make the same calls in the same order; each call posts
+    all of the rank's sends and receives in ONE ``batch_isend_irecv``, in
+    pair order and tagged by pair index, so no pair of ranks waits on
+    another's order.  A rank with nothing to send or receive in a call
+    posts nothing and returns zeros."""
+
+    def __init__(self, process_mesh) -> None:
+        self.pm = process_mesh
+
+    def _peer(self, rank: int) -> int:
+        import torch.distributed as dist
+        g = self.pm.group
+        return rank if g is None else dist.get_global_rank(g, rank)
+
+    def __call__(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        import torch.distributed as dist
+        pm = self.pm
+        lo, hi = pm.lo, pm.hi
+        x = x.contiguous()
+        out = torch.zeros_like(x)
+        ops = []
+        for i, (s, d) in enumerate(pairs):
+            mine_s, mine_d = lo <= s < hi, lo <= d < hi
+            if mine_s and mine_d:
+                out[d - lo].copy_(x[s - lo])
+            elif mine_s:
+                ops.append(dist.P2POp(dist.isend, x[s - lo],
+                                      self._peer(pm.owner(d)), pm.group,
+                                      tag=i))
+            elif mine_d:
+                ops.append(dist.P2POp(dist.irecv, out[d - lo],
+                                      self._peer(pm.owner(s)), pm.group,
+                                      tag=i))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
 
 
 def node_weights(wmat, device) -> torch.Tensor:
@@ -110,13 +181,21 @@ class WireExchange:
 
     # ------------------------------------------------------------ bucketed
     def bucketed(self, rows: bucket.RowTables, draws: Draws, wmat,
-                 hop_pairs, pp=stacked_pp):
+                 hop_pairs, pp=stacked_pp, sharded: Sequence[bool] = ()):
         """``rows``: the node-stacked diffs, already written into their
         bucket groups' row tables (the trainer writes them there, to skip a
         copy; from leaves: :meth:`bucket.RowTables.from_leaves`).  The
-        exchange consumes the tables once packed."""
+        exchange consumes the tables once packed.  With M model shards a
+        node (``rows.n`` = N x M, N from ``wmat``), ``sharded`` says per
+        leaf whether the model axis shards it (the draw rule of the module
+        docstring); wq and qself come back at N x M rows."""
         layout = rows.layout
-        self._record(hop_pairs, bytes_per_hop=layout.wire_bits // 8,
+        n = wmat.shape[-1]
+        M = rows.n // n
+        if M > 1 and len(sharded) != len(layout.slots):
+            raise ValueError(f"{M} model shards need the sharded flag of "
+                             f"every leaf, got {len(sharded)}")
+        self._record(hop_pairs, bytes_per_hop=M * layout.wire_bits // 8,
                      collectives_per_hop=2)
         # noise of the per-leaf quantizer's shape, drawn straight into the
         # group tables; the blocked views cover the padding, as the
@@ -125,15 +204,27 @@ class WireExchange:
                                  zero_pad=False)
         for j in range(len(layout.slots)):
             view = noise.block_view(j)
-            draws.uniform(tuple(view.shape), out=view)
+            if M == 1:
+                draws.uniform(tuple(view.shape), out=view)
+                continue
+            view = view.unflatten(0, (n, M))
+            if sharded[j]:
+                draws.uniform(tuple(view.shape), out=view)
+            else:                     # one draw, the same on every shard
+                view.copy_(draws.uniform(
+                    (n,) + tuple(view.shape[2:])).unsqueeze(1))
         cw, sw = bucket.pack_to_wire(layout, rows.tables, noise.tables)
         rows.free()
         noise.free()
-        # the ONLY communication: 2 buffers x hops, leaf-count independent
+        # the ONLY communication: 2 buffers x hops, leaf-count independent;
+        # a node's row holds its M shard payloads
+        cw, sw = cw.view(n, -1), sw.view(n, -1)
         wires = [(cw, sw)] + [(pp(cw, pr), pp(sw, pr)) for pr in hop_pairs]
         del cw, sw
-        return bucket.mix_from_wire(layout, wires,
-                                    node_weights(wmat, wires[0][0].device))
+        wires = [(c.view(n * M, -1), s.view(n * M, -1)) for c, s in wires]
+        w = node_weights(wmat, wires[0][0].device)
+        return bucket.mix_from_wire(
+            layout, wires, w if M == 1 else w.repeat_interleave(M, 0))
 
     # ------------------------------------------------------------ per-leaf
     def per_leaf(self, diffs, draws: Draws, wmat, hop_pairs, pp=stacked_pp):

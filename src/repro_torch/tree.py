@@ -40,6 +40,27 @@ def unflatten(treedef, leaves) -> Any:
     return _unflatten(treedef, iter(leaves))
 
 
+def _flatten_paths(t, prefix: Tuple[str, ...], out: List[Any]) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _flatten_paths(t[k], prefix + (str(k),), out)
+    elif isinstance(t, (list, tuple)):
+        for i, v in enumerate(t):
+            _flatten_paths(v, prefix + (str(i),), out)
+    else:
+        out.append(("/".join(prefix), t))
+
+
+def flatten_with_paths(tree) -> List[Tuple[str, Any]]:
+    """[(path, leaf)] in :func:`flatten`'s leaf order; a path joins the
+    dict keys and sequence indices from the root with ``/``, as the
+    reference's ``repro.models.sharding._path_str`` does
+    (``"blocks/wq"``)."""
+    out: List[Tuple[str, Any]] = []
+    _flatten_paths(tree, (), out)
+    return out
+
+
 def leaves(tree) -> List[Any]:
     return flatten(tree)[0]
 

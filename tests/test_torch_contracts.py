@@ -7,8 +7,9 @@
   from the expected table.
 * Every model family's trainer step (reduced widths) holds the contracts.
 * ``audit_spec`` on every golden spec on the CPU: every finding a PASS,
-  and each sharded spec's (4, 2) variant reported as waiting for ROADMAP A
-  item 3 (the 4x2 golden itself is audited at (8, 1)).
+  each sharded spec audited at (8, 1) and at (4, 2) (the 4x2 golden on
+  its own mesh): a neighbor spec's (4, 2) wire moves M = 2 shard payloads
+  a node, its bytes a shard the reference's per-device count.
 * The CLI: exit 0 with ``--device cpu`` on the golden specs, nonzero on a
   directory holding a spec whose wire breaks the contract.
 """
@@ -219,28 +220,33 @@ def test_audit_spec_on_every_golden_spec(stem):
     spec = C.load_spec(GOLDEN / f"{stem}.json")
     findings = C.audit_spec(spec, "cpu")
     assert findings
-    assert not [f for f in findings if f[1] is False], findings
-    waiting = [c for c, ok, _ in findings if ok is None]
+    assert all(ok is True for _, ok, _ in findings), findings
     d = json.loads((GOLDEN / f"{stem}.json").read_text())
     sharded = "base" not in d and d["execution"]["engine"] == "sharded"
     if not sharded:
-        assert not waiting
         return
-    assert len(waiting) == 1 and C.WAITS in waiting[0]
-    audited = {c.split(":")[0] for c, ok, _ in findings if ok}
-    assert len(audited) == 1
-    if d["execution"]["mesh"] == [4, 2]:
-        assert waiting[0].startswith(f"{spec.name}:")
-        assert audited == {f"{spec.name}@8x1"}
+    audited = {c.split(":")[0] for c, ok, _ in findings}
+    own = {(8, 1): "@8x1", (4, 2): "@4x2"}
+    mesh = tuple(d["execution"]["mesh"] or ())
+    names = {shape: spec.name if shape == mesh else spec.name + tag
+             for shape, tag in own.items()}
+    assert audited == set(names.values())
     if d["execution"]["backend"] == "neighbor":
-        assert sum("pp" in c for c, ok, _ in findings if ok) == 3
+        assert sum("pp" in c for c, _, _ in findings) == 6
+        name = names[(4, 2)]
+        detail = [det for c, _, det in findings if c == f"{name}: pp bytes "
+                  f"== bucketed payload accounting"]
+        assert len(detail) == 1 and "a model shard" in detail[0] \
+            and "shards=2" in detail[0], detail
 
 
 def test_cli_exits_0_on_the_golden_specs(capsys):
     assert check_main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "[check] OK:" in out and "FAIL" not in out
-    assert out.count("[check] WAIT") == 3
+    assert "WAIT" not in out
+    # the dense and the bucketed 8x1 spec's (4, 2) variants: 2 + 5 checks
+    assert out.count("@4x2: ") == 7
 
 
 def test_cli_fails_on_a_tampered_wire(tmp_path):

@@ -62,7 +62,9 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/obs/record.py",
                  "src/repro_torch/check/__init__.py",
                  "src/repro_torch/check/contracts.py",
-                 "src/repro_torch/check/__main__.py", "chip_smoke.py",
+                 "src/repro_torch/check/__main__.py",
+                 "src/repro_torch/models/sharding.py",
+                 "src/repro_torch/launch/mesh.py", "chip_smoke.py",
                  "launch_cost.py"):
         assert must in names
 
@@ -130,9 +132,9 @@ def test_sharded_build_on_cpu_runs():
 def test_golden_specs_read_or_name_their_slice(path):
     """Dense, netsim and sharded specs parse to the same JSON; the sweep
     spec (``sweep_lead_seed_x_bits``) parses as a SweepSpec, round-trips to
-    the same JSON and builds on the CPU; a model-sharded mesh
-    (``trainer_neighbor_alternating_4x2``) parses and is refused at build,
-    naming the multi-card slice."""
+    the same JSON and builds on the CPU; the model-sharded mesh
+    (``trainer_neighbor_alternating_4x2``) builds with its two model
+    shards and takes a step on the CPU."""
     d = json.loads(path.read_text())
     if "base" in d:
         spec = tapi.SweepSpec.from_json(path.read_text())
@@ -146,30 +148,13 @@ def test_golden_specs_read_or_name_their_slice(path):
     assert tapi.ExperimentSpec.from_json(spec.to_json()) == spec
     mesh = d["execution"]["mesh"]
     if mesh is not None and mesh[1] > 1:
-        with pytest.raises(NotImplementedError, match="multi-card slice"):
-            tapi.build(spec, device="cpu")
-
-
-@pytest.mark.parametrize("knob", sorted(tapi.LATER_TRAINER_FIELDS))
-def test_later_trainer_knobs_name_their_slice(knob):
-    """A reference trainer knob that no ported path reads parses at its
-    default and is refused, naming its slice, at any other value."""
-    default, _ = tapi.LATER_TRAINER_FIELDS[knob]
-    spec = _neighbor_spec()
-
-    def with_knob(value):
-        if knob == "allow_biased":
-            return dataclasses.replace(spec, algorithm=dataclasses.replace(
-                spec.algorithm, params={knob: value}))
-        return dataclasses.replace(spec, execution=dataclasses.replace(
-            spec.execution, params={knob: value}))
-
-    tcfg = tapi.trainer_config_from_spec(with_knob(default))
-    assert not hasattr(tcfg, knob)
-    other = (not default if isinstance(default, bool)
-             else type(default)(default + 1))
-    with pytest.raises(NotImplementedError, match="slice"):
-        tapi.trainer_config_from_spec(with_knob(other))
+        runner = tapi.build(spec, device="cpu")
+        assert runner.trainer.model_shards == runner.trainer.wire_shards \
+            == mesh[1]
+        state, _ = runner.run(num_steps=1)
+        assert int(state.step) == 1
+        assert all(bool(torch.isfinite(x).all())
+                   for x in tapi.tree.leaves(state.plead.X))
 
 
 KNOB_CASES = {

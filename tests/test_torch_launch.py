@@ -140,12 +140,9 @@ def test_clis_without_a_card_raise(tmp_path, monkeypatch):
 def test_spec_gate_round_trips_nine_and_builds_eight(capsys):
     assert tapi._main(["--check", str(GOLDEN), "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert out.count("[spec-check] OK") == 8
-    refused = [line for line in out.splitlines() if "REFUSED" in line]
-    assert len(refused) == 1
-    assert "trainer_neighbor_alternating_4x2" in refused[0]
-    assert "multi-card slice" in refused[0]
-    assert "9 golden specs round-trip; 8 build, 1 refused" in out
+    assert out.count("[spec-check] OK") == 9
+    assert "[spec-check] OK trainer_neighbor_alternating_4x2.json" in out
+    assert "9 golden specs round-trip and build" in out
     assert "sweep of 12 points" in out
 
 
@@ -164,4 +161,4 @@ def test_spec_gate_as_a_module():
                         str(SWEEP_GOLDEN), "--device", "cpu"],
                        capture_output=True, text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert "1 golden specs round-trip; 1 build" in r.stdout
+    assert "1 golden specs round-trip and build" in r.stdout
