@@ -259,6 +259,25 @@ Phases, in order; any failure exits non-zero before the result lines:
    (``DistPP``) are not run: the machine has one card, and NCCL refuses
    two ranks on one device; the gloo path is tested on the CPU
    (``tests/test_torch_dist.py``).
+16. (Run after phase 15, before the result lines.)  The dry run
+   (``repro_torch.launch.dryrun``: one step on the ``meta`` device, kernels
+   B1-B4 on the card's route dry, nothing allocated).  (a) Phase 6's slice
+   (8 nodes, one process, the program phase 6 runs) and phase 15's at (8,
+   2) dry-run: FLOPs, ATen bytes and ``pp`` bytes equal to the ``[roofline]``
+   counts of the phase's real step; the dry peak (argument + temp bytes)
+   within DRY_PEAK_TOL of ``max_memory_allocated`` over one real step from
+   the state a warm-up step left (``reset_peak_memory_stats`` just
+   before); the card's ``total_memory`` beside
+   ``dryrun.H100_MEMORY_BYTES``.  (b) The production sweep by the CLI, one
+   process a job, all started together: every arch x every shape on (16,
+   16) and every arch x ``train_4k`` on (2, 16, 16), less DRY_LOOPED's
+   ``train_4k`` and ``prefill_32k`` (their recurrences loop over the
+   tokens in Python: minutes a combo; the CLI runs them), the neighbor
+   ring, 2 bits, bf16, one node a rank; every combo ``ok`` or
+   skipped as ``configs.shapes.applicable`` says; one line a combo
+   (per-rank peak, fits, state bytes a model shard, the roofline terms,
+   the bottleneck, counted over analytic FLOPs, bits a round) and the
+   phase's seconds.  Records in ``chiprun_out/dryrun_torch/``.
 13. Result lines: ``{"kernels": [...]}`` (B1-B4; B3's entry also names
    its variant at each shape and the row variant's ms at the trainer's
    shape; B3's and B4's the (8, 2) groups and launches), the nvidia-smi
@@ -2842,6 +2861,14 @@ def golden_mesh_on_card(torch, api, convert, draws_mod, tree, qk, ref, errs,
     return out
 
 
+def mesh_spec(spec):
+    """``spec`` on the mesh MESH_8X2: each node's leaves cut into 2 model
+    shards on the bucketed wire."""
+    return dataclasses.replace(
+        spec, name=spec.name + "-mesh8x2", execution=dataclasses.replace(
+            spec.execution, mesh=MESH_8X2))
+
+
 def mesh_slice_phase(torch, api, draws_mod, tree, qk, ref, errs,
                      device: str = "cuda", steps: int = SLICE_STEPS,
                      profile_steps: int = SLICE_PROFILE_STEPS, wire=True,
@@ -2858,10 +2885,7 @@ def mesh_slice_phase(torch, api, draws_mod, tree, qk, ref, errs,
     (``roofline_gate.kernel_roofline`` with 2 shards a node).  ``spec``:
     another base than phase 6's (a small one rehearses this on the
     CPU)."""
-    spec = spec or slice_spec(api, steps)
-    spec = dataclasses.replace(
-        spec, name=spec.name + "-mesh8x2", execution=dataclasses.replace(
-            spec.execution, mesh=MESH_8X2))
+    spec = mesh_spec(spec or slice_spec(api, steps))
     if device == "cuda":
         torch.cuda.empty_cache()
     out = trainer_path(torch, api, draws_mod, qk, steps=steps, spec=spec,
@@ -2879,6 +2903,172 @@ def mesh_slice_phase(torch, api, draws_mod, tree, qk, ref, errs,
                                      n_nodes=MESH_8X2[0],
                                      shards=MESH_8X2[1], device=device))
     return out
+
+
+# --- phase 16 ------------------------------------------------------------------
+
+DRY_PEAK_TOL = 0.10          # dry peak within this of max_memory_allocated
+DRY_OUT = OUT_DIR / "dryrun_torch"
+#: the architectures whose recurrences run as a Python loop over the
+#: tokens (RWKV-6's WKV, the RG-LRU): ~10^6-10^7 meta ops at train_4k and
+#: prefill_32k, 8-20 minutes a combo, so phase 16 (b) leaves those
+#: combos to the CLI (``python -m repro_torch.launch.dryrun --arch all
+#: --shape all --backend neighbor``) and runs their one-token decodes
+DRY_LOOPED = ("rwkv6-7b", "recurrentgemma-9b")
+DRY_LOOPED_SHAPES = ("decode_32k", "long_500k")
+DRY_SWEEP_TIMEOUT_S = 600
+
+
+def dry_sweep_jobs(archs):
+    """(arch, shape or "all", multi_pod) of phase 16 (b): every arch x
+    every shape on (16, 16) and every arch x train_4k on (2, 16, 16),
+    less the looped architectures' train_4k and prefill_32k."""
+    jobs = []
+    for a in archs:
+        if a in DRY_LOOPED:
+            jobs += [(a, s, False) for s in DRY_LOOPED_SHAPES]
+        else:
+            jobs += [(a, "all", False), (a, "train_4k", True)]
+    return jobs
+
+
+def dry_against_real(torch, api, draws_mod, spec, real_roofline=None,
+                     device: str = "cuda"):
+    """Phase 16 (a): ``spec`` (a trainer spec) dry-run in one process on
+    the ``meta`` device (``repro_torch.launch.dryrun.dry_train``, the
+    program phase 6 runs) against a real step on ``device``.  The dry
+    step's FLOPs, ATen bytes and ``pp`` bytes must equal
+    ``real_roofline``'s (phase 6's or 15's ``[roofline]`` counts; None:
+    counted here by ``roofline.analyze``, a warm-up and a counted step);
+    its peak (argument + temp bytes) must come within DRY_PEAK_TOL of the
+    real step's ``max_memory_allocated`` (from the state a warm-up step
+    left, ``reset_peak_memory_stats`` just before; the bytes held before
+    the state was made are taken off)."""
+    import gc
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.obs import roofline
+    cfg = spec.model.build()
+    shape = roofline.train_shape(spec)
+    mesh = api.spec_mesh(spec) or mesh_mod.Mesh((spec.n_nodes, 1))
+    t0 = time.perf_counter()
+    dry = dryrun.dry_train(cfg, shape, mesh, spec=spec,
+                           placement="one process")
+    dry_s = time.perf_counter() - t0
+    runner = api.build(spec, device=device)
+    if real_roofline is None:
+        real_roofline = roofline.analyze(runner, cfg, shape,
+                                         spec.n_nodes).as_dict()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    data = runner.default_data()
+    draws = draws_mod.GeneratorDraws(spec.seed, runner.device)
+    state, _ = runner.step(runner.init_state(), data.batch_at(0), draws)
+    batch = data.batch_at(1)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    held = [state]
+    del state
+    held, _ = runner.step(held.pop(), batch, draws)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    real_peak = (torch.cuda.max_memory_allocated() - base
+                 if device == "cuda" else 0)
+    del held, batch
+    dr = dry["roofline"]
+    counts = {k: (dr[k], real_roofline[k])
+              for k in ("hlo_flops_raw", "hlo_bytes_raw")}
+    counts["pp_bytes"] = (dr["coll_breakdown"]["collective-permute"],
+                          real_roofline["coll_breakdown"][
+                              "collective-permute"])
+    mem = dry["memory"]
+    rel = (mem["peak_bytes"] - real_peak) / real_peak if real_peak else None
+    out = {"spec": spec.name, "mesh": list(mesh.shape), "counts": counts,
+           "memory": mem, "real_peak_bytes": real_peak,
+           "real_base_bytes": base, "peak_rel_diff": rel,
+           "kernels": dry["kernels"], "dry_s": dry_s}
+    require(all(d == r for d, r in counts.values()),
+            f"{spec.name}: the dry run's counts differ from the real "
+            f"step's (dry, real): {counts}")
+    require(rel is None or abs(rel) <= DRY_PEAK_TOL,
+            f"{spec.name}: dry peak {mem['peak_bytes']:,} B vs the card's "
+            f"{real_peak:,} B ({rel}): {out}")
+    return out
+
+
+def dry_sweep(out_dir=DRY_OUT, archs=None, timeout=DRY_SWEEP_TIMEOUT_S):
+    """Phase 16 (b): the production dry run by its CLI (``python -m
+    repro_torch.launch.dryrun``, neighbor backend), one process a job of
+    :func:`dry_sweep_jobs`, all started together (the meta device is the
+    host's: the card's machine has 8 cores), each required to exit 0.
+    -> (records, seconds)."""
+    import shutil
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if archs is None:
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch import configs
+        archs = configs.ARCH_IDS
+    t0 = time.perf_counter()
+    procs = []
+    for a, shape, multi_pod in dry_sweep_jobs(archs):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               a, "--shape", shape, "--backend", "neighbor", "--out",
+               str(out_dir)] + (["--multi-pod"] if multi_pod else [])
+        procs.append((cmd, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    try:
+        for cmd, proc in procs:
+            try:
+                out, _ = proc.communicate(
+                    timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                failed.append(f"{' '.join(cmd[3:])}: past {timeout} s")
+                continue
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd[3:])}: exit "
+                              f"{proc.returncode}: {out[-1500:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    require(not failed, f"dry-run sweep: {failed}")
+    recs = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    return recs, seconds
+
+
+def dry_line(r) -> str:
+    """One combo of the sweep: status, per-rank peak, fits, state bytes a
+    model shard, the three roofline terms (the H100 data-sheet model) and
+    the bottleneck, counted over analytic FLOPs, bits a round."""
+    head = f"[dryrun] (16b) {r['arch']} x {r['shape']} x {r['mesh']}: "
+    if r["status"] != "ok":
+        return head + f"{r['status']} ({r.get('reason') or r.get('error')})"
+    m, rl = r["memory"], r["roofline"]
+    g = r.get("gossip")
+    state = r.get("state_bytes_per_model_shard")
+    return (head + f"ok, {r['placement']} ({r['cards']} cards), peak "
+            f"{m['peak_bytes'] / 2 ** 30:.2f} GiB/card, fits {m['fits']}, "
+            + (f"state {state:,} B/model shard" if state is not None
+               else "no trainer state")
+            + f", t_compute {rl['t_compute_s']:.4g} s, t_memory "
+            f"{rl['t_memory_s']:.4g} s, t_collective "
+            f"{rl['t_collective_s']:.4g} s, bottleneck {rl['bottleneck']}, "
+            f"counted/analytic FLOPs "
+            f"{rl['hlo_flops_raw'] / rl['flops_per_chip']:.4f}, "
+            + (f"{g['bits_per_round']:,} bits/round" if g else "no wire")
+            + f", {r['t_dry_s']} s")
 
 
 # --- phase 12 ------------------------------------------------------------------
@@ -3580,6 +3770,59 @@ def main() -> int:
         print(f"[mesh] phase {ms_['seconds']:.1f} s; several processes "
               f"(DistPP) not run here: one card, and NCCL refuses two ranks "
               f"on one device", flush=True)
+
+        # 16. the dry run: dry against real, then the production sweep
+        t0 = time.perf_counter()
+        from repro_torch.launch import dryrun
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"[dryrun] (16) this card's total_memory {total:,} B; "
+              f"dryrun.H100_MEMORY_BYTES {dryrun.H100_MEMORY_BYTES:,} B | "
+              f"{smi}", flush=True)
+        dr16 = {"total_memory": total, "against_real": []}
+        for spec_, real in ((slice_spec(api, SLICE_STEPS), sp["roofline"]),
+                            (mesh_spec(slice_spec(api, SLICE_STEPS)),
+                             ms_["roofline"])):
+            torch.cuda.empty_cache()
+            da = dry_against_real(torch, api, draws_mod, spec_, real)
+            dr16["against_real"].append(da)
+            c, m = da["counts"], da["memory"]
+            print(f"[dryrun] (16a) {da['spec']} at {da['mesh']}, one "
+                  f"process, dry ({da['dry_s']:.1f} s) = real: FLOPs "
+                  f"{c['hlo_flops_raw'][0]:.6e} = {c['hlo_flops_raw'][1]:.6e}"
+                  f", ATen bytes {c['hlo_bytes_raw'][0]:.6e} = "
+                  f"{c['hlo_bytes_raw'][1]:.6e}, pp bytes "
+                  f"{c['pp_bytes'][0]:,.0f} = {c['pp_bytes'][1]:,.0f}; peak "
+                  f"{m['peak_bytes']:,} B (arguments "
+                  f"{m['argument_bytes']:,} + temp {m['temp_bytes']:,}) vs "
+                  f"max_memory_allocated {da['real_peak_bytes']:,} B "
+                  f"({da['peak_rel_diff']:+.2%}; {da['real_base_bytes']:,} "
+                  f"B held before the state taken off); dry kernel calls "
+                  f"{ {k: v['calls'] for k, v in da['kernels'].items()} } "
+                  f"| {smi}", flush=True)
+        torch.cuda.empty_cache()
+        recs, sweep_s = dry_sweep()
+        for r in recs:
+            print(dry_line(r), flush=True)
+        status = [r["status"] for r in recs]
+        from repro_torch.configs import shapes as shp_
+        want = {}
+        for a, shape_, mp_ in dry_sweep_jobs(configs.ARCH_IDS):
+            for s_ in (shp_.SHAPES if shape_ == "all" else (shape_,)):
+                want[(a, s_, "2pod" if mp_ else "1pod")] = (
+                    "ok" if shp_.applicable(configs.get(a), shp_.SHAPES[s_])
+                    is None else "skipped")
+        got = {(r["arch"], r["shape"], r["mesh"]): r["status"] for r in recs}
+        require(got == want, f"dry-run sweep: got {got}, want {want}")
+        dr16.update(sweep=recs, sweep_s=sweep_s,
+                    seconds=time.perf_counter() - t0)
+        result["dryrun"] = dr16
+        print(f"[dryrun] (16b) {len(recs)} combos: {status.count('ok')} ok, "
+              f"{status.count('skipped')} skipped (the reference's skips), "
+              f"0 errors, in {sweep_s:.1f} s "
+              f"({len(dry_sweep_jobs(configs.ARCH_IDS))} processes; "
+              f"{', '.join(DRY_LOOPED)} x train_4k, prefill_32k by the CLI "
+              f"only); phase "
+              f"{dr16['seconds']:.1f} s | {smi}", flush=True)
 
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -7,7 +7,10 @@ and torch's Philox never produce the same numbers from one seed, so
 parity tests draw
 with JAX and hand the arrays to :class:`ReplayDraws`, which pops them in
 call order.  Runs use :class:`GeneratorDraws`, a ``torch.Generator`` on the
-run's device.
+run's device; a dry run (``repro_torch.launch.dryrun``) uses
+:class:`MetaDraws`, which hands out ``meta`` tensors of the asked shape
+and dtype through the same ATen ops, and :func:`draws_on` picks one of
+the two for a device.
 
     randint(n, high)     -> (n,) int64 in [0, high)  batch index per node
     bernoulli(p[, shape]) -> shape bool (default ())  L-SVRG refresh coin,
@@ -89,6 +92,40 @@ class GeneratorDraws(Draws):
     def choice(self, n, k):
         return torch.randperm(int(n), generator=self.gen,
                               device=self.device)[:int(k)]
+
+
+class MetaDraws(Draws):
+    """Draws on the ``meta`` device: the ATen ops of
+    :class:`GeneratorDraws` without a generator (``torch.Generator``
+    refuses ``meta``), so each call returns a ``meta`` tensor of the asked
+    shape and dtype and a recorder counts what the card's call moves."""
+
+    device = torch.device("meta")
+
+    def randint(self, n, high):
+        return torch.randint(0, int(high), (int(n),), device=self.device)
+
+    def bernoulli(self, p, shape=()):
+        return torch.rand(tuple(shape), device=self.device) < p
+
+    def uniform(self, shape, out=None, dtype=torch.float32, low=0.0,
+                high=1.0):
+        if out is None:
+            out = torch.empty(tuple(shape), device=self.device, dtype=dtype)
+        else:
+            _check_out(out, shape, dtype)
+        return out.uniform_(low, high)
+
+    def choice(self, n, k):
+        return torch.randperm(int(n), device=self.device)[:int(k)]
+
+
+def draws_on(seed: int, device) -> Draws:
+    """A :class:`GeneratorDraws` seeded ``seed`` on ``device``, or
+    :class:`MetaDraws` when ``device`` is ``meta``."""
+    if torch.device(device).type == "meta":
+        return MetaDraws()
+    return GeneratorDraws(seed, device)
 
 
 class ReplayDraws(Draws):

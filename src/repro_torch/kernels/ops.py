@@ -59,8 +59,9 @@ def qinf_quantize_lastdim(x: torch.Tensor, u: torch.Tensor, *, bits: int = 2,
     are read as they are; another dtype is first cast to f32, as the plain
     path does): one launch, no pad and no reshape on the card.  Its last
     axis must have unit stride and its leading axes collapse to one row
-    stride (any contiguous tensor does); the binding raises otherwise."""
-    if x.is_cuda:
+    stride (any contiguous tensor does); the binding raises otherwise.  A
+    ``meta`` ``x`` takes the same route, dry."""
+    if x.is_cuda or x.is_meta:
         if u.shape[-1:] != (block,) or u.dim() != max(x.dim(), 1) + 1:
             raise ValueError(f"noise shape {tuple(u.shape)} != blocked shape "
                              f"{blockwise_shape(x.shape, block)}")

@@ -18,8 +18,18 @@ and any build or launch failure raises.
 
 The wrappers dispatch on the device of their input: a CUDA tensor
 launches the kernel, a CPU tensor runs the plain version from
-:mod:`repro_torch.kernels.ref`, and any other device raises.  There is no
-fallback from the card to the plain version.
+:mod:`repro_torch.kernels.ref`, a ``meta`` tensor takes the card's route
+dry (:func:`_dry`), and any other device raises.  There is no fallback
+from the card to the plain version.
+
+The ``meta`` route is what a dry run of a step
+(:mod:`repro_torch.launch.dryrun`) sees of a kernel: it makes the checks
+the binding makes, raising the same error types, and allocates the
+outputs the binding would allocate, with ``torch.empty`` -- the one ATen
+op (``aten::empty.memory_format``) the binding's ``at::empty`` shows a
+dispatch mode on the card -- in the binding's order.  It computes and
+launches nothing, so it is no fallback: nothing runs on ``meta``.  Its
+calls count in :data:`META_CALLS`, never in :data:`LAUNCHES`.
 
 One launch path, :func:`_launch`, serves all four kernels and keeps the
 host's share of a call small (the main path's B1/B2 calls do a few
@@ -77,6 +87,11 @@ LAUNCHES: Dict[str, int] = {"qinf_quantize_blocks": 0,
                             "qinf_unpack_dequant_mix_blocks": 0}
 
 
+#: calls of each kernel's wrapper on ``meta`` tensors since the last
+#: :func:`reset_meta_calls`: the launches a dry-run step would make
+META_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -84,6 +99,15 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def reset_meta_calls() -> None:
+    for k in META_CALLS:
+        META_CALLS[k] = 0
+
+
+def meta_call_counts() -> Dict[str, int]:
+    return dict(META_CALLS)
 
 
 def packed_width(block: int, bits: int) -> int:
@@ -255,6 +279,135 @@ def uses_vector_variant(kernel: str, *args) -> bool:
     return bool(libs["qinf_wire"].qinf_unpack_dequant_mix_blocks_vector(*args))
 
 
+def _leaf_rows(x: torch.Tensor):
+    """(rows, ok) of leaf x (..., D) as B1 reads it in place
+    (``csrc/binding.cpp::leaf_rows``): ok when the last axis has unit
+    stride and the leading axes collapse to one row stride."""
+    d = x.dim()
+    D = x.shape[-1] if d else 1
+    rows = x.numel() // D if D else 1
+    if d == 0 or x.numel() == 0:
+        return rows, True
+    if D > 1 and x.stride(-1) != 1:
+        return rows, False
+    span = None                     # elements spanned by the axes below
+    for i in reversed(range(d - 1)):
+        if x.shape[i] == 1:
+            continue
+        if span is not None and x.stride(i) != span:
+            return rows, False
+        span = x.stride(i) * x.shape[i]
+    return rows, True
+
+
+def _dry(kernel: str, *shapes_dtypes, device) -> tuple:
+    """The card's outputs of ``kernel`` on ``meta``: one ``torch.empty``
+    per (shape, dtype), in the binding's order; counts the call in
+    :data:`META_CALLS`."""
+    META_CALLS[kernel] += 1
+    outs = tuple(torch.empty(shape, dtype=dtype, device=device)
+                 for shape, dtype in shapes_dtypes)
+    return outs if len(outs) > 1 else outs[0]
+
+
+def _meta_quantize(x, u, bits, levels):
+    """B1's binding checks (``quantize_any``) and outputs, on ``meta``."""
+    B = u.shape[-1] if u.dim() else 0
+    if not 1 <= B <= 1 << 30:
+        raise ValueError(f"noise shape {list(u.shape)} has no block axis for "
+                         f"x {list(x.shape)}")
+    D = x.shape[-1] if x.dim() else 1
+    want = tuple(x.shape[:-1]) + (-(-D // B), B)
+    if tuple(u.shape) != want and not (x.dim() >= 1 and D == B
+                                       and u.shape == x.shape):
+        raise ValueError(f"noise shape {list(u.shape)} != blocked shape "
+                         f"{list(want)}")
+    if levels is None and not 1 <= bits <= 8:
+        raise ValueError(f"bits must be in 1..8, got {bits}")
+    if x.dtype not in _DTYPE_TAG or u.dtype != torch.float32:
+        raise TypeError(f"kernel takes x f32/f64/bf16 and u f32, got "
+                        f"{x.dtype} and {u.dtype}")
+    rows, ok = _leaf_rows(x)
+    if not (ok and u.is_meta and u.is_contiguous()):
+        raise ValueError("x must have rows of unit stride and u must be "
+                         "contiguous on one device")
+    if levels is not None:
+        if levels.dtype != torch.float32:
+            raise TypeError(f"levels must be f32, got {levels.dtype}")
+        if not (levels.is_meta and levels.is_contiguous()):
+            raise ValueError("levels must be contiguous on x's device")
+        P = levels.numel()
+        if levels.dim() != 1 or P < 1 or rows % P:
+            raise ValueError(f"levels {list(levels.shape)} must be (P,) with "
+                             f"P dividing the leaf's {rows} rows")
+    return _dry("qinf_quantize_blocks", (u.shape, torch.int8),
+                (u.shape[:-1] + (1,), torch.float32), device=u.device)
+
+
+def _one_device(ts, what: str) -> None:
+    if not all(t.is_meta and t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} must be contiguous on one device")
+
+
+def _meta_dequantize(codes, scales, out_dtype):
+    """B2's binding checks and output, on ``meta``."""
+    if (codes.dim() != 2 or scales.dim() != 2
+            or scales.shape != (codes.shape[0], 1)):
+        raise ValueError(f"want codes (R, block) and scales (R, 1), got "
+                         f"{list(codes.shape)} and {list(scales.shape)}")
+    if (codes.dtype != torch.int8 or scales.dtype != torch.float32
+            or out_dtype not in _DTYPE_TAG):
+        raise TypeError(f"kernel takes int8 codes, f32 scales and an f32, "
+                        f"f64 or bf16 output, got {codes.dtype}, "
+                        f"{scales.dtype} and {out_dtype}")
+    _one_device((codes, scales), "codes and scales")
+    return _dry("qinf_dequantize_blocks", (codes.shape, out_dtype),
+                device=codes.device)
+
+
+def _meta_quantize_pack(x, u, bits):
+    """B3's binding checks and outputs, on ``meta``."""
+    if x.dim() != 2 or u.shape != x.shape:
+        raise ValueError(f"want x and u of one (R, block) shape, got "
+                         f"{list(x.shape)} and {list(u.shape)}")
+    if not 1 <= bits <= 7:
+        raise ValueError(f"bits must be in 1..7, got {bits}")
+    R, B = x.shape
+    if B % 2 and kref.wire_bits_per_element(bits) == 4:
+        raise ValueError(f"nibble packing (bits <= 3) needs an even block, "
+                         f"got {B}")
+    if x.dtype != torch.float32 or u.dtype != torch.float32:
+        raise TypeError(f"B3 takes f32 x and u, got {x.dtype} and {u.dtype}")
+    _one_device((x, u), "x and u")
+    return _dry("qinf_quantize_pack_blocks",
+                ((R, packed_width(B, bits)), torch.uint8),
+                ((R, 1), torch.float32), device=x.device)
+
+
+def _meta_unpack_dequant_mix(packed, scales, w, bits, out_dtype):
+    """B4's binding checks and outputs, on ``meta``."""
+    if packed.dim() != 4:
+        raise ValueError(f"want packed (N, S, R, W), got "
+                         f"{list(packed.shape)}")
+    N, S, R, W = packed.shape
+    if (scales.shape != (N, S, R, 1) or w.dim() != 3
+            or w.shape[::2] != (N, S) or min(S, w.shape[1]) < 1):
+        raise ValueError(f"shapes disagree: packed {list(packed.shape)}, "
+                         f"scales {list(scales.shape)}, w {list(w.shape)}")
+    if not 1 <= bits <= 7:
+        raise ValueError(f"bits must be in 1..7, got {bits}")
+    if (packed.dtype != torch.uint8 or scales.dtype != torch.float32
+            or w.dtype != torch.float32 or out_dtype not in _DTYPE_TAG):
+        raise TypeError(f"B4 takes uint8 payloads, f32 scales and weights "
+                        f"and an f32/f64/bf16 output, got {packed.dtype}, "
+                        f"{scales.dtype}, {w.dtype} -> {out_dtype}")
+    _one_device((packed, scales, w), "packed, scales and w")
+    B = 2 * W if kref.wire_bits_per_element(bits) == 4 else W
+    return _dry("qinf_unpack_dequant_mix_blocks",
+                ((N, w.shape[1], R, B), out_dtype), ((N, R, B), out_dtype),
+                device=packed.device)
+
+
 def _plain_device(t: torch.Tensor) -> None:
     """The plain versions run on the CPU only; any other device raises."""
     if t.device.type != "cpu":
@@ -283,6 +436,8 @@ def qinf_quantize_blocks(x: torch.Tensor, u: torch.Tensor, bits: int,
         if levels is not None:
             return _launch("qinf_quantize_blocks_levels", x, u, levels)
         return _launch("qinf_quantize_blocks", x, u, bits)
+    if x.is_meta:
+        return _meta_quantize(x, u, bits, levels)
     if x.dim() != 2 or u.shape != x.shape:
         raise ValueError(f"want x and u of one (R, block) shape, got "
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
@@ -302,6 +457,8 @@ def qinf_dequantize_blocks(codes: torch.Tensor, scales: torch.Tensor,
     if codes.is_cuda:
         return _launch("qinf_dequantize_blocks", codes, scales,
                        _DTYPE_TAG.get(out_dtype, -1))
+    if codes.is_meta:
+        return _meta_dequantize(codes, scales, out_dtype)
     if codes.dim() != 2 or scales.shape != (codes.shape[0], 1):
         raise ValueError(f"want codes (R, block) and scales (R, 1), got "
                          f"{tuple(codes.shape)} and {tuple(scales.shape)}")
@@ -317,6 +474,8 @@ def qinf_quantize_pack_blocks(x: torch.Tensor, u: torch.Tensor, bits: int):
     shape; 1 <= bits <= 7."""
     if x.is_cuda:
         return _launch("qinf_quantize_pack_blocks", x, u, bits)
+    if x.is_meta:
+        return _meta_quantize_pack(x, u, bits)
     if x.dim() != 2 or u.shape != x.shape:
         raise ValueError(f"want x and u of one (R, block) shape, got "
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
@@ -346,6 +505,8 @@ def qinf_unpack_dequant_mix_blocks(packed: torch.Tensor, scales: torch.Tensor,
     if packed.is_cuda:
         return _launch("qinf_unpack_dequant_mix_blocks", packed, scales, w,
                        bits, _DTYPE_TAG.get(out_dtype, -1))
+    if packed.is_meta:
+        return _meta_unpack_dequant_mix(packed, scales, w, bits, out_dtype)
     if packed.dim() != 4:
         raise ValueError(f"want packed (N, S, R, W), got "
                          f"{tuple(packed.shape)}")

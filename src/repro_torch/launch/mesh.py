@@ -56,6 +56,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh((16, 16), ("data", "model"))
 
 
+def n_nodes(mesh: Mesh) -> int:
+    """Decentralized graph size on this mesh (the reference's function;
+    :attr:`Mesh.n_nodes`)."""
+    return mesh.n_nodes
+
+
+def n_chips(mesh: Mesh) -> int:
+    """Devices of the mesh (the reference's function; :attr:`Mesh.n_chips`)."""
+    return mesh.n_chips
+
+
 class ProcessMesh:
     """``mesh``'s node axes over the ranks of a process group: rank r
     holds nodes ``[lo, hi)`` = ``[r N / W, (r + 1) N / W)``.  ``rank`` and

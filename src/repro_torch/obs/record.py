@@ -24,17 +24,30 @@ contract audit (:mod:`repro_torch.check.contracts`):
 * :class:`RecordingPP` -- a ``pp(x, pairs)`` seam that records each call's
   dtype and the bytes one node sends (a row of the node-stacked ``x``)
   before handing the call on; :func:`recording_pp` puts one in a
-  trainer's seam for a block.
+  trainer's seam for a block.  Over a process mesh it records the bytes
+  the rank sends to other ranks.
+* :class:`RecordingAllReduce` -- the trainer's metric ``all_reduce``
+  seam, recording each call's dtype and bytes; :func:`recording_all_reduce`.
+* :class:`LiveBytes` -- a ``TorchDispatchMode`` that follows every storage
+  an op makes (a weakref finalizer on its ``untyped_storage()``) from its
+  first output to its death, beside the arguments' storages: the peak
+  live bytes of a block, and the argument, output and alias bytes (an
+  output storage that is an argument's: what an in-place update hands
+  back).  On ``meta`` tensors it predicts a step's memory without
+  allocating it (``repro_torch.launch.dryrun``).
 
-Kernels B1-B4 launch through the binding, not through ATen: no recorder
-here sees them.
+Kernels B1-B4 run through the binding, not through ATen: a recorder sees
+only the ``aten::empty`` of each output the binding allocates (on
+``meta``, the wrapper's dry route allocates the same), never the
+kernel's own traffic.
 """
 from __future__ import annotations
 
 import contextlib
 import pathlib
 import traceback
-from typing import Callable, List, NamedTuple, Optional, Tuple
+import weakref
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -132,22 +145,103 @@ class StepRecorder(TorchDispatchMode):
         return out
 
 
+class LiveBytes(TorchDispatchMode):
+    """Live storage bytes over the block it is entered for (see the module
+    docstring).  ``arguments``: the tensors handed to the block (a tree of
+    lists, tuples and dicts), whose storages are live from the start.
+    After the block: :attr:`peak`, :attr:`argument_bytes`, and
+    :meth:`outputs` of what the block returned."""
+
+    def __init__(self, arguments=()) -> None:
+        super().__init__()
+        self._live: Dict[int, int] = {}      # id(storage) -> bytes
+        self._args: Dict[int, weakref.ref] = {}
+        self.live = 0
+        for t in _tensors(arguments):
+            st = t.untyped_storage()
+            if self._follow(st):
+                self._args[id(st)] = weakref.ref(st)
+        self.argument_bytes = self.live
+        self.peak = self.live
+
+    def _follow(self, st) -> bool:
+        """Start following storage ``st``; False if it is followed."""
+        key = id(st)
+        if key in self._live:
+            return False
+        self._live[key] = st.nbytes()
+        self.live += self._live[key]
+        weakref.finalize(st, self._died, key)
+        return True
+
+    def _died(self, key: int) -> None:
+        self.live -= self._live.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _tensors(out):
+            self._follow(t.untyped_storage())
+        self.peak = max(self.peak, self.live)
+        return out
+
+    def outputs(self, result) -> Dict[str, int]:
+        """``output_bytes`` (the distinct storages of ``result``'s
+        tensors) and ``alias_bytes`` (those of them that are argument
+        storages)."""
+        seen, out, alias = set(), 0, 0
+        for t in _tensors(result):
+            st = t.untyped_storage()
+            if id(st) in seen:
+                continue
+            seen.add(id(st))
+            out += st.nbytes()
+            ref = self._args.get(id(st))
+            if ref is not None and ref() is st:
+                alias += st.nbytes()
+        return {"output_bytes": out, "alias_bytes": alias}
+
+
 class RecordingPP:
     """A ``pp(x, pairs)`` seam that records ``(dtype, bytes one node
     sends)`` for each call in ``calls`` and hands the call on to ``inner``
-    (default: :func:`repro_torch.optim.wire.stacked_pp`)."""
+    (default: :func:`repro_torch.optim.wire.stacked_pp`).  With a
+    ``process_mesh`` (:class:`repro_torch.launch.mesh.ProcessMesh`) the
+    bytes are those the rank sends to other ranks: a row for each pair
+    from one of its nodes to a node it does not hold."""
 
-    def __init__(self, inner: Optional[Callable] = None) -> None:
+    def __init__(self, inner: Optional[Callable] = None,
+                 process_mesh=None) -> None:
         self.inner = inner
+        self.process_mesh = process_mesh
         self.calls: List[Tuple[torch.dtype, int]] = []
 
     def __call__(self, x: torch.Tensor, pairs) -> torch.Tensor:
         if self.inner is None:
             from repro_torch.optim.wire import stacked_pp
             self.inner = stacked_pp
-        per_node = x.numel() // x.shape[0] if x.dim() else x.numel()
-        self.calls.append((x.dtype, per_node * x.element_size()))
+        row = x.numel() // x.shape[0] if x.dim() else x.numel()
+        rows, pm = 1, self.process_mesh
+        if pm is not None:
+            rows = sum(pm.lo <= s < pm.hi and not pm.lo <= d < pm.hi
+                       for s, d in pairs)
+        self.calls.append((x.dtype, rows * row * x.element_size()))
         return self.inner(x, pairs)
+
+
+class RecordingAllReduce:
+    """An ``all_reduce(t, group)`` seam (the trainer's metric all-reduce)
+    that records ``(dtype, bytes)`` of each call in ``calls`` and hands it
+    on to ``inner`` (None: nothing more; a dry run's sums stay its
+    rank's)."""
+
+    def __init__(self, inner: Optional[Callable] = None) -> None:
+        self.inner = inner
+        self.calls: List[Tuple[torch.dtype, int]] = []
+
+    def __call__(self, t: torch.Tensor, group) -> None:
+        self.calls.append((t.dtype, t.numel() * t.element_size()))
+        if self.inner is not None:
+            self.inner(t, group)
 
 
 def warm_trainer(runner, state=None, data=None, draws=None):
@@ -186,3 +280,20 @@ def recording_pp(trainer):
         yield rec
     finally:
         trainer.pp = rec.inner
+
+
+@contextlib.contextmanager
+def recording_all_reduce(trainer):
+    """A :class:`RecordingAllReduce` in ``trainer.all_reduce`` for the
+    block, its ``calls`` empty on entry (the trainer's own when it already
+    has one, else one wrapped around its seam and taken out on exit)."""
+    if isinstance(trainer.all_reduce, RecordingAllReduce):
+        trainer.all_reduce.calls.clear()
+        yield trainer.all_reduce
+        return
+    rec = RecordingAllReduce(trainer.all_reduce)
+    trainer.all_reduce = rec
+    try:
+        yield rec
+    finally:
+        trainer.all_reduce = rec.inner

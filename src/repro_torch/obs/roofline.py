@@ -28,16 +28,23 @@ collective bytes parsed from its HLO text (loop-aware) and XLA's raw
   "bytes accessed" sums them per op.  Eager PyTorch fuses nothing, so this
   is close to the step's real HBM traffic; B1-B4 count 0 here too.
 * ``coll_bytes`` -- the bytes one node sends through the ``pp(x, pairs)``
-  seam (:class:`repro_torch.obs.record.RecordingPP`), under the one key
+  seam (:class:`repro_torch.obs.record.RecordingPP`), under the key
   ``"collective-permute"``: what ``jax.lax.ppermute`` moves in the
-  reference.
+  reference; on a process mesh also the bytes of the trainer's metric
+  all-reduces (``"all-reduce"``).
+
+:func:`count_step` does this counting around one step; :func:`analyze`
+calls it on a real step after a warm-up, and the dry run
+(``repro_torch.launch.dryrun``) on a step of ``meta`` tensors, so the two
+count the same way.
 
 Hardware constants: one NVIDIA H100 SXM (NVIDIA's H100 data sheet).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict
+from typing import Any, Callable, Dict, Tuple
 
 #: H100 SXM f32 FLOP/s outside the tensor cores (67 TFLOP/s, NVIDIA's H100
 #: data sheet): how the trainers' products run, since
@@ -219,6 +226,58 @@ def train_shape(spec):
                       spec.n_nodes * ms.local_batch, "train")
 
 
+@dataclasses.dataclass
+class StepCounts:
+    """What :func:`count_step` counts over one step."""
+    flops: float                  # FlopCounterMode's
+    aten_bytes: float             # the ATen ops' operand + output bytes
+    coll: Dict[str, float]        # bytes sent, by collective
+
+
+def count_step(trainer, step: Callable[[], Any]) -> Tuple[StepCounts, Any]:
+    """Run ``step()`` -- one train step of ``trainer`` -- once under
+    ``FlopCounterMode``, :class:`repro_torch.obs.record.StepRecorder`
+    (``count_bytes``) and recorders in the trainer's ``pp`` and
+    ``all_reduce`` seams (the all-reduces count on a process mesh;
+    ``trainer`` None: a step with no seams, e.g. serving, and no
+    collectives).  -> (its counts, what ``step`` returned)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.obs.record import (StepRecorder, recording_all_reduce,
+                                        recording_pp)
+    with contextlib.ExitStack() as seams:
+        if trainer is not None:
+            rec = seams.enter_context(recording_pp(trainer))
+            ar = seams.enter_context(recording_all_reduce(trainer))
+        counter = FlopCounterMode(display=False)
+        with counter, StepRecorder(count_bytes=True) as sr:
+            out = step()
+    coll = {}
+    if trainer is not None:
+        coll["collective-permute"] = float(sum(b for _, b in rec.calls))
+        if trainer.process_mesh is not None:
+            coll["all-reduce"] = float(sum(b for _, b in ar.calls))
+    return StepCounts(float(counter.get_total_flops()), float(sr.bytes),
+                      coll), out
+
+
+def roofline_of(cfg, shape, n_nodes: int, n_chips: int,
+                counts: StepCounts, state_copies: float = 4.0) -> Roofline:
+    """The analytic terms of ``cfg`` at ``shape`` beside a step's
+    ``counts``."""
+    n_active = cfg.param_count(active_only=True)
+    return Roofline(
+        flops_per_chip=analytic_flops(cfg, shape) / n_chips,
+        hbm_bytes_per_chip=analytic_hbm_bytes(cfg, shape, n_nodes, n_chips,
+                                              state_copies),
+        coll_bytes=sum(counts.coll.values()),
+        coll_breakdown=dict(counts.coll),
+        model_flops_per_chip=model_flops(cfg, shape, n_active) / n_chips,
+        hlo_flops=counts.flops,
+        hlo_bytes=counts.aten_bytes,
+    )
+
+
 def analyze(runner, cfg, shape, n_nodes: int, n_chips: int = 1,
             state_copies: float = 4.0, *, state=None, data=None,
             draws=None) -> Roofline:
@@ -229,27 +288,12 @@ def analyze(runner, cfg, shape, n_nodes: int, n_chips: int = 1,
     one; a given state is consumed, as ``TrainerRunner.step`` consumes
     it) over ``data`` (default: the spec's stream) and ``draws`` (default:
     a generator seeded ``spec.seed``): the first is the warm-up (caches,
-    lazy index tensors), the second is measured."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from repro_torch.obs.record import (StepRecorder, recording_pp,
-                                        warm_trainer)
+    lazy index tensors), the second is counted (:func:`count_step`)."""
+    from repro_torch.obs.record import warm_trainer
 
     state, batch, draws = warm_trainer(runner, state, data, draws)
-    with recording_pp(runner.trainer) as rec:
-        counter = FlopCounterMode(display=False)
-        with counter, StepRecorder(count_bytes=True) as sr:
-            state, _ = runner.step(state, batch, draws)
+    held = [state]
     del state
-    coll = {"collective-permute": float(sum(b for _, b in rec.calls))}
-    n_active = cfg.param_count(active_only=True)
-    return Roofline(
-        flops_per_chip=analytic_flops(cfg, shape) / n_chips,
-        hbm_bytes_per_chip=analytic_hbm_bytes(cfg, shape, n_nodes, n_chips,
-                                              state_copies),
-        coll_bytes=sum(coll.values()),
-        coll_breakdown=coll,
-        model_flops_per_chip=model_flops(cfg, shape, n_active) / n_chips,
-        hlo_flops=float(counter.get_total_flops()),
-        hlo_bytes=float(sr.bytes),
-    )
+    counts, _ = count_step(
+        runner.trainer, lambda: runner.step(held.pop(), batch, draws))
+    return roofline_of(cfg, shape, n_nodes, n_chips, counts, state_copies)

@@ -57,8 +57,17 @@ Several processes.  With a :class:`repro_torch.launch.mesh.ProcessMesh`
 the node axis splits over the ranks of a ``torch.distributed`` group:
 rank r holds the node block [lo, hi), its state, data rows and weight
 rows; the hops cross ranks through :class:`repro_torch.optim.wire.DistPP`;
-the loss and consensus metrics are all-reduced.  Each rank draws the noise
-of its own rows.
+the loss and consensus metrics are all-reduced (through the trainer's
+``all_reduce`` seam, ``torch.distributed`` by default).  Each rank draws
+the noise of its own rows.  Only the neighbor backend splits over ranks:
+the dense backend mixes all N nodes with one (N, N) ``DenseMixer`` and is
+refused with a process mesh (ROADMAP §A item 3 (d)).
+
+Dry runs.  :meth:`DecentralizedTrainer.abstract_state` is a state of
+``meta`` tensors; a trainer built on the ``meta`` device steps it with
+:class:`repro_torch.core.draws.MetaDraws`, kernels B1-B4 taking the
+card's route dry (``repro_torch.kernels.quantize``), nothing allocated
+(``repro_torch.launch.dryrun``).
 
 The first trainer step folds Algorithm 1's warm-up (lines 1-3) into the
 k=1 update with H^1 = 0, D^1 = 0, as the reference does.
@@ -77,7 +86,7 @@ from repro_torch.core import bucket
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.comm import CommState, DenseMixer
 from repro_torch.core.compression import Compressor, Identity
-from repro_torch.core.draws import Draws, GeneratorDraws
+from repro_torch.core.draws import Draws, draws_on
 from repro_torch.core.oracles import OracleState
 from repro_torch.core.prox import Prox
 from repro_torch.core.prox_lead import ProxLEADState
@@ -89,6 +98,13 @@ from repro_torch.optim.wire import (WIRE_MODES, DistPP, WireExchange,
 
 #: B3/B4 pack and unpack codes of 1..7 bits (ROADMAP C10)
 WIRE_MAX_BITS = 7
+
+
+def dist_all_reduce(t: torch.Tensor, group) -> None:
+    """The trainer's default metric all-reduce: ``torch.distributed``'s
+    sum, in place, over ``group``."""
+    import torch.distributed as dist
+    dist.all_reduce(t, group=group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,8 +168,11 @@ class DecentralizedTrainer:
     each node's leaves into (default: none, M = 1; the node count is
     ``tcfg.n_nodes`` whatever the mesh says).  ``process_mesh``: this
     rank's node block, when the nodes split over a process group (its
-    ``pp`` defaults to :class:`DistPP`).  ``pp``: the exchange seam
-    (default: the one-card :func:`stacked_pp`)."""
+    ``pp`` defaults to :class:`DistPP`; the neighbor backend only).
+    ``pp``: the exchange seam (default: the one-card :func:`stacked_pp`).
+    :attr:`all_reduce` ``(t, group)`` is the seam of the metrics' in-place
+    sum over the process mesh's ranks (:func:`dist_all_reduce`; a dry run
+    records it)."""
 
     def __init__(self, model_cfg: TR.ModelConfig, tcfg: TrainerConfig, *,
                  device, pp=None, mesh=None, process_mesh=None):
@@ -162,7 +181,15 @@ class DecentralizedTrainer:
         self.device = torch.device(device)
         self.mesh = mesh
         self.process_mesh = process_mesh
+        self.all_reduce = dist_all_reduce
         if process_mesh is not None:
+            if tcfg.backend == "dense":
+                raise ValueError(
+                    "the dense backend does not split over ranks: it mixes "
+                    "all N nodes with one (N, N) DenseMixer in one process "
+                    "(a dense mixer over ranks is ROADMAP §A item 3 (d)); "
+                    "use backend='neighbor' with a process_mesh, or no "
+                    "process_mesh")
             if process_mesh.n_nodes != tcfg.n_nodes:
                 raise ValueError(
                     f"process mesh over {process_mesh.n_nodes} nodes, "
@@ -262,7 +289,7 @@ class DecentralizedTrainer:
         faults = ((registry.make("fault", "linkdrop", rate=tcfg.drop_rate),)
                   if tcfg.drop_rate > 0 else ())
         return SimMixer(self._schedule(), faults,
-                        GeneratorDraws(tcfg.fault_seed, self.device))
+                        draws_on(tcfg.fault_seed, self.device))
 
     def start_fault_stream(self, fault_draws: Optional[Draws] = None
                            ) -> None:
@@ -275,7 +302,7 @@ class DecentralizedTrainer:
         if not (isinstance(self.mixer, SimMixer) and self.mixer.faults):
             return
         if fault_draws is None:
-            fault_draws = GeneratorDraws(self.tcfg.fault_seed, self.device)
+            fault_draws = draws_on(self.tcfg.fault_seed, self.device)
         self.mixer = SimMixer(self.mixer.schedule, self.mixer.faults,
                               fault_draws)
         self.alg = dataclasses.replace(self.alg, mixer=self.mixer)
@@ -305,6 +332,20 @@ class DecentralizedTrainer:
 
     def state_from_stacked(self, X) -> TrainState:
         self.start_fault_stream()
+        return self._state_of(X)
+
+    def abstract_state(self) -> TrainState:
+        """The state :meth:`init_state` makes, as ``meta`` tensors (the
+        reference's ``abstract_state``): this process's rows (n_local,
+        ...) of every leaf in the model's dtype, D, H and Hw each their own
+        storage, Hw with its T slots; nothing allocated."""
+        X = tree.tree_map(
+            lambda p: torch.empty((self.n_local,) + tuple(p.shape),
+                                  dtype=p.dtype, device="meta"),
+            TR.abstract_params(self.mcfg))
+        return self._state_of(X)
+
+    def _state_of(self, X) -> TrainState:
         zeros = lambda: tree.tree_map(torch.zeros_like, X)   # noqa: E731
         T = self.hw_slots
         hw0 = zeros() if T is None else tree.tree_map(
@@ -371,11 +412,10 @@ class DecentralizedTrainer:
     def _reduced_metrics(self, ce, leaves):
         """The mean node loss and the consensus error over every rank's
         nodes: one all-reduce of the node sums (for the node mean), one of
-        the loss and consensus partial sums."""
-        import torch.distributed as dist
+        the loss and consensus partial sums (:attr:`all_reduce`)."""
         group, N = self.process_mesh.group, self.tcfg.n_nodes
         sums = torch.cat([leaf.sum(0).reshape(-1) for leaf in leaves])
-        dist.all_reduce(sums, group=group)
+        self.all_reduce(sums, group)
         parts, off = [], 0
         for leaf in leaves:
             n = leaf[0].numel()
@@ -385,7 +425,7 @@ class DecentralizedTrainer:
         del sums
         total = sum(parts)
         tot = torch.stack([(ce * self.n_local).to(total.dtype), total])
-        dist.all_reduce(tot, group=group)
+        self.all_reduce(tot, group)
         return tot[0] / N, tot[1]
 
     def _adam_precondition(self, G, precond, step: int):

@@ -109,28 +109,39 @@ class DistPP:
         return rank if g is None else dist.get_global_rank(g, rank)
 
     def __call__(self, x: torch.Tensor, pairs) -> torch.Tensor:
-        import torch.distributed as dist
         pm = self.pm
         lo, hi = pm.lo, pm.hi
         x = x.contiguous()
         out = torch.zeros_like(x)
-        ops = []
+        posts = []            # (send?, pair index, row, peer rank)
         for i, (s, d) in enumerate(pairs):
             mine_s, mine_d = lo <= s < hi, lo <= d < hi
             if mine_s and mine_d:
                 out[d - lo].copy_(x[s - lo])
             elif mine_s:
-                ops.append(dist.P2POp(dist.isend, x[s - lo],
-                                      self._peer(pm.owner(d)), pm.group,
-                                      tag=i))
+                posts.append((True, i, x[s - lo], pm.owner(d)))
             elif mine_d:
-                ops.append(dist.P2POp(dist.irecv, out[d - lo],
-                                      self._peer(pm.owner(s)), pm.group,
-                                      tag=i))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+                posts.append((False, i, out[d - lo], pm.owner(s)))
+        if posts:
+            self._transfer(posts)
         return out
+
+    def _transfer(self, posts) -> None:
+        import torch.distributed as dist
+        ops = [dist.P2POp(dist.isend if send else dist.irecv, row,
+                          self._peer(peer), self.pm.group, tag=i)
+               for send, i, row, peer in posts]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+class DryDistPP(DistPP):
+    """:class:`DistPP`'s ops on the rank's rows without the transfers:
+    what a dry run (``meta`` tensors, no process group) hands the trainer
+    as its seam.  The rows it would receive stay zero."""
+
+    def _transfer(self, posts) -> None:
+        pass
 
 
 def node_weights(wmat, device) -> torch.Tensor:

@@ -303,17 +303,41 @@ def test_launch_helper_counts_only_launches(monkeypatch):
     tq.reset_launch_counts()
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that says it lies on another device than the CPU, the
+    card or ``meta``."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t):
+    return torch.Tensor._make_subclass(_Elsewhere, t)
+
+
 def test_wrappers_refuse_other_devices_and_launch_nothing():
-    """A tensor that is neither on the card nor on the CPU raises, and the
-    CPU path never reaches a launcher."""
-    meta = torch.empty((8, 256), device="meta")
+    """A tensor that is neither on the card, nor on the CPU, nor on
+    ``meta`` raises; a ``meta`` tensor takes the card's route dry (its
+    outputs on ``meta``, counted in META_CALLS, no launch); the CPU path
+    never reaches a launcher."""
+    x = _elsewhere(torch.zeros((8, 256)))
     with pytest.raises(ValueError, match="unsupported device"):
-        tq.qinf_quantize_blocks(meta, torch.empty((8, 256), device="meta"),
-                                2)
+        tq.qinf_quantize_blocks(x, _elsewhere(torch.zeros((8, 256))), 2)
     with pytest.raises(ValueError, match="unsupported device"):
-        tq.qinf_dequantize_blocks(meta.to(torch.int8),
-                                  torch.empty((8, 1), device="meta"))
+        tq.qinf_dequantize_blocks(_elsewhere(torch.zeros((8, 256),
+                                                         dtype=torch.int8)),
+                                  _elsewhere(torch.zeros((8, 1))))
     tq.reset_launch_counts()
+    tq.reset_meta_calls()
+    meta = torch.empty((8, 256), device="meta")
+    codes, scales = tq.qinf_quantize_blocks(
+        meta, torch.empty((8, 256), device="meta"), 2)
+    out = tq.qinf_dequantize_blocks(codes, scales)
+    assert codes.is_meta and scales.shape == (8, 1) and out.is_meta
+    assert sum(tq.launch_counts().values()) == 0
+    assert tq.meta_call_counts()["qinf_quantize_blocks"] == \
+        tq.meta_call_counts()["qinf_dequantize_blocks"] == 1
     for block in (256, 100, 3):
         codes = torch.randint(-2, 3, (5, block), dtype=torch.int8)
         out = tq.qinf_dequantize_blocks(codes[1:], torch.ones((4, 1)))

@@ -307,9 +307,24 @@ def test_cuda_b3_off_alignment_takes_row_variant(bits, block, x_off, u_off):
     _check_b3_on_card(x, u, bits, vector=False)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that says it lies on another device than the CPU, the
+    card or ``meta``."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t):
+    return torch.Tensor._make_subclass(_Elsewhere, t)
+
+
 def test_b4_wrapper_validates_before_any_launch():
     """Shapes, S and T >= 1, bits, dtypes and devices are checked on every
-    path; the CPU path launches nothing."""
+    path (a device other than the card, the CPU and ``meta`` raises; a
+    ``meta`` call takes the card's route dry); the CPU and ``meta`` paths
+    launch nothing."""
     P = torch.zeros((2, 3, 5, 64), dtype=torch.uint8)
     Sc = torch.ones((2, 3, 5, 1))
     with pytest.raises(ValueError):                     # T = 0
@@ -331,12 +346,21 @@ def test_b4_wrapper_validates_before_any_launch():
                                           torch.float16)
     with pytest.raises(ValueError, match="unsupported device"):
         tq.qinf_unpack_dequant_mix_blocks(
-            P.to("meta"), Sc.to("meta"), torch.ones((2, 1, 3), device="meta"),
+            _elsewhere(P), _elsewhere(Sc), _elsewhere(torch.ones((2, 1, 3))),
             2)
     with pytest.raises(ValueError, match="unsupported device"):
-        tq.qinf_quantize_pack_blocks(torch.zeros((4, 8), device="meta"),
-                                     torch.zeros((4, 8), device="meta"), 2)
+        tq.qinf_quantize_pack_blocks(_elsewhere(torch.zeros((4, 8))),
+                                     _elsewhere(torch.zeros((4, 8))), 2)
     tq.reset_launch_counts()
+    # a meta tensor takes the card's route dry: outputs on meta, no launch
+    dry = tq.qinf_unpack_dequant_mix_blocks(
+        P.to("meta"), Sc.to("meta"), torch.ones((2, 1, 3), device="meta"), 2)
+    assert [t.shape for t in dry] == [(2, 1, 5, 128), (2, 5, 128)]
+    assert all(t.is_meta for t in dry)
+    with pytest.raises(ValueError):                     # bits, on meta too
+        tq.qinf_unpack_dequant_mix_blocks(
+            P.to("meta"), Sc.to("meta"), torch.ones((2, 1, 3), device="meta"),
+            8)
     mix, qself = tq.qinf_unpack_dequant_mix_blocks(P, Sc,
                                                    torch.ones((2, 1, 3)), 2)
     assert mix.shape == (2, 1, 5, 128) and qself.shape == (2, 5, 128)
