@@ -240,8 +240,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    over every golden spec on the card (``repro_torch.check.contracts.
    audit_spec_dir``): each spec's second step recorded under
    ``set_sync_debug_mode("error")``; every finding printed; any FAIL fails
-   the run; each sharded spec is audited at (8, 1) and at (4, 2), and
-   none waits.
+   the run; each sharded spec is audited at (8, 1) and at (4, 2), a
+   neighbor spec's (4, 2) variant also as a tensor-parallel node
+   (``<name>/tp``, ``StackedTP(2)``), and none waits.
 15. Model-sharded meshes: the node's leaves cut into M model shards on the
    bucketed wire, all M in one process.  (a) The golden
    ``trainer_neighbor_alternating_4x2`` spec: GOLDEN_4X2_STEPS steps card
@@ -278,9 +279,40 @@ Phases, in order; any failure exits non-zero before the result lines:
    (per-rank peak, fits, state bytes a model shard, the roofline terms,
    the bottleneck, counted over analytic FLOPs, bits a round) and the
    phase's seconds.  Records in ``chiprun_out/dryrun_torch/``.
+17. (Run after phase 16, before the result lines.)  A tensor-parallel
+   node: each node's products split over its M model ranks
+   (``repro_torch.models.tp``), all N x M rank-rows in one process
+   (``StackedTP``; ``DistTP`` across processes is not run here: one card,
+   and NCCL refuses two ranks on one device; gloo on the CPU holds it,
+   ``tests/test_torch_tp_dist.py``).  (a) Phase 6's slice at (8, 2):
+   TP_TF_STEPS steps teacher-forced against phase 15's whole-node (8, 2)
+   step from the same state and draws (C4's bar: TP_STEP_TOL of each
+   array's max on all but TP_STEP_MAX_OFF of its elements), every B3 and
+   B4 launch of the first bit-equal to its plain version on the same
+   operands; then SLICE_STEPS free-running steps through
+   ``trainer_path`` (the loss falls and stays finite, B3/B4 once per
+   bucket group a step, ``bits_per_step`` = 2 x SLICE_8X2_BITS_PER_HOP),
+   the ``[contracts]`` line under ``set_sync_debug_mode("error")``, the
+   ``[roofline]`` line with the TP bytes a step, the median step and peak
+   memory beside phase 15's.  (b) The same at (2, 16), whose 8 KV heads
+   split in halves (k and v gathered to whole heads): teacher-forced
+   against the whole-node (2, 16) step, ``bits_per_step`` =
+   SLICE_2X16_HOPS x SLICE_2X16_BITS_PER_HOP.  (c) (a)'s step dry-run in
+   one process (placement ``"tp one process"``): FLOPs, ATen bytes,
+   ``pp`` bytes and TP bytes equal to (a)'s ``[roofline]`` counts, the
+   peak within DRY_PEAK_TOL of ``max_memory_allocated``.  (d) The
+   production sweep under ``--placement tp`` (rank (0, 0) of N x M: one
+   model shard of one node a card), the dense, moe, vlm and encdec
+   architectures: every shape on (16, 16) (``train_4k`` and
+   ``prefill_32k`` run, the rest skipped with their reasons) and
+   ``train_4k`` on (2, 16, 16); one line a combo: per-rank peak and
+   ``fits``, the rank's state bytes beside ``state_bytes_per_model_shard``,
+   the TP bytes, the roofline terms.  Records in
+   ``chiprun_out/dryrun_torch_tp/``.
 13. Result lines: ``{"kernels": [...]}`` (B1-B4; B3's entry also names
    its variant at each shape and the row variant's ms at the trainer's
-   shape; B3's and B4's the (8, 2) groups and launches), the nvidia-smi
+   shape; B3's and B4's the (8, 2) groups and launches, and their
+   launches at phase 17's tensor-parallel layouts), the nvidia-smi
    line,
    and last ``{"ok": true, "device": {...}}``.  Everything is also written to
    ``chiprun_out/chip_smoke.json``.
@@ -1506,16 +1538,13 @@ def print_wire_share(tag: str, pf) -> None:
 
 
 def held_out_loss(torch, runner, X, data, n_batches: int = 2) -> float:
-    """Mean node loss of parameters X on batches the run never trains on
-    (forward only)."""
-    from repro_torch.models import transformer as TR
-    cfg, total = runner.trainer.mcfg, 0.0
-    with torch.no_grad():
-        for i in range(n_batches):
-            b = data.batch_at(1_000_000 + i)
-            logits = TR.forward(cfg, X, b)[0]
-            total += float(TR.loss_fn(cfg, logits, b["labels"]).mean())
-            del logits
+    """Mean node loss of parameters X (the state's rows: rank-rows on a
+    tensor-parallel node) on batches the run never trains on (forward
+    only)."""
+    total = 0.0
+    for i in range(n_batches):
+        b = data.batch_at(1_000_000 + i)
+        total += float(runner.trainer.node_losses(X, b).mean())
     return total / n_batches
 
 
@@ -1558,6 +1587,7 @@ def contracts_and_roofline(torch, runner, held, data, draws, hops: int,
                           spec.n_nodes, state=holder.pop(), data=data,
                           draws=draws)
     out = dict(rf.as_dict(), measured_step_s=step_s,
+               tp_bytes=rf.tp_bytes, tp_breakdown=rf.tp_breakdown,
                mfu=rf.model_flops_per_chip / (step_s * roofline.PEAK_FLOPS),
                counted_to_analytic_flops=rf.hlo_flops / rf.flops_per_chip,
                aten_bytes_ms=rf.hlo_bytes / roofline.HBM_BW * 1e3)
@@ -1596,18 +1626,23 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
                  profile_steps: int = SLICE_PROFILE_STEPS, spec=None,
                  device: str = "cuda", hops: int = 2,
                  bits_per_hop: int = SLICE_BITS_PER_HOP,
-                 trace_name: str = "slice_trace.json", peak_limit_gb=None):
-    """The slice's trainer on the card through api.build(spec); ``hops``:
-    the exchange plan's (2 on the ring, 5 under the alternating
-    schedule); at full width ``bits_per_step`` must be hops x
-    ``bits_per_hop``; ``peak_limit_gb``: the peak allocation must stay
-    below it."""
+                 trace_name: str = "slice_trace.json", peak_limit_gb=None,
+                 tp=None):
+    """The slice's trainer on the card through api.build(spec) (with a
+    ``tp`` seam: ``api.build_trainer_runner(spec, tp=tp)``, a
+    tensor-parallel node); ``hops``: the exchange plan's (2 on the ring,
+    5 under the alternating schedule); at full width ``bits_per_step``
+    must be hops x ``bits_per_hop``; ``peak_limit_gb``: the peak
+    allocation must stay below it."""
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     spec = spec or slice_spec(api, steps)
     t0 = time.perf_counter()
-    runner = api.build(spec) if device == "cuda" else api.build(
-        spec, device=device)
+    if tp is not None:
+        runner = api.build_trainer_runner(spec, device=device, tp=tp)
+    else:
+        runner = api.build(spec) if device == "cuda" else api.build(
+            spec, device=device)
     require(runner.device.type == device, f"build(spec) did not pick "
             f"{device}")
     tr = runner.trainer
@@ -2751,7 +2786,7 @@ def golden_contracts(torch, device: str = "cuda", spec_dir=None):
     golden spec on ``device`` (the audited step under
     ``set_sync_debug_mode("error")`` on the card), every finding printed;
     any FAIL fails the run.  Each sharded spec's (4, 2) variant is audited
-    too: none waits."""
+    too, and a neighbor spec's as a tensor-parallel node: none waits."""
     from repro_torch.check import contracts
     spec_dir = pathlib.Path(spec_dir or ROOT / "tests" / "golden_specs")
     findings = contracts.audit_spec_dir(spec_dir, device)
@@ -2933,7 +2968,7 @@ def dry_sweep_jobs(archs):
 
 
 def dry_against_real(torch, api, draws_mod, spec, real_roofline=None,
-                     device: str = "cuda"):
+                     device: str = "cuda", tp_ways: int = 1):
     """Phase 16 (a): ``spec`` (a trainer spec) dry-run in one process on
     the ``meta`` device (``repro_torch.launch.dryrun.dry_train``, the
     program phase 6 runs) against a real step on ``device``.  The dry
@@ -2943,23 +2978,28 @@ def dry_against_real(torch, api, draws_mod, spec, real_roofline=None,
     its peak (argument + temp bytes) must come within DRY_PEAK_TOL of the
     real step's ``max_memory_allocated`` (from the state a warm-up step
     left, ``reset_peak_memory_stats`` just before; the bytes held before
-    the state was made are taken off)."""
+    the state was made are taken off).  ``tp_ways`` > 1: a tensor-parallel
+    node of that many model ranks in one process (placement ``"tp one
+    process"``, ``StackedTP``), whose TP bytes must be equal too."""
     import gc
 
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.tp import StackedTP
     from repro_torch.obs import roofline
     cfg = spec.model.build()
     shape = roofline.train_shape(spec)
     mesh = api.spec_mesh(spec) or mesh_mod.Mesh((spec.n_nodes, 1))
     t0 = time.perf_counter()
     dry = dryrun.dry_train(cfg, shape, mesh, spec=spec,
-                           placement="one process")
+                           placement="one process" if tp_ways == 1
+                           else "tp one process")
     dry_s = time.perf_counter() - t0
-    runner = api.build(spec, device=device)
+    runner = api.build_trainer_runner(
+        spec, device=device, tp=StackedTP(tp_ways) if tp_ways > 1 else None)
     if real_roofline is None:
-        real_roofline = roofline.analyze(runner, cfg, shape,
-                                         spec.n_nodes).as_dict()
+        rf = roofline.analyze(runner, cfg, shape, spec.n_nodes)
+        real_roofline = dict(rf.as_dict(), tp_bytes=rf.tp_bytes)
     gc.collect()
     if device == "cuda":
         torch.cuda.synchronize()
@@ -2986,6 +3026,8 @@ def dry_against_real(torch, api, draws_mod, spec, real_roofline=None,
     counts["pp_bytes"] = (dr["coll_breakdown"]["collective-permute"],
                           real_roofline["coll_breakdown"][
                               "collective-permute"])
+    if tp_ways > 1:
+        counts["tp_bytes"] = (dry["tp_bytes"], real_roofline["tp_bytes"])
     mem = dry["memory"]
     rel = (mem["peak_bytes"] - real_peak) / real_peak if real_peak else None
     out = {"spec": spec.name, "mesh": list(mesh.shape), "counts": counts,
@@ -3001,12 +3043,14 @@ def dry_against_real(torch, api, draws_mod, spec, real_roofline=None,
     return out
 
 
-def dry_sweep(out_dir=DRY_OUT, archs=None, timeout=DRY_SWEEP_TIMEOUT_S):
+def dry_sweep(out_dir=DRY_OUT, archs=None, timeout=DRY_SWEEP_TIMEOUT_S,
+              jobs=None, placement=None):
     """Phase 16 (b): the production dry run by its CLI (``python -m
     repro_torch.launch.dryrun``, neighbor backend), one process a job of
-    :func:`dry_sweep_jobs`, all started together (the meta device is the
-    host's: the card's machine has 8 cores), each required to exit 0.
-    -> (records, seconds)."""
+    ``jobs`` (default :func:`dry_sweep_jobs`), all started together (the
+    meta device is the host's: the card's machine has 8 cores), each
+    required to exit 0; ``placement`` the CLI's ``--placement`` (phase 17
+    (d): ``"tp"``).  -> (records, seconds)."""
     import shutil
     if out_dir.exists():
         shutil.rmtree(out_dir)
@@ -3018,10 +3062,11 @@ def dry_sweep(out_dir=DRY_OUT, archs=None, timeout=DRY_SWEEP_TIMEOUT_S):
         archs = configs.ARCH_IDS
     t0 = time.perf_counter()
     procs = []
-    for a, shape, multi_pod in dry_sweep_jobs(archs):
+    for a, shape, multi_pod in (jobs or dry_sweep_jobs(archs)):
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                a, "--shape", shape, "--backend", "neighbor", "--out",
-               str(out_dir)] + (["--multi-pod"] if multi_pod else [])
+               str(out_dir)] + (["--multi-pod"] if multi_pod else []) + (
+            ["--placement", placement] if placement else [])
         procs.append((cmd, subprocess.Popen(
             cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -3069,6 +3114,333 @@ def dry_line(r) -> str:
             f"{rl['hlo_flops_raw'] / rl['flops_per_chip']:.4f}, "
             + (f"{g['bits_per_round']:,} bits/round" if g else "no wire")
             + f", {r['t_dry_s']} s")
+
+
+# --- phase 17 ------------------------------------------------------------------
+
+MESH_2X16 = (2, 16)
+SLICE_2X16_HOPS = 1                    # a ring of two: one neighbour
+SLICE_2X16_BITS_PER_HOP = 824_563_712  # a node's 16 shard payloads a hop
+TP_TF_STEPS = 2          # teacher-forced steps of (a) and (b)
+TP_STEP_TOL = 1e-5       # C4's step bar: within this x max|X| ...
+TP_STEP_MAX_OFF = 1e-3   # ... on all but this fraction of each array
+TP_CHECK_ROWS = 1 << 20  # B3's plain version checked this many rows a time
+TP_FAMILIES = ("dense", "moe", "vlm", "encdec")
+
+
+def tp_spec(api, mesh, steps: int = SLICE_STEPS, spec=None):
+    """Phase 6's slice (or ``spec``) on ``mesh``: ``mesh[0]`` nodes on the
+    ring, each node's model over ``mesh[1]`` model ranks."""
+    base = spec or slice_spec(api, steps)
+    return dataclasses.replace(
+        base, name=f"{base.name}-mesh{mesh[0]}x{mesh[1]}", n_nodes=mesh[0],
+        execution=dataclasses.replace(base.execution, mesh=mesh))
+
+
+@contextlib.contextmanager
+def checked_wire_kernels(torch, qk, ref, errs, what: str):
+    """Every B3 and B4 launch in the block held, as it returns, to its
+    plain version on the same operands (B3 TP_CHECK_ROWS rows at a time,
+    B4 node by node: the plain temporaries stay small): bit-equal.
+    ``calls`` [(kernel, operand shape)].  Restored on exit."""
+    calls = []
+    saved = {k: getattr(qk, k) for k in ("qinf_quantize_pack_blocks",
+                                         "qinf_unpack_dequant_mix_blocks")}
+
+    def b3(fn):
+        @functools.wraps(fn)
+        def inner(x, u, bits, *a, **k):
+            out = fn(x, u, bits, *a, **k)
+            for lo in range(0, x.shape[0], TP_CHECK_ROWS):
+                sl = slice(lo, lo + TP_CHECK_ROWS)
+                check_b3(torch, ref, x[sl], u[sl], bits,
+                         (out[0][sl], out[1][sl]), errs, what)
+            calls.append(("qinf_quantize_pack_blocks", list(x.shape)))
+            return out
+        return inner
+
+    def b4(fn):
+        @functools.wraps(fn)
+        def inner(P, Sc, w, bits, *a, **k):
+            out = fn(P, Sc, w, bits, *a, **k)
+            dtype = a[0] if a else k.get("out_dtype", torch.float32)
+            check_b4(torch, ref, P, Sc, w, bits, dtype, out, errs, what)
+            calls.append(("qinf_unpack_dequant_mix_blocks", list(P.shape)))
+            return out
+        return inner
+
+    qk.qinf_quantize_pack_blocks = b3(saved["qinf_quantize_pack_blocks"])
+    qk.qinf_unpack_dequant_mix_blocks = b4(
+        saved["qinf_unpack_dequant_mix_blocks"])
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(qk, name, fn)
+
+
+def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
+                      M: int, steps: int = TP_TF_STEPS,
+                      device: str = "cuda"):
+    """Phase 17 (a)/(b), teacher-forced: ``steps`` steps of ``spec`` as a
+    tensor-parallel node (``StackedTP(M)``), each from the whole-node
+    run's state (cut into rank-rows) and with its draws (two generators
+    seeded alike and called alike), against the whole-node step of phase
+    15's program: X, D, H and Hw within TP_STEP_TOL of each array's
+    largest entry on all but TP_STEP_MAX_OFF of its elements (C4's bar),
+    the node loss within 1e-5 relative.  Every B3 and B4 launch of the
+    first TP step is held to its plain version on the same operands
+    (:func:`checked_wire_kernels`), once per bucket group.  The state
+    not in use waits on the host, so the card holds one state and one
+    step at a time."""
+    from repro_torch.core.comm import CommState
+    from repro_torch.core.prox_lead import ProxLEADState
+    from repro_torch.models.tp import StackedTP
+    from repro_torch.optim.decentralized import TrainState
+    whole = api.build_trainer_runner(spec, device=device)
+    run = api.build_trainer_runner(spec, device=device, tp=StackedTP(M))
+    tr = run.trainer
+    leads = (1, 1, 1, 1 if tr.hw_slots is None else 2)
+    groups = len(tr.wire_layout().groups)
+    data = whole.default_data()
+    dw = draws_mod.GeneratorDraws(spec.seed, device)
+    dt = draws_mod.GeneratorDraws(spec.seed, device)
+
+    def parts(st):
+        p = st.plead
+        return [p.X, p.D, p.comm.H, p.comm.Hw]
+
+    def state_of(trees, meta):
+        (oracle, k, step), (X, D, H, Hw) = meta, trees
+        return TrainState(ProxLEADState(X, D, CommState(H, Hw), oracle, k),
+                          step, None)
+
+    sw = whole.init_state()
+    treedef = tree.flatten(sw.plead.X)[1]
+    worst_off = worst_rel = 0.0
+    losses, checked, t0 = [], [], time.perf_counter()
+    for k in range(steps):
+        meta = (sw.plead.oracle, sw.plead.k, sw.step)
+        tp_host = [tree.unflatten(treedef, [
+            tr.tp.cut([x], [sp], lead)[0].cpu()
+            for x, sp in zip(tree.leaves(t), tr.leaf_specs)])
+            for t, lead in zip(parts(sw), leads)]
+        batch = data.batch_at(k)
+        sw, mw = whole.step(sw, batch, dw)
+        w_meta = (sw.plead.oracle, sw.plead.k, sw.step)
+        w_host = [tree.tree_map(lambda x: x.cpu(), t) for t in parts(sw)]
+        del sw
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        st = state_of([tree.tree_map(lambda x: x.to(device), t)
+                       for t in tp_host], meta)
+        del tp_host
+        if k == 0:
+            with checked_wire_kernels(torch, qk, ref, errs,
+                                      f"at {spec.name}'s TP layout") as cl:
+                st, mt = run.step(st, batch, dt)
+            require(len(cl) == 2 * groups, f"{spec.name} TP step: "
+                    f"{len(cl)} B3/B4 launches, want 2 x {groups} groups")
+            checked = cl
+        else:
+            st, mt = run.step(st, batch, dt)
+        lw, lt = float(mw["loss"]), float(mt["loss"])
+        require(abs(lt - lw) <= 1e-5 * abs(lw), f"{spec.name} step {k}: "
+                f"TP loss {lt} vs whole-node {lw}")
+        losses.append([lw, lt])
+        back = []                     # the whole state returns to the card
+        for t_tp, t_w, lead, name in zip(parts(st), w_host, leads,
+                                         ("X", "D", "H", "Hw")):
+            leaves = []
+            for j, (g, wh) in enumerate(zip(tree.leaves(t_tp),
+                                            tree.leaves(t_w))):
+                w = wh.to(device)
+                diff = (tr.tp.join([g], [tr.leaf_specs[j]], lead)[0]
+                        - w).abs()
+                scale = max(float(w.abs().max()), 1e-30)
+                off = float((diff > TP_STEP_TOL * scale).float().mean())
+                worst_off = max(worst_off, off)
+                worst_rel = max(worst_rel, float(diff.max()) / scale)
+                require(off <= TP_STEP_MAX_OFF, f"{spec.name} step {k}: "
+                        f"{name} leaf {j} off on {off:.2e} of its elements")
+                leaves.append(w)
+                del diff
+            back.append(tree.unflatten(treedef, leaves))
+        del st, w_host
+        sw = state_of(back, w_meta)
+    del sw
+    return {"spec": spec.name, "M": M, "steps": steps, "losses": losses,
+            "worst_off_fraction": worst_off, "worst_rel_max": worst_rel,
+            "wire_checked": checked, "bucket_groups": groups,
+            "seconds": time.perf_counter() - t0}
+
+
+def tp_phase(torch, api, draws_mod, tree, qk, ref, errs, spec, M: int, *,
+             hops: int, bits_per_hop: int, device: str = "cuda",
+             steps: int = SLICE_STEPS,
+             profile_steps: int = SLICE_PROFILE_STEPS,
+             tf_steps: int = TP_TF_STEPS, trace_name: str = "tp_trace.json"):
+    """Phase 17 (a) or (b): ``spec`` (phase 6's slice on an (N, M) mesh)
+    as a tensor-parallel node: the teacher-forced steps
+    (:func:`tp_teacher_forced`), then ``trainer_path`` under
+    ``StackedTP(M)``: ``steps`` free-running steps with the launch
+    counters zeroed just before and read just after (B3 and B4 once per
+    bucket group a step), the loss falling and finite, ``bits_per_step``
+    = hops x ``bits_per_hop``, the ``[contracts]`` line under
+    ``set_sync_debug_mode("error")`` and the ``[roofline]`` line with the
+    TP bytes a step, peak memory and the median step."""
+    from repro_torch.models.tp import StackedTP
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tf = tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
+                           M, steps=tf_steps, device=device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out = trainer_path(torch, api, draws_mod, qk, steps=steps, spec=spec,
+                       device=device, profile_steps=profile_steps, hops=hops,
+                       bits_per_hop=bits_per_hop, trace_name=trace_name,
+                       tp=StackedTP(M))
+    out["teacher_forced"] = tf
+    return out
+
+
+def tp_sweep_jobs(archs):
+    """(arch, shape or "all", multi_pod) of phase 17 (d): the dense, moe,
+    vlm and encdec architectures, every shape on (16, 16) (``train_4k``
+    and ``prefill_32k`` run; decode and ``long_500k`` are skipped) and
+    ``train_4k`` on (2, 16, 16)."""
+    from repro_torch import configs
+    return [job for a in archs if configs.get(a).family in TP_FAMILIES
+            for job in ((a, "all", False), (a, "train_4k", True))]
+
+
+def tp_dry_line(r) -> str:
+    """One combo of the TP sweep: per-rank peak, fits, the rank's state
+    bytes beside ``state_bytes_per_model_shard``, the TP bytes a step,
+    the roofline terms."""
+    head = f"[tp] (17d) {r['arch']} x {r['shape']} x {r['mesh']}: "
+    if r["status"] != "ok":
+        return head + f"{r['status']} ({r.get('reason') or r.get('error')})"
+    m, rl = r["memory"], r["roofline"]
+    state = r.get("state_bytes_per_rank")
+    return (head + f"ok, rank (0, 0) of {r['cards']}, peak "
+            f"{m['peak_bytes'] / 2 ** 30:.2f} GiB/card, fits {m['fits']}, "
+            + (f"state {state:,} B/rank = {r['state_bytes_per_model_shard']:,}"
+               f" B/model shard, " if state is not None else "")
+            + f"TP {r['tp_bytes']:,.0f} B/step "
+            f"{ {k: int(v) for k, v in r['tp_breakdown'].items()} }, "
+            f"t_compute {rl['t_compute_s']:.4g} s, t_memory "
+            f"{rl['t_memory_s']:.4g} s, t_collective "
+            f"{rl['t_collective_s']:.4g} s, bottleneck {rl['bottleneck']}, "
+            f"{r['t_dry_s']} s")
+
+
+def tp_node_phase(torch, api, configs, draws_mod, tree, qk, ref, errs, smi,
+                  ms_=None):
+    """Phase 17 (a)-(d) (see the module docstring); ``ms_``: phase 15
+    (b)'s result, for the whole-node (8, 2) step time and peak beside
+    (a)'s.  -> the phase's results."""
+    t0 = time.perf_counter()
+    p17 = {}
+    torch.cuda.empty_cache()
+    for key, mesh_, hops_, bph, prof in (
+            ("a", MESH_8X2, 2, SLICE_8X2_BITS_PER_HOP,
+             SLICE_PROFILE_STEPS),
+            ("b", MESH_2X16, SLICE_2X16_HOPS, SLICE_2X16_BITS_PER_HOP,
+             0)):
+        tpx = tp_phase(torch, api, draws_mod, tree, qk, ref, errs,
+                       tp_spec(api, mesh_), mesh_[1], hops=hops_,
+                       bits_per_hop=bph, profile_steps=prof,
+                       trace_name=f"tp_{mesh_[0]}x{mesh_[1]}_trace.json")
+        p17[key] = tpx
+        tf = tpx["teacher_forced"]
+        require(tpx["bits_per_step"] == hops_ * bph,
+                f"{tpx['spec']}: bits_per_step {tpx['bits_per_step']}")
+        print(f"[tp] (17{key}) {tf['spec']} under StackedTP({tf['M']}): "
+              f"{tf['steps']} steps teacher-forced against the "
+              f"whole-node {mesh_} step: worst off fraction "
+              f"{tf['worst_off_fraction']:.2e}, worst |diff|/max "
+              f"{tf['worst_rel_max']:.2e}, losses (whole, TP) "
+              f"{tf['losses']}; {len(tf['wire_checked'])} B3/B4 "
+              f"launches bit-equal to the plain versions "
+              f"{[s_ for _, s_ in tf['wire_checked']]}; "
+              f"{tf['seconds']:.1f} s", flush=True)
+        print(f"[tp] (17{key}) {tpx['spec']}: {tpx['steps']} steps, loss "
+              f"(mean of {LOSS_WINDOW}) {tpx['loss_first_window']:.6f} "
+              f"-> {tpx['loss_last_window']:.6f}, held out "
+              f"{tpx['held_out_loss'][0]:.6f} -> "
+              f"{tpx['held_out_loss'][1]:.6f}; launches "
+              f"{tpx['launches']} ({tpx['bucket_groups']} bucket "
+              f"groups); {tpx['bits_per_step']:.0f} bits/step/node",
+              flush=True)
+        rl = tpx["roofline"]
+        versus = (f" vs phase 15's whole-node (8, 2) "
+                  f"{ms_['step_ms_median']:.1f} ms, peak "
+                  f"{ms_['peak_mem_gb']:.2f} GiB" if key == "a" and ms_
+                  else "")
+        print(f"[tp] (17{key}) step {tpx['step_ms_median']:.1f} ms "
+              f"median ({tpx['step_ms_min']:.1f} min), peak "
+              f"{tpx['peak_mem_gb']:.2f} GiB{versus}; TP "
+              f"{rl['tp_bytes']:,.0f} B a rank-row a step "
+              f"{ {k_: int(v) for k_, v in rl['tp_breakdown'].items()} }"
+              f"; set-up {tpx['setup_s']:.1f} s | {smi}", flush=True)
+        if tpx["profile"]:
+            pf = tpx["profile"]
+            print(f"[tp] (17{key}) profile: {pf['wall_ms_per_step']:.1f} "
+                  f"ms/step wall, {pf['device_ms_per_step']:.1f} ms/step "
+                  f"on the device (busy {pf['busy_share']:.1%}), "
+                  f"{pf['device_ops_per_step']:.0f} device ops/step",
+                  flush=True)
+            print_wire_share("[tp]", pf)
+        print_contracts_and_roofline(f"(17{key})", tpx, smi)
+        torch.cuda.empty_cache()
+    da = dry_against_real(torch, api, draws_mod, tp_spec(api, MESH_8X2),
+                          p17["a"]["roofline"], tp_ways=MESH_8X2[1])
+    p17["c"] = da
+    c, m = da["counts"], da["memory"]
+    print(f"[tp] (17c) {da['spec']} at {da['mesh']}, tp one process, "
+          f"dry ({da['dry_s']:.1f} s) = real: FLOPs "
+          f"{c['hlo_flops_raw'][0]:.6e} = {c['hlo_flops_raw'][1]:.6e}, "
+          f"ATen bytes {c['hlo_bytes_raw'][0]:.6e} = "
+          f"{c['hlo_bytes_raw'][1]:.6e}, pp bytes "
+          f"{c['pp_bytes'][0]:,.0f} = {c['pp_bytes'][1]:,.0f}, TP bytes "
+          f"{c['tp_bytes'][0]:,.0f} = {c['tp_bytes'][1]:,.0f}; peak "
+          f"{m['peak_bytes']:,} B vs max_memory_allocated "
+          f"{da['real_peak_bytes']:,} B ({da['peak_rel_diff']:+.2%}) | "
+          f"{smi}", flush=True)
+    torch.cuda.empty_cache()
+    from repro_torch.configs import shapes as shp17
+    from repro_torch.launch import dryrun as dry17
+    jobs17 = tp_sweep_jobs(configs.ARCH_IDS)
+    recs17, sweep17 = dry_sweep(out_dir=OUT_DIR / "dryrun_torch_tp",
+                                jobs=jobs17, placement="tp")
+    for r in recs17:
+        print(tp_dry_line(r), flush=True)
+    want17 = {}
+    for a, shape_, mp_ in jobs17:
+        for s_ in (shp17.SHAPES if shape_ == "all" else (shape_,)):
+            cfg_, sh_ = configs.get(a), shp17.SHAPES[s_]
+            want17[(a, s_, "2pod" if mp_ else "1pod")] = (
+                "ok" if shp17.applicable(cfg_, sh_) is None
+                and dry17.tp_skip(cfg_, sh_) is None else "skipped")
+    got17 = {(r["arch"], r["shape"], r["mesh"]): r["status"]
+             for r in recs17}
+    require(got17 == want17, f"TP dry-run sweep: got {got17}, want "
+            f"{want17}")
+    require(all(r["state_bytes_per_rank"]
+                == r["state_bytes_per_model_shard"]
+                for r in recs17 if r["status"] == "ok"
+                and r["shape"] == "train_4k"),
+            "a TP rank's state is not one model shard's")
+    st17 = [r["status"] for r in recs17]
+    p17.update(sweep=recs17, sweep_s=sweep17,
+               seconds=time.perf_counter() - t0)
+    print(f"[tp] (17d) {len(recs17)} combos: {st17.count('ok')} ok, "
+          f"{st17.count('skipped')} skipped, 0 errors, in {sweep17:.1f} "
+          f"s ({len(jobs17)} processes); phase {p17['seconds']:.1f} s; "
+          f"DistTP across processes not run here: one card, and NCCL "
+          f"refuses two ranks on one device | {smi}", flush=True)
+    return p17
 
 
 # --- phase 12 ------------------------------------------------------------------
@@ -3824,6 +4196,11 @@ def main() -> int:
               f"only); phase "
               f"{dr16['seconds']:.1f} s | {smi}", flush=True)
 
+        # 17. a tensor-parallel node
+        p17 = tp_node_phase(torch, api, configs, draws_mod, tree, qk, ref,
+                            errs, smi, ms_)
+        result["tp"] = p17
+
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3873,6 +4250,8 @@ def main() -> int:
                 for wc in ms_["wire"]]
             extra["golden_4x2_launches"] = \
                 gm["card_vs_cpu"]["launches"][name_]
+            extra["tp_8x2_launches"] = p17["a"]["launches"][name_]
+            extra["tp_2x16_launches"] = p17["b"]["launches"][name_]
         kernels.append({
             "name": name_, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + src,

@@ -62,6 +62,7 @@ from repro_torch.data import synthetic as _synthetic            # noqa: F401
 from repro_torch.data.pipeline import DecentralizedBatches
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as TR
+from repro_torch.models.tp import rank_draws as tp_rank_draws
 from repro_torch.netsim import engine as netsim_engine
 from repro_torch.netsim import metrics as netsim_metrics
 from repro_torch.netsim import schedule as sched_mod
@@ -919,8 +920,9 @@ class TrainerRunner(Runner):
             num_steps = sp.steps if sp else 0
         if data is None:
             data = self.default_data()
-        if draws is None:
-            draws = GeneratorDraws(sp.seed if sp else 0, self.device)
+        if draws is None:             # a DistTP rank: its two streams
+            draws = tp_rank_draws(self.trainer.tp, sp.seed if sp else 0,
+                                  self.device)
         meters = Meters()
         with using_meters(meters), span("run_total", self.device) as tsp:
             if state is None:
@@ -963,8 +965,8 @@ class TrainerRunner(Runner):
         out-degree.  Without a state the count comes from the parameter
         shapes alone (``meta`` tensors, nothing allocated)."""
         tr = self.trainer
-        if state is not None:
-            leaves = tree.leaves(state.plead.X)
+        if state is not None or tr.tp.M > 1:
+            leaves = tree.leaves((state or tr.abstract_state()).plead.X)
         else:
             N = tr.tcfg.n_nodes
             leaves = [torch.empty((N,) + tuple(p.shape), dtype=p.dtype,
@@ -1072,14 +1074,21 @@ def spec_mesh(spec: ExperimentSpec) -> Optional[Mesh]:
 def build_trainer_runner(spec: ExperimentSpec, *, device,
                          dtype: Optional[torch.dtype] = None,
                          model_cfg: Optional[TR.ModelConfig] = None,
-                         pp=None, process_mesh=None) -> TrainerRunner:
+                         pp=None, process_mesh=None, tp=None
+                         ) -> TrainerRunner:
     """The sharded engine on ``device``, with an optional prebuilt
     ModelConfig, exchange seam ``pp`` (default: the one-card
     :func:`repro_torch.optim.wire.stacked_pp`, or :class:`repro_torch.
-    optim.wire.DistPP` over ``process_mesh``) and ``process_mesh`` (a
-    :class:`repro_torch.launch.mesh.ProcessMesh`: this rank's node block
-    of a ``torch.distributed`` group).  The spec's mesh sets the model
-    shards of the bucketed wire."""
+    optim.wire.DistPP` over ``process_mesh``'s node axis),
+    ``process_mesh`` (a :class:`repro_torch.launch.mesh.ProcessMesh`: this
+    rank's node block of a ``torch.distributed`` group; or a
+    :class:`~repro_torch.launch.mesh.TPProcessMesh`: its node block and
+    model rank, a tensor-parallel node over ranks) and ``tp`` (the
+    tensor-parallel seam, ``repro_torch.models.tp``: ``StackedTP(M)`` runs
+    a node's M model ranks in this process; default ``DistTP`` over a
+    TPProcessMesh, else a node's products run whole).  The spec's mesh
+    sets the model shards of the bucketed wire and the tp seam's M.  At M
+    > 1 the rwkv6 and hybrid families are refused here, at build."""
     if model_cfg is None:
         if spec.model is None:
             raise ValueError(
@@ -1089,7 +1098,7 @@ def build_trainer_runner(spec: ExperimentSpec, *, device,
         model_cfg = dataclasses.replace(model_cfg, dtype=dtype)
     trainer = dec.DecentralizedTrainer(
         model_cfg, trainer_config_from_spec(spec), device=device, pp=pp,
-        mesh=spec_mesh(spec), process_mesh=process_mesh)
+        mesh=spec_mesh(spec), process_mesh=process_mesh, tp=tp)
     return TrainerRunner(trainer, spec=spec)
 
 

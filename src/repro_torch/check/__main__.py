@@ -3,7 +3,9 @@ golden specs, in-process.
 
 Prints ``[check] PASS/FAIL claim [detail]`` lines and an ``[check]
 OK|FAIL: n/m checks hold`` summary; exits nonzero on any FAIL.  Each
-sharded spec is audited on its (8, 1) and its (4, 2) mesh.
+sharded spec is audited on its (8, 1) and its (4, 2) mesh, and a sharded
+neighbor spec's (4, 2) variant as a tensor-parallel node too
+(``<name>/tp``: ``StackedTP(2)``).
 Runs on the card unless ``--device cpu`` is given.
 
 Flags::

@@ -25,6 +25,13 @@ step and records what it did (:mod:`repro_torch.obs.record`):
   dispatch mode sees: blocking host-to-device copies and stream
   synchronisations made below ATen.
 
+A tensor-parallel node (``repro_torch.models.tp``) holds the same
+contracts: :func:`audit_tp_spec` audits a sharded spec's (4, 2) variant
+with its two model ranks under ``StackedTP(2)`` (its collectives are
+sums, maxima and concatenations over the rank-rows: no f64, no host
+read), and its ``pp`` seam still moves only u8 buffers, the same bytes a
+model shard.
+
 The pure ``audit_*`` functions take recorded facts, so tests can inject
 violations.  The drivers run two steps of a spec's runner and record the
 second: the first is the warm-up, where caches, lazy index tensors and B1's
@@ -293,6 +300,34 @@ def audit_spec(spec, device="cpu") -> List[GateFinding]:
     return out
 
 
+def audit_tp_spec(spec, device="cpu") -> List[GateFinding]:
+    """The contract findings of a sharded neighbor spec's (4, 2) variant
+    as a tensor-parallel node (``StackedTP(2)``), named ``<variant>/tp``;
+    none for a spec that does not run tensor-parallel (another backend,
+    wire or compressor; the ssm and hybrid families)."""
+    from repro_torch import api, tree
+    from repro_torch.models.tp import StackedTP
+    from repro_torch.obs.record import RecordingPP
+    if hasattr(spec, "axes"):                          # a SweepSpec
+        return []
+    ex = spec.execution
+    if (ex.engine != "sharded"
+            or ex.backend not in ("neighbor", "ring")
+            or ex.wire_mode != "bucketed" or spec.compressor.name != "qinf"
+            or spec.model is None
+            or spec.model.build().family in ("ssm", "hybrid")):
+        return []
+    variant = mesh_variants(spec)[1]
+    variant = dataclasses.replace(variant, name=variant.name + "/tp")
+    runner = api.build_trainer_runner(variant, device=torch.device(device),
+                                      pp=RecordingPP(), tp=StackedTP(2))
+    state = runner.init_state()
+    leaves = [torch.empty(x.shape, dtype=x.dtype, device="meta")
+              for x in tree.leaves(state.plead.X)]
+    facts, _ = trainer_step_facts(runner, state=state)
+    return audit_trainer(runner, variant.name, facts, leaves)
+
+
 def load_spec(path: pathlib.Path):
     from repro_torch import api
     text = pathlib.Path(path).read_text()
@@ -304,7 +339,8 @@ def audit_spec_dir(spec_dir, device="cpu",
                    only: Optional[Sequence[str]] = None
                    ) -> List[GateFinding]:
     """Contract-audit every ``*.json`` golden spec under ``spec_dir`` on
-    ``device``; ``only``: these stems alone."""
+    ``device``, each sharded neighbor spec's tensor-parallel (4, 2)
+    variant too (:func:`audit_tp_spec`); ``only``: these stems alone."""
     spec_dir = pathlib.Path(spec_dir)
     files = sorted(spec_dir.glob("*.json"))
     if not files:
@@ -314,7 +350,9 @@ def audit_spec_dir(spec_dir, device="cpu",
         if only and f.stem not in only:
             continue
         try:
-            out.extend(audit_spec(load_spec(f), device))
+            spec = load_spec(f)
+            out.extend(audit_spec(spec, device))
+            out.extend(audit_tp_spec(spec, device))
         except Exception as e:                    # noqa: BLE001
             out.append((f"{f.stem}: contract audit raised", False,
                         f"{type(e).__name__}: {e}"))

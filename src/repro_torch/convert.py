@@ -203,6 +203,27 @@ def model_params_to_torch(params, *, device, dtype: torch.dtype = None):
                     tree_to_torch(params, device=device, dtype=dtype))
 
 
+def model_params_to_rank_rows(params, model: int, *, device,
+                              dtype: torch.dtype = None,
+                              node_stacked: bool = False):
+    """A reference model's parameters (a tree of numpy arrays in its
+    layout: one replica, or node-stacked (N, ...) leaves with
+    ``node_stacked``) -> the port's rank-rows for ``StackedTP(model)``
+    (``repro_torch.models.tp``): row ``n M + m`` holds model shard m of
+    node n, each sharded leaf cut as the reference's ``param_specs``
+    place it (``sharding.rank_rows``), a replicated leaf whole."""
+    from repro_torch import tree
+    from repro_torch.models import sharding
+    stacked = tree_to_torch(params, device=device, dtype=dtype)
+    if not node_stacked:
+        stacked = tree_map(lambda t: t[None], stacked)
+    leaves, treedef = tree.flatten(stacked)
+    specs = tree.leaves(sharding.param_specs(
+        tree.unflatten(treedef, [x[0] for x in leaves])))
+    return tree.unflatten(treedef, [sharding.rank_rows(x, sp, model)
+                                    for x, sp in zip(leaves, specs)])
+
+
 def cache_to_torch(cache, *, device, dtype: torch.dtype = None):
     """A reference decode cache (a tree of numpy arrays: ``init_cache`` or
     what prefill/decode return) -> the port's, a stack of one node."""

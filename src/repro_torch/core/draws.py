@@ -27,6 +27,10 @@ an f64 draw is not rounded through f32 on the way.
 any strides) in place and returns it: the neighbor-gossip backend draws
 each leaf's noise straight into its bucket group's row table.
 
+``shared()`` is the source the model ranks of a tensor-parallel node
+share for its model-replicated leaves (``repro_torch.optim.wire``): the
+source itself, except for :class:`TPRankDraws`.
+
 :class:`StackedDraws` serves a stacked grid (``repro_torch.sweep``): P
 sources, one a grid point, each point drawing from its own stream what
 its serial run would draw, the P results stacked on a leading axis.
@@ -56,6 +60,10 @@ class Draws:
 
     def choice(self, n: int, k: int) -> torch.Tensor:
         raise NotImplementedError
+
+    def shared(self) -> "Draws":
+        """The source a node's model ranks share (itself)."""
+        return self
 
 
 def _check_out(out: torch.Tensor, shape, dtype) -> None:
@@ -260,3 +268,32 @@ class StackedDraws(Draws):
 
     def choice(self, n, k):
         return torch.stack([d.choice(n, k) for d in self.points])
+
+
+class TPRankDraws(Draws):
+    """The draws of one model rank of a tensor-parallel node block
+    (``repro_torch.models.tp.DistTP``): every call from ``own`` (its
+    stream per (node block, model rank)); :meth:`shared` is ``node``, the
+    stream its block's model ranks share, from which the wire draws the
+    model-replicated leaves' noise."""
+
+    def __init__(self, own: Draws, node: Draws) -> None:
+        self.own, self.node = own, node
+        self.device = own.device
+
+    def randint(self, n, high):
+        return self.own.randint(n, high)
+
+    def bernoulli(self, p, shape=()):
+        return self.own.bernoulli(p, shape)
+
+    def uniform(self, shape, out=None, dtype=torch.float32, low=0.0,
+                high=1.0):
+        return self.own.uniform(shape, out=out, dtype=dtype, low=low,
+                                high=high)
+
+    def choice(self, n, k):
+        return self.own.choice(n, k)
+
+    def shared(self) -> Draws:
+        return self.node

@@ -38,6 +38,24 @@ split over ranks (ROADMAP §A item 3 (d)), so a dense record dry-runs all
 N nodes in one process, as the port runs them (``"placement": "one
 process"``).
 
+Placement ``"tp"`` (``--placement tp``) spreads each node over M cards
+as well: rank (0, 0) of the two-axis
+:class:`~repro_torch.launch.mesh.TPProcessMesh`, world N x M (256 H100s
+for (16, 16), 512 for (2, 16, 16)), holds ONE model shard of one node:
+the model-local slices of its sharded leaves and its replicated leaves
+whole (``repro_torch.models.tp.DryDistTP``: a tensor-parallel node whose
+collectives allocate their shapes on ``meta``), its node's rows of the
+batch.  The record adds the bytes the rank hands the model axis's
+collectives over the step (``tp_bytes``, by kind in ``tp_breakdown``:
+:class:`repro_torch.obs.record.RecordingTP`), the rank's own state bytes
+(``state_bytes_per_rank``, to hold against ``state_bytes_per_model_shard``)
+and ``"cards"`` N x M.  Prefill runs the same way (``forward`` at one
+model shard, the last position's logits gathered over the ranks); decode
+and the ssm and hybrid families are not tensor-parallel yet and are
+skipped with the ROADMAP item that names them.  ``"tp one process"``
+runs all N x M rank-rows in one process (``StackedTP``), the program a
+card runs for a tensor-parallel node.
+
 Serving shapes mirror the reference's ``lower_serve``: prefill runs
 ``forward(mode="train")`` and keeps the last position's logits, decode one
 ``decode_step`` at the last position of an ``init_cache(abstract=True)``
@@ -77,6 +95,7 @@ from repro_torch.core.draws import MetaDraws
 from repro_torch.kernels import quantize as qk
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import sharding
+from repro_torch.models import tp as tp_mod
 from repro_torch.models import transformer as TR
 from repro_torch.netsim import metrics as nmetrics
 from repro_torch.obs import roofline, roofline_gate
@@ -91,6 +110,8 @@ META = torch.device("meta")
 #: rank's peak against
 H100_MEMORY_BYTES = 85_017_493_504
 PLACEMENTS = ("ranks", "one process")
+#: a tensor-parallel node: one model shard a rank, or all in one process
+TP_PLACEMENTS = ("tp", "tp one process")
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -152,11 +173,24 @@ def gossip_block(trainer) -> Optional[dict]:
             "bits_per_round": nmetrics.plan_bits_per_round(plan, per_edge)}
 
 
+def state_bytes_per_rank(trainer) -> int:
+    """Bytes of the state (X, D, H, the Hw slots; Adam's moments) this
+    trainer's process holds: its nodes' rows, or its rank-rows."""
+    st = trainer.abstract_state()
+    p = st.plead
+    trees = [p.X, p.D, p.comm.H, p.comm.Hw]
+    if st.precond is not None:
+        trees += list(st.precond)
+    return sum(x.numel() * x.element_size() for t in trees
+               for x in tree.leaves(t))
+
+
 def kernel_block(trainer, calls: dict, nodes: int) -> dict:
     """Each kernel's calls in the step and, on the bucketed QInf wire, the
     bytes B3 and B4 must move over all its calls
     (:func:`roofline_gate.kernel_roofline` of the step's layout x the
-    ``nodes`` a launch covers) and that over HBM_BW."""
+    ``nodes`` a launch covers, each with its model shards in this process:
+    one on a ``DistTP`` rank) and that over HBM_BW."""
     out = {k: {"calls": n} for k, n in calls.items()}
     tr = trainer
     if (tr.plan is None or tr.tcfg.compressor != "qinf"
@@ -164,6 +198,8 @@ def kernel_block(trainer, calls: dict, nodes: int) -> dict:
         return out
     layout, shards = roofline_gate.trainer_wire_layout(
         tr, tree.leaves(tr.abstract_state().plead.X))
+    if isinstance(tr.tp, tp_mod.DistTP):
+        shards = 1
     k = roofline_gate.kernel_roofline(layout, hops=len(tr.plan.hops),
                                       receivers=tr.plan.T, shards=shards)
     for name, part in (("qinf_quantize_pack_blocks", "quantize_pack"),
@@ -209,21 +245,32 @@ def meta_trainer(spec, mesh, cfg, placement: Optional[str] = None):
     """The ``meta`` trainer of ``spec`` (a train spec on ``mesh``) at
     ``placement`` (default: ``"ranks"`` on the neighbor backend, ``"one
     process"`` on the dense one): on ranks, rank 0's node block, its
-    ``pp`` a recording :class:`~repro_torch.optim.wire.DryDistPP`;
-    always a recording metric all-reduce that sums nothing.  -> (trainer,
+    ``pp`` a recording :class:`~repro_torch.optim.wire.DryDistPP`; at
+    ``"tp"`` rank (0, 0) of the two-axis process mesh, one model shard of
+    one node, its ``tp`` a :class:`~repro_torch.models.tp.DryDistTP`; at
+    ``"tp one process"`` every rank-row under ``StackedTP``; always a
+    recording metric all-reduce that sums nothing.  -> (trainer,
     placement)."""
     placement = placement or ("one process"
                               if spec.execution.backend == "dense"
                               else "ranks")
-    if placement not in PLACEMENTS:
+    if placement not in PLACEMENTS + TP_PLACEMENTS:
         raise ValueError(f"unknown placement {placement!r}; have "
-                         f"{PLACEMENTS}")
-    pm = pp = None
+                         f"{PLACEMENTS + TP_PLACEMENTS}")
+    pm = pp = tp = None
+    M = sharding.model_axis_size(mesh)
     if placement == "ranks":
         pm = mesh_mod.ProcessMesh(mesh, rank=0, world=spec.n_nodes)
         pp = RecordingPP(DryDistPP(pm), process_mesh=pm)
+    elif placement == "tp":
+        pm = mesh_mod.TPProcessMesh(mesh, rank=0, world=spec.n_nodes * M,
+                                    groups=False)
+        pp = RecordingPP(DryDistPP(pm.node_mesh), process_mesh=pm.node_mesh)
+        tp = tp_mod.DryDistTP(pm)
+    elif placement == "tp one process":
+        tp = tp_mod.StackedTP(M)
     tr = api.build_trainer_runner(spec, device=META, model_cfg=cfg, pp=pp,
-                                  process_mesh=pm).trainer
+                                  process_mesh=pm, tp=tp).trainer
     tr.all_reduce = RecordingAllReduce()
     return tr, placement
 
@@ -245,13 +292,19 @@ def dry_train(cfg, shape, mesh, *, backend: str = "neighbor", bits: int = 2,
     batch = {k: _meta((n_local,) + tuple(s[1:]), dt) for k, (s, dt) in
              shp.train_input_specs(cfg, shape, N).items()}
     cards = N // n_local
+    if isinstance(tr.tp, tp_mod.DistTP):
+        cards *= tr.tp.M              # a node's M model shards, M cards
     counts, memory, calls, _ = counted_step(tr, [tr.abstract_state()], batch)
     rec = {"placement": placement, "cards": cards, "nodes_per_card": n_local,
            "memory": memory,
            "state_bytes_per_model_shard": state_bytes_per_model_shard(tr),
+           "state_bytes_per_rank": state_bytes_per_rank(tr),
            "roofline": roofline.roofline_of(cfg, shape, N, cards,
                                             counts).as_dict(),
+           "tp_bytes": sum(counts.tp.values()), "tp_breakdown": counts.tp,
            "kernels": kernel_block(tr, calls, n_local)}
+    if isinstance(tr.tp, tp_mod.DistTP):
+        rec["model_shards_per_card"] = 1
     gossip = gossip_block(tr)
     if gossip is not None:
         rec["gossip"] = gossip
@@ -268,12 +321,27 @@ def _serve_batch_rows(B: int, n_nodes: int) -> int:
     return B // n_nodes if B % n_nodes == 0 else B
 
 
-def dry_serve(cfg, shape, mesh) -> dict:
+def dry_serve(cfg, shape, mesh, placement: Optional[str] = None) -> dict:
     """The serve record of ``cfg`` at ``shape``: one prefill or decode
-    step of a rank (whole parameters, its rows of the batch)."""
+    step of a rank (whole parameters, its rows of the batch); at
+    ``placement`` ``"tp"`` a prefill of rank (0, 0): one model shard of
+    the parameters, the last position's logits gathered over the model
+    ranks."""
     N = mesh_mod.n_nodes(mesh)
     params = tree.tree_map(lambda p: _meta((1,) + tuple(p.shape), p.dtype),
                            TR.abstract_params(cfg))
+    M, tp = 1, None
+    if placement == "tp":
+        M = sharding.model_axis_size(mesh)
+        if shape.kind != "prefill":
+            raise ValueError("placement 'tp' runs prefill; decode at M > 1 "
+                             "is ROADMAP §A item 3 (f)")
+        pm = mesh_mod.TPProcessMesh(mesh, rank=0, world=N * M, groups=False)
+        tp = tp_mod.DryDistTP(pm)
+        leaves, treedef = tree.flatten(params)
+        specs_ = tree.leaves(sharding.param_specs(TR.abstract_params(cfg)))
+        params = tree.unflatten(treedef, [
+            sharding.rank_rows(x, sp, M, 0) for x, sp in zip(leaves, specs_)])
     B = shape.global_batch
     Bl = _serve_batch_rows(B, N)
     specs = shp.serve_input_specs(cfg, shape)
@@ -282,6 +350,10 @@ def dry_serve(cfg, shape, mesh) -> dict:
                            dt) for k, (s, dt) in specs.items()}
 
         def step():
+            if tp is not None:
+                logits = TR.forward(cfg, params, inputs, mode="train",
+                                    tp=tp)[0]
+                return tp.gather_last(logits[:, :, -1])
             logits = TR.forward(cfg, params, inputs, mode="train")[0]
             return logits[:, :, -1]
     else:
@@ -292,17 +364,33 @@ def dry_serve(cfg, shape, mesh) -> dict:
         def step():
             return TR.decode_step(cfg, params, cache, tokens,
                                   shape.seq_len - 1)
-    cards = N if Bl < B else 1
+    cards = (N if Bl < B else 1) * M
     qk.reset_meta_calls()
     with torch.no_grad(), LiveBytes((params, inputs)) as lb:
-        counts, result = roofline.count_step(None, step)
-    return {"placement": "ranks" if cards > 1 else "one process",
-            "cards": cards, "batch_rows_per_card": Bl,
-            "memory": _memory(lb, result),
-            "roofline": roofline.roofline_of(cfg, shape, N, cards,
-                                             counts).as_dict(),
-            "kernels": {k: {"calls": n}
-                        for k, n in qk.meta_call_counts().items()}}
+        counts, result = roofline.count_step(None, step, tp=tp)
+    rec = {"placement": "tp" if tp is not None else (
+               "ranks" if cards > 1 else "one process"),
+           "cards": cards, "batch_rows_per_card": Bl,
+           "memory": _memory(lb, result),
+           "roofline": roofline.roofline_of(cfg, shape, N, cards,
+                                            counts).as_dict(),
+           "kernels": {k: {"calls": n}
+                       for k, n in qk.meta_call_counts().items()}}
+    if tp is not None:
+        rec.update(tp_bytes=sum(counts.tp.values()), tp_breakdown=counts.tp,
+                   model_shards_per_card=1)
+    return rec
+
+
+def tp_skip(cfg, shape) -> Optional[str]:
+    """Why placement ``"tp"`` does not run ``cfg`` at ``shape``, or None."""
+    if cfg.family in ("ssm", "hybrid"):
+        return (f"the {cfg.family} family is not tensor-parallel yet "
+                f"(ROADMAP §A item 3 (e))")
+    if shape.kind == "decode":
+        return "decode at M > 1 needs head-sharded caches (ROADMAP §A " \
+               "item 3 (f))"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -313,14 +401,19 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             backend: str = "dense", out_dir="experiments/dryrun_torch",
             verbose: bool = True, bits: int = 2, pack_mode: str = "lastdim",
             tag: Optional[str] = None, shard_aligned_blocks: bool = False,
-            topology: str = "ring") -> dict:
-    """One combo's record, written to ``out_dir`` (None: not written)."""
+            topology: str = "ring", placement: Optional[str] = None) -> dict:
+    """One combo's record, written to ``out_dir`` (None: not written);
+    ``placement`` as :func:`meta_trainer` (``"tp"``: serving shapes too)."""
     cfg = dataclasses.replace(configs.get(arch), dtype=torch.bfloat16)
     shape = shp.SHAPES[shape_name]
     skip = shp.applicable(cfg, shape)
+    if skip is None and placement == "tp":
+        skip = tp_skip(cfg, shape)
     mesh_tag = "2pod" if multi_pod else "1pod"
     variant = tag or (backend if topology == "ring"
                       else f"{backend}-{topology}")
+    if placement == "tp" and not tag:
+        variant += "-tp"
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_tag,
            "backend": backend, "variant": variant, "bits": bits,
            "topology": topology, "pack_mode": pack_mode, "status": None}
@@ -344,9 +437,9 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             body = dry_train(cfg, shape, mesh, backend=backend, bits=bits,
                              pack_mode=pack_mode,
                              shard_aligned_blocks=shard_aligned_blocks,
-                             topology=topology)
+                             topology=topology, placement=placement)
         else:
-            body = dry_serve(cfg, shape, mesh)
+            body = dry_serve(cfg, shape, mesh, placement)
         t_dry = time.perf_counter() - t0
         rec.update({"status": "ok", "t_dry_s": round(t_dry, 1),
                     "device": "meta", "chips": mesh_mod.n_chips(mesh),
@@ -390,6 +483,12 @@ def main(argv=None) -> None:
                     choices=["lastdim", "flat"])
     ap.add_argument("--shard-aligned-blocks", action="store_true")
     ap.add_argument("--tag", default=None)
+    ap.add_argument("--placement", default=None,
+                    choices=list(PLACEMENTS + TP_PLACEMENTS),
+                    help="ranks (the neighbor backend's default: a node a "
+                         "card) | one process | tp (a node's model shards "
+                         "on M cards: rank (0, 0), world N x M) | tp one "
+                         "process")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 
@@ -404,7 +503,8 @@ def main(argv=None) -> None:
                               bits=args.bits, pack_mode=args.pack_mode,
                               shard_aligned_blocks=args.shard_aligned_blocks,
                               tag=args.tag, out_dir=args.out,
-                              topology=args.topology)
+                              topology=args.topology,
+                              placement=args.placement)
                 n_fail += rec["status"] == "error"
     sys.exit(1 if n_fail else 0)
 

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.tp import NO_TP
+
 F32 = torch.float32
 Q_CHUNK = 1024
 
@@ -143,23 +145,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, tp=NO_TP) -> torch.Tensor:
     """Node-stacked SwiGLU: x (N, B, T, D), weights (N, D, F) / (N, F, D);
-    each projection is one batched product over the N nodes."""
+    each projection is one batched product over the N nodes.  Under a
+    ``tp`` seam of M > 1 (``repro_torch.models.tp``; the default ``NO_TP``
+    is the identity) x is a rank's ``copy_in`` input and the weights its
+    F-slices: column-parallel, then row-parallel and ``reduce_out``."""
     g = torch.einsum("nbtd,ndf->nbtf", x, w_gate.to(x.dtype))
     u = torch.einsum("nbtd,ndf->nbtf", x, w_up.to(x.dtype))
-    return torch.einsum("nbtf,nfd->nbtd", F.silu(g) * u, w_down.to(x.dtype))
+    out = torch.einsum("nbtf,nfd->nbtd", F.silu(g) * u, w_down.to(x.dtype))
+    return tp.reduce_out(out)
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
-             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+             w_out: torch.Tensor, b_out: torch.Tensor, tp=NO_TP
+             ) -> torch.Tensor:
     """Node-stacked GELU MLP with biases (whisper): the TANH approximation
-    of GELU, which ``jax.nn.gelu`` computes by default."""
+    of GELU, which ``jax.nn.gelu`` computes by default.  Under a ``tp``
+    seam of M > 1: column-parallel ``w_in`` and its bias slice, row-parallel
+    ``w_out``, ``reduce_out``, then the replicated ``b_out`` once."""
     h = (torch.einsum("nbtd,ndf->nbtf", x, w_in.to(x.dtype))
          + b_in.to(x.dtype)[:, None, None])
     h = F.gelu(h, approximate="tanh")
-    return (torch.einsum("nbtf,nfd->nbtd", h, w_out.to(x.dtype))
-            + b_out.to(x.dtype)[:, None, None])
+    out = tp.reduce_out(torch.einsum("nbtf,nfd->nbtd", h,
+                                     w_out.to(x.dtype)))
+    return out + b_out.to(x.dtype)[:, None, None]
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor, first_pos: int

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.tp import NO_TP
+
 F32 = torch.float32
 
 
@@ -44,9 +46,19 @@ def capacity(T: int, top_k: int, n_experts: int,
 def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
             experts_gate: torch.Tensor, experts_up: torch.Tensor,
             experts_down: torch.Tensor, *, top_k: int,
-            capacity_factor: float = 1.25, shared=None):
+            capacity_factor: float = 1.25, shared=None, tp=NO_TP):
     """x (N, B, T, D); router_w (N, D, E); experts_* (N, E, D, F) /
     (N, E, F, D); ``shared`` None or (gate, up, down) SwiGLU weights.
+
+    Under a ``tp`` seam of M > 1 (``repro_torch.models.tp``; the default
+    ``NO_TP`` is the identity) the rows are rank-rows and the experts a
+    rank's F-slices: the router is replicated, so the routing, dispatch
+    and combine are computed on every rank; the experts' input and the
+    gate values enter the rank's partial products through
+    ``copy_in`` (so the router's gradient is summed over the ranks, and
+    its aux-loss part, computed whole on every rank, is not); the shared
+    experts are column- then row-parallel; one ``reduce_out`` sums the
+    routed and shared partial outputs.
 
     Returns (out (N, B, T, D), aux (N,) f32: each node's load-balance
     loss)."""
@@ -58,6 +70,7 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
     gate_vals, gate_idx = top_k_lower_index(probs, top_k)     # (N,B,T,k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
     C = capacity(T, top_k, E, capacity_factor)
+    gate_vals, xe_in = tp.copy_in(gate_vals), tp.copy_in(xf)
 
     # queue position of each (token, slot) in its expert, slots in (T, k)
     # order: the count of earlier slots routed to the same expert
@@ -76,7 +89,7 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
     combine = torch.zeros(flat, dtype=F32, device=x.device).scatter_add(
         -1, slot, keep * gate_vals).reshape(N, B, T, E, C)
 
-    xe = torch.einsum("nbtd,nbtec->nbecd", xf, dispatch)
+    xe = torch.einsum("nbtd,nbtec->nbecd", xe_in, dispatch)
     g = torch.einsum("nbecd,nedf->nbecf", xe, experts_gate.to(F32))
     u = torch.einsum("nbecd,nedf->nbecf", xe, experts_up.to(F32))
     ye = torch.einsum("nbecf,nefd->nbecd", F.silu(g) * u,
@@ -89,8 +102,9 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
 
     if shared is not None:
         sg, su, sd = shared
-        gsh = torch.einsum("nbtd,ndf->nbtf", x, sg.to(x.dtype))
-        ush = torch.einsum("nbtd,ndf->nbtf", x, su.to(x.dtype))
+        xs = tp.copy_in(x)
+        gsh = torch.einsum("nbtd,ndf->nbtf", xs, sg.to(x.dtype))
+        ush = torch.einsum("nbtd,ndf->nbtf", xs, su.to(x.dtype))
         out = out + torch.einsum("nbtf,nfd->nbtd", F.silu(gsh) * ush,
                                  sd.to(x.dtype))
-    return out, aux
+    return tp.reduce_out(out), aux

@@ -211,3 +211,33 @@ def join_shards(xs: torch.Tensor, spec: PartitionSpec,
         return xs[:, 0]
     d += lead
     return xs.movedim(1, d).flatten(d, d + 1)
+
+
+# ---------------------------------------------------------------------------
+# Rank-rows: one (node, model shard) a row, for a tensor-parallel node
+# ---------------------------------------------------------------------------
+
+def rank_rows(x: torch.Tensor, spec: PartitionSpec, model: int,
+              m: Optional[int] = None, lead: int = 1) -> torch.Tensor:
+    """A node-stacked leaf ``(n, *extra, *shape)`` cut into rank-rows (a
+    copy; ``lead`` as in :func:`shard_view`): with ``m`` None all M model
+    ranks of each node, ``(n M, *extra, *local)``, row ``n M + m``; else
+    model rank m's rows ``(n, *extra, *local)``.  A sharded leaf gives its
+    model-local slices, a replicated leaf its whole self on every rank."""
+    v = shard_view(x, spec, model, lead)             # (n, M or 1, ...)
+    if m is not None:
+        return v[:, min(m, v.shape[1] - 1)].clone()
+    v = v.expand((v.shape[0], model) + tuple(v.shape[2:]))
+    out = x.new_empty((v.shape[0] * model,) + tuple(v.shape[2:]))
+    out.view(v.shape).copy_(v)        # never a view of x, whatever strides
+    return out
+
+
+def join_rank_rows(x: torch.Tensor, spec: PartitionSpec, model: int,
+                   lead: int = 1) -> torch.Tensor:
+    """Inverse of :func:`rank_rows` with ``m`` None: ``(n M, *extra,
+    *local)`` -> ``(n, *extra, *shape)`` (a replicated leaf from model
+    rank 0).  The rows of M processes join by stacking each rank's
+    ``(n, ...)`` on dim 1 first: ``torch.stack(ranks, 1).flatten(0, 1)``."""
+    return join_shards(x.unflatten(0, (x.shape[0] // model, model)), spec,
+                       lead)

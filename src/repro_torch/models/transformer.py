@@ -34,6 +34,27 @@ slots (S_c = the sliding window where there is one); position p lives in
 slot p % S_c, in prefill as in decode (ROADMAP C11: the reference's
 prefill stores the last S_c keys at slots 0..S_c-1 instead, which decode's
 ring writes agree with only when T <= S_c or T % S_c == 0).
+
+Tensor parallelism.  Every entry point of the dense, moe, vlm and encdec
+families takes a ``tp`` seam (``repro_torch.models.tp``; default ``NO_TP``,
+M = 1).  At M > 1 the leading dim holds rank-rows, each a node's model
+shard (sharded leaves model-local, replicated leaves whole), and
+``forward`` in mode ``train`` splits the products: attention on a rank's
+heads (``wq``/``wk``/``wv`` and their biases column-parallel, ``wo``
+row-parallel, ``wo_b`` added once after ``reduce_out``), the MLPs and
+MoE experts column- then row-parallel, the embeddings vocab-parallel (a
+masked local lookup, then ``reduce_out``), ``lm_logits`` column-parallel
+over the vocabulary, and :func:`loss_fn` a vocab-parallel cross entropy.
+The norms and the residual stream stay replicated; ``copy_in`` sits after
+each norm, at the inputs of the column-parallel products.  The rules
+shard the flattened ``H hd`` and ``KV hd`` columns, not whole heads:
+where a rank's columns cut a head, q, k and v are gathered to whole heads
+(RoPE pairs (i, i + hd/2), ``q_norm``/``k_norm`` and the scores need a
+whole head) and the rank computes the heads its ``wo`` rows read, then
+keeps its columns; where its query heads are whole but its KV columns are
+not (K < M), only k and v are gathered.  Modes ``prefill`` and
+``decode`` (caches) and the ssm and hybrid families are refused at M > 1
+(ROADMAP §A item 3 (e), (f)).
 """
 from __future__ import annotations
 
@@ -47,6 +68,8 @@ import torch
 from repro_torch import tree
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import tp as tp_mod
+from repro_torch.models.tp import NO_TP
 
 F32 = torch.float32
 FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
@@ -330,8 +353,13 @@ def _bc(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    out = torch.einsum("nbtd,ndk->nbtk", x, w.to(x.dtype))
+          b: Optional[torch.Tensor] = None, tp=NO_TP) -> torch.Tensor:
+    """x @ w (+ b), one batched product over the leading dim.  Given a
+    ``tp`` seam the product is row-parallel: w is a rank's input rows, the
+    partial products are summed by ``reduce_out`` and the (replicated)
+    bias added once after.  A column-parallel product (w, b a rank's
+    output columns, x a ``copy_in`` input) needs no seam."""
+    out = tp.reduce_out(torch.einsum("nbtd,ndk->nbtk", x, w.to(x.dtype)))
     if b is not None:
         out = out + _bc(b.to(x.dtype), out)
     return out
@@ -360,7 +388,7 @@ def attn_block(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
                causal: bool = True, rope: bool = True,
                window: Optional[int] = None, cache=None,
                pos: Optional[int] = None, kv_src: Optional[torch.Tensor] = None,
-               cross: bool = False, prefix: str = ""):
+               cross: bool = False, prefix: str = "", tp=NO_TP):
     """One attention sub-block (pre-norm; the caller adds the residual).
 
     ``cross``: k/v come from ``kv_src`` (train/prefill; prefill returns them
@@ -368,37 +396,42 @@ def attn_block(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
     ring slot ``p % S_c`` of the cache (prefill: every kept position;
     decode: ``pos``) and decode masks with the valid length
     ``min(pos + 1, S_c)``, which subsumes causality and the window.
-    Returns (attn_out, new_cache)."""
+    Under a ``tp`` seam (mode ``train`` at M > 1) a rank computes its
+    heads (:func:`_head_plan`), ``kv_src`` a replicated source the caller
+    has put through ``copy_in``.  Returns (attn_out, new_cache)."""
     g = lambda name: p.get(prefix + name)                    # noqa: E731
     N, B, T, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    q_heads, kv_heads, cols = _head_plan(cfg, tp, N, x.device)
 
-    xn = _norm(cfg, x, g("ln1"), g("ln1_b"))
-    q = _proj(xn, g("wq"), g("wq_b")).reshape(N, B, T, H, hd)
+    xn = tp.copy_in(_norm(cfg, x, g("ln1"), g("ln1_b")))
+    q = _heads(tp, _proj(xn, g("wq"), g("wq_b")), cfg.n_heads, hd, q_heads)
     if g("q_norm") is not None:
-        q = L.rmsnorm(q, _bc(g("q_norm"), q))
+        q = L.rmsnorm(q, _bc(tp.copy_in(g("q_norm")), q))
 
     new_cache = cache
     kv_len = None
     causal_eff = causal
+
+    def kv(src):
+        k = _heads(tp, _proj(src, g("wk"), g("wk_b")), cfg.n_kv_heads, hd,
+                   kv_heads)
+        v = _heads(tp, _proj(src, g("wv"), g("wv_b")), cfg.n_kv_heads, hd,
+                   kv_heads)
+        if g("k_norm") is not None:
+            k = L.rmsnorm(k, _bc(tp.copy_in(g("k_norm")), k))
+        return k, v
 
     if cross:
         causal_eff = False
         if mode == "decode":
             k, v = cache["k"], cache["v"]          # precomputed at prefill
         else:
-            S = kv_src.shape[2]
-            k = _proj(kv_src, g("wk"), g("wk_b")).reshape(N, B, S, KV, hd)
-            v = _proj(kv_src, g("wv"), g("wv_b")).reshape(N, B, S, KV, hd)
-            if g("k_norm") is not None:
-                k = L.rmsnorm(k, _bc(g("k_norm"), k))
+            k, v = kv(kv_src)
             if mode == "prefill":
                 new_cache = {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)}
     else:
-        k = _proj(xn, g("wk"), g("wk_b")).reshape(N, B, T, KV, hd)
-        v = _proj(xn, g("wv"), g("wv_b")).reshape(N, B, T, KV, hd)
-        if g("k_norm") is not None:
-            k = L.rmsnorm(k, _bc(g("k_norm"), k))
+        k, v = kv(xn)
         if rope:
             positions = (torch.arange(pos, pos + 1, device=x.device)
                          if mode == "decode"
@@ -419,13 +452,56 @@ def attn_block(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
                          "v": L.cache_write(cache["v"], v, 0)}
 
     out = L.attention(q, k, v, causal=causal_eff, window=window,
-                      kv_len=kv_len)
-    return _proj(out.reshape(N, B, T, H * hd), g("wo"), g("wo_b")), new_cache
+                      kv_len=kv_len).reshape(N, B, T, -1)
+    if cols is not None:             # the rank's columns of its heads
+        out = out.gather(-1, cols[:, None, None, :].expand(
+            N, B, T, cols.shape[1]))
+    return _proj(out, g("wo"), g("wo_b"), tp), new_cache
 
 
-def mlp_block(cfg: ModelConfig, p, x: torch.Tensor, prefix: str = ""):
+def _head_plan(cfg: ModelConfig, tp, R: int, device):
+    """Which heads each of R rank-rows computes -> (q_heads, kv_heads,
+    cols).  All None where a rank's columns of q and of k, v are whole
+    heads (M = 1 included): a plain reshape.  Otherwise kv_heads (R, Hn)
+    are the KV heads a rank-row's query heads read, gathered to whole
+    heads; where its query columns cut heads too, q_heads (R, Hn) are the
+    heads its ``wo`` rows read (at most ceil(H / M) + 1,
+    :func:`repro_torch.models.tp.head_geometry`) and cols (R, H hd / M)
+    its columns of their output, else both None (q reshaped)."""
+    H, KV, hd, M = cfg.n_heads, cfg.n_kv_heads, cfg.hd, tp.M
+    if H % M == 0 and KV % M == 0:
+        return None, None, None
+    m = tp.model_index(R, device)
+    whole, Hn, _ = tp_mod.head_geometry(H, hd, M)
+    ar = torch.arange(Hn, device=device)
+    if whole:                        # K < M: only k and v are gathered
+        return None, (m[:, None] * Hn + ar) // (H // KV), None
+    cq = H * hd // M                 # the columns cut heads
+    h0 = m * cq // hd
+    heads = (h0[:, None] + ar).clamp(max=H - 1)
+    cols = (m * cq - h0 * hd)[:, None] + torch.arange(cq, device=device)
+    return heads, heads // (H // KV), cols
+
+
+def _heads(tp, t: torch.Tensor, n_heads: int, hd: int,
+           take: Optional[torch.Tensor]) -> torch.Tensor:
+    """A rank's projected columns t (R, B, S, n_heads hd / M) -> heads (R,
+    B, S, h, hd): the plain reshape where ``take`` is None, else gathered
+    over the ranks to whole heads and each rank-row's heads ``take`` (R,
+    h)."""
+    R, B, S, _ = t.shape
+    if take is None:
+        return t.reshape(R, B, S, -1, hd)
+    x = tp.gather_heads(t).reshape(R, B, S, n_heads, hd)
+    idx = take[:, None, None, :, None].expand(R, B, S, take.shape[1], hd)
+    return x.gather(3, idx)
+
+
+def mlp_block(cfg: ModelConfig, p, x: torch.Tensor, prefix: str = "",
+              tp=NO_TP):
     """The FF sub-block -> (out, aux): aux is each node's MoE load-balance
-    loss ((N,) f32) in an MoE layer, else 0.0."""
+    loss ((N,) f32) in an MoE layer, else 0.0.  Under a ``tp`` seam the
+    products split over the model ranks (``copy_in`` after the norm)."""
     g = lambda name: p.get(prefix + name)                    # noqa: E731
     xn = _norm(cfg, x, g("ln2"), g("ln2_b"))
     if cfg.family == "moe" and g("router") is not None:
@@ -435,16 +511,17 @@ def mlp_block(cfg: ModelConfig, p, x: torch.Tensor, prefix: str = ""):
         return moe_mod.moe_mlp(
             xn, g("router"), g("experts_gate"), g("experts_up"),
             g("experts_down"), top_k=cfg.top_k,
-            capacity_factor=cfg.capacity_factor, shared=shared)
+            capacity_factor=cfg.capacity_factor, shared=shared, tp=tp)
+    xn = tp.copy_in(xn)
     if g("w_in") is not None:
         return L.gelu_mlp(xn, g("w_in"), g("w_in_b"), g("w_out"),
-                          g("w_out_b")), 0.0
-    return L.swiglu(xn, g("w_gate"), g("w_up"), g("w_down")), 0.0
+                          g("w_out_b"), tp=tp), 0.0
+    return L.swiglu(xn, g("w_gate"), g("w_up"), g("w_down"), tp=tp), 0.0
 
 
 def run_stack(cfg: ModelConfig, stack, x: torch.Tensor, *, mode: str,
               causal: bool = True, window: Optional[int] = None, cache=None,
-              pos: Optional[int] = None):
+              pos: Optional[int] = None, tp=NO_TP):
     """The layers of a self-attention stack in order -> (x, new cache
     stack or None, summed aux)."""
     use_rope = cfg.norm != "layernorm"   # whisper (layernorm) has no RoPE
@@ -455,9 +532,9 @@ def run_stack(cfg: ModelConfig, stack, x: torch.Tensor, *, mode: str,
         a, nc = attn_block(cfg, p, x, mode=mode, causal=causal,
                            rope=use_rope, window=window,
                            cache=None if cache is None else _layer(cache, i),
-                           pos=pos)
+                           pos=pos, tp=tp)
         x = x + a
-        m, aux = mlp_block(cfg, p, x)
+        m, aux = mlp_block(cfg, p, x, tp=tp)
         x = x + m
         aux_sum = aux_sum + aux
         new.append(nc)
@@ -470,26 +547,59 @@ def run_stack(cfg: ModelConfig, stack, x: torch.Tensor, *, mode: str,
 # Model entry points
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
-                 ) -> torch.Tensor:
-    """tokens (N, B, T) -> (N, B, T, D): node n looks up its own table."""
+def _local_lookup(table: torch.Tensor, idx: torch.Tensor, tp
+                  ) -> torch.Tensor:
+    """A vocab-parallel lookup: table (R, V / M, D) a rank's rows, idx (R,
+    ...) global rows -> (R, ..., D), the rows this rank holds and zeros
+    elsewhere (``reduce_out`` of it is the whole lookup)."""
+    R, Vl = table.shape[0], table.shape[1]
+    lead = (R,) + (1,) * (idx.dim() - 1)
+    local = idx - (tp.model_index(R, idx.device) * Vl).view(lead)
+    ok = (local >= 0) & (local < Vl)
+    row = torch.arange(R, device=idx.device).view(lead)
+    e = table[row, local.clamp(0, Vl - 1)]
+    return torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                     device=e.device))
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 tp=NO_TP) -> torch.Tensor:
+    """tokens (N, B, T) -> (N, B, T, D): node n looks up its own table
+    (under a ``tp`` seam vocab-parallel: a masked local lookup, then
+    ``reduce_out``)."""
     emb = params["embed"].to(cfg.dtype)
+    if tp.M > 1:
+        return tp.reduce_out(_local_lookup(emb, tokens, tp))
     node = torch.arange(emb.shape[0], device=tokens.device)[:, None, None]
     return emb[node, tokens]
 
 
-def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    xn = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
+def lm_logits(cfg: ModelConfig, params, x: torch.Tensor, tp=NO_TP
+              ) -> torch.Tensor:
+    """The final norm and the LM head; under a ``tp`` seam column-parallel
+    over the (padded) vocabulary: a rank's (..., Vp / M) logits."""
+    xn = tp.copy_in(_norm(cfg, x, params["final_norm"],
+                          params.get("final_norm_b")))
     return torch.einsum("nbtd,ndv->nbtv", xn, params["lm_head"].to(x.dtype))
 
 
 def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
-            cache=None, pos: Optional[int] = None):
+            cache=None, pos: Optional[int] = None, tp=NO_TP):
     """Family dispatch on node-stacked inputs.  Returns (logits (N, B, T,
     Vp), new cache (None without one), aux loss: (N,) for an MoE model,
-    else 0.0)."""
+    else 0.0).  Under a ``tp`` seam of M > 1 (mode ``train`` only) the
+    inputs are rank-rows and the logits a rank's (..., Vp / M)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
+    if tp.M > 1:
+        tp_mod.refuse_family(cfg.family, tp.M, cfg.name)
+        if mode != "train":
+            raise ValueError(
+                f"mode {mode!r} at M = {tp.M} model ranks: a cache under "
+                f"tensor parallelism needs head-sharded KV and recurrent "
+                f"caches (ROADMAP §A item 3 (f), decode at M > 1); the "
+                f"teacher-forced forward (mode 'train') runs, decode at "
+                f"M = 1")
     if mode != "train" and cache is None:
         raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
     if mode == "decode" and pos is None:
@@ -504,36 +614,36 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
                              pos=pos)
     if cfg.family == "encdec":
         return _forward_encdec(cfg, params, batch, mode=mode, cache=cache,
-                               pos=pos)
+                               pos=pos, tp=tp)
     if cfg.family == "vlm":
         return _forward_vlm(cfg, params, batch, mode=mode, cache=cache,
-                            pos=pos)
+                            pos=pos, tp=tp)
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"unknown model family {cfg.family!r}; have "
                          f"{FAMILIES}")
     return _forward_decoder(cfg, params, batch, mode=mode, cache=cache,
-                            pos=pos)
+                            pos=pos, tp=tp)
 
 
-def _forward_decoder(cfg, params, batch, *, mode, cache, pos):
-    x = embed_tokens(cfg, params, batch["tokens"])
+def _forward_decoder(cfg, params, batch, *, mode, cache, pos, tp=NO_TP):
+    x = embed_tokens(cfg, params, batch["tokens"], tp)
     x, new_cache, aux = run_stack(
         cfg, params["blocks"], x, mode=mode, causal=True,
         window=cfg.sliding_window,
-        cache=None if cache is None else cache["blocks"], pos=pos)
-    logits = lm_logits(cfg, params, x)
+        cache=None if cache is None else cache["blocks"], pos=pos, tp=tp)
+    logits = lm_logits(cfg, params, x, tp)
     return logits, (None if new_cache is None
                     else {"blocks": new_cache}), aux
 
 
-def _forward_vlm(cfg, params, batch, *, mode, cache, pos):
+def _forward_vlm(cfg, params, batch, *, mode, cache, pos, tp=NO_TP):
     """(k - 1) self layers, then one gated cross layer, per super-block."""
     k = cfg.cross_attn_every
     n_super = cfg.n_layers // k
-    x = embed_tokens(cfg, params, batch["tokens"])
+    x = embed_tokens(cfg, params, batch["tokens"], tp)
     vision = batch.get("vision")   # (N, B, n_vis, D); None in decode (cached)
     if vision is not None:
-        vision = vision.to(x.dtype)
+        vision = tp.copy_in(vision.to(x.dtype))
     aux_sum, new_self, new_cross = 0.0, [], []
     for s in range(n_super):
         idx = slice(s * (k - 1), (s + 1) * (k - 1))
@@ -541,14 +651,14 @@ def _forward_vlm(cfg, params, batch, *, mode, cache, pos):
         cs = (None if cache is None
               else {n: a[:, idx] for n, a in cache["self"].items()})
         x, cs_new, aux = run_stack(cfg, ps, x, mode=mode, causal=True,
-                                   cache=cs, pos=pos)
+                                   cache=cs, pos=pos, tp=tp)
         px = _layer(params["xblocks"], s)
         a, cx_new = attn_block(
             cfg, px, x, mode=mode, rope=False,
             cache=None if cache is None else _layer(cache["cross"], s),
-            pos=pos, kv_src=vision, cross=True)
+            pos=pos, kv_src=vision, cross=True, tp=tp)
         x = x + _bc(torch.tanh(px["gate_attn"]).to(x.dtype), x) * a
-        m, aux2 = mlp_block(cfg, px, x)
+        m, aux2 = mlp_block(cfg, px, x, tp=tp)
         x = x + _bc(torch.tanh(px["gate_mlp"]).to(x.dtype), x) * m
         aux_sum = aux_sum + aux + aux2
         new_self.append(cs_new)
@@ -558,10 +668,10 @@ def _forward_vlm(cfg, params, batch, *, mode, cache, pos):
         new_cache = {"self": {n: torch.cat([c[n] for c in new_self], dim=1)
                               for n in cache["self"]},
                      "cross": _stack_layers(new_cross)}
-    return lm_logits(cfg, params, x), new_cache, aux_sum
+    return lm_logits(cfg, params, x, tp), new_cache, aux_sum
 
 
-def _forward_encdec(cfg, params, batch, *, mode, cache, pos):
+def _forward_encdec(cfg, params, batch, *, mode, cache, pos, tp=NO_TP):
     """Encoder over the frame embeddings (sinusoidal positions, full
     attention), then the decoder: learned positions CLAMPED at
     max_target_positions - 1 (the reference's rule: positions past the
@@ -573,17 +683,22 @@ def _forward_encdec(cfg, params, batch, *, mode, cache, pos):
         pe = L.sinusoidal_pos_on(frames.shape[2], cfg.d_model,
                                  frames.device, cfg.dtype)
         h, _, _ = run_stack(cfg, params["enc_blocks"], frames + pe,
-                            mode="train", causal=False)
-        enc_out = _norm(cfg, h, params["enc_final_norm"],
-                        params.get("enc_final_norm_b"))
+                            mode="train", causal=False, tp=tp)
+        # one copy_in for every decoder layer's cross k/v
+        enc_out = tp.copy_in(_norm(cfg, h, params["enc_final_norm"],
+                                   params.get("enc_final_norm_b")))
 
     tokens = batch["tokens"]
     T = tokens.shape[-1]
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, tp)
     pos_embed = params["pos_embed"].to(x.dtype)
     last = cfg.max_target_positions - 1
     if mode == "decode":
         x = x + pos_embed[:, min(pos, last)][:, None, None]
+    elif tp.M > 1:                   # vocab-parallel rows of the table
+        idx = torch.arange(T, device=x.device).clamp(max=last)
+        x = x + tp.reduce_out(_local_lookup(
+            pos_embed, idx.expand(x.shape[0], T), tp))[:, None]
     else:
         idx = torch.arange(T, device=x.device).clamp(max=last)
         x = x + pos_embed[:, idx][:, None]
@@ -594,13 +709,13 @@ def _forward_encdec(cfg, params, batch, *, mode, cache, pos):
         c_self = None if cache is None else _layer(cache["self"], i)
         c_cross = None if cache is None else _layer(cache["cross"], i)
         a, nc_self = attn_block(cfg, p, x, mode=mode, causal=True,
-                                rope=False, cache=c_self, pos=pos)
+                                rope=False, cache=c_self, pos=pos, tp=tp)
         x = x + a
         xa, nc_cross = attn_block(cfg, p, x, mode=mode, rope=False,
                                   cache=c_cross, pos=pos, kv_src=enc_out,
-                                  cross=True, prefix="x_")
+                                  cross=True, prefix="x_", tp=tp)
         x = x + xa
-        m, aux = mlp_block(cfg, p, x)
+        m, aux = mlp_block(cfg, p, x, tp=tp)
         x = x + m
         aux_sum = aux_sum + aux
         new_self.append(nc_self)
@@ -609,7 +724,7 @@ def _forward_encdec(cfg, params, batch, *, mode, cache, pos):
     if cache is not None:
         new_cache = {"self": _stack_layers(new_self),
                      "cross": _stack_layers(new_cross)}
-    return lm_logits(cfg, params, x), new_cache, aux_sum
+    return lm_logits(cfg, params, x, tp), new_cache, aux_sum
 
 
 # ---------------------------------------------------------------------------
@@ -656,19 +771,37 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, n_nodes: int = 1,
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
-                pos: int):
+                pos: int, tp=NO_TP):
     """ONE new token (N, B, 1) against a pre-allocated cache at absolute
-    position ``pos`` -> (logits (N, B, Vp), new cache)."""
+    position ``pos`` -> (logits (N, B, Vp), new cache).  Refused under a
+    ``tp`` seam of M > 1 (ROADMAP §A item 3 (f))."""
     logits, new_cache, _ = forward(cfg, params, {"tokens": tokens},
-                                   mode="decode", cache=cache, pos=pos)
+                                   mode="decode", cache=cache, pos=pos,
+                                   tp=tp)
     return logits[:, :, -1], new_cache
 
 
-def loss_fn(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor
-            ) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            tp=NO_TP) -> torch.Tensor:
     """Mean next-token cross entropy per node: logits (N, B, T, V), labels
-    (N, B, T) -> (N,).  logsumexp minus the label's logit, in f32."""
+    (N, B, T) -> (N,).  logsumexp minus the label's logit, in f32.  Under
+    a ``tp`` seam the logits are a rank's (..., Vp / M) columns of the
+    padded vocabulary: the max (detached), the sum of exponentials and
+    the label's logit are reduced over the model ranks, and every
+    rank-row returns its node's loss."""
     lf = logits.to(F32)
-    lse = torch.logsumexp(lf, dim=-1)
-    correct = lf.gather(-1, labels[..., None].to(torch.int64))[..., 0]
-    return (lse - correct).reshape(lf.shape[0], -1).mean(dim=1)
+    if tp.M == 1:
+        lse = torch.logsumexp(lf, dim=-1)
+        correct = lf.gather(-1, labels[..., None].to(torch.int64))[..., 0]
+        return (lse - correct).reshape(lf.shape[0], -1).mean(dim=1)
+    R, Vl = lf.shape[0], lf.shape[-1]
+    mx = tp.all_max(lf.detach().amax(dim=-1))
+    lse = torch.log(tp.all_sum(torch.exp(lf - mx[..., None]).sum(-1))) + mx
+    lead = (R,) + (1,) * (labels.dim() - 1)
+    local = labels.to(torch.int64) - (tp.model_index(R, lf.device)
+                                      * Vl).view(lead)
+    ok = (local >= 0) & (local < Vl)
+    picked = lf.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    correct = tp.all_sum(torch.where(ok, picked, torch.zeros(
+        (), dtype=F32, device=lf.device)))
+    return (lse - correct).reshape(R, -1).mean(dim=1)

@@ -95,9 +95,17 @@ def _model_local_shapes(trainer, leaves):
     quantize (and pad) per slice, every other leaf is moved redundantly by
     all model_size shards -- a node's edge payload is model_size x the
     per-shard bytes.  Otherwise (partial-manual, or no model axis) the
-    size is 1 and the shapes are the per-node leaves'."""
+    size is 1 and the shapes are the per-node leaves'.  On a
+    tensor-parallel node (``trainer.tp``) the state's rows are already
+    model-local: the whole per-node shapes come from the model's
+    template."""
     from repro_torch.models.sharding import model_local_shape
     locals_ = [tuple(leaf.shape[1:]) for leaf in leaves]   # per-node
+    if trainer.tp.M > 1:
+        from repro_torch import tree
+        from repro_torch.models import transformer as TR
+        locals_ = [tuple(p.shape) for p in
+                   tree.leaves(TR.abstract_params(trainer.mcfg))]
     model = trainer.wire_shards
     if model > 1:
         locals_ = [model_local_shape(shape, sp, model)

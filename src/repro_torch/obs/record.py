@@ -28,6 +28,11 @@ contract audit (:mod:`repro_torch.check.contracts`):
   the rank sends to other ranks.
 * :class:`RecordingAllReduce` -- the trainer's metric ``all_reduce``
   seam, recording each call's dtype and bytes; :func:`recording_all_reduce`.
+* :class:`RecordingTP` -- the ``recorder`` of a tensor-parallel seam
+  (``repro_torch.models.tp``): each collective its operators make,
+  forward and backward, as ``(kind, dtype, bytes one rank-row hands
+  it)``, kind ``all-reduce`` (a sum), ``all-reduce-max`` or
+  ``all-gather``; :func:`recording_tp`.
 * :class:`LiveBytes` -- a ``TorchDispatchMode`` that follows every storage
   an op makes (a weakref finalizer on its ``untyped_storage()``) from its
   first output to its death, beside the arguments' storages: the peak
@@ -244,6 +249,27 @@ class RecordingAllReduce:
             self.inner(t, group)
 
 
+class RecordingTP:
+    """A tensor-parallel seam's ``recorder`` (``repro_torch.models.tp``):
+    each collective in ``calls`` as ``(kind, dtype, bytes)``, where the
+    bytes are one rank-row's operand (a row of the rank-row-stacked
+    tensor: what a rank holding one node's model shard hands the
+    collective)."""
+
+    def __init__(self) -> None:
+        self.calls: List[Tuple[str, torch.dtype, int]] = []
+
+    def __call__(self, kind: str, t: torch.Tensor) -> None:
+        row = t.numel() // t.shape[0] if t.dim() else t.numel()
+        self.calls.append((kind, t.dtype, row * t.element_size()))
+
+    def bytes_by_kind(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for kind, _, b in self.calls:
+            out[kind] = out.get(kind, 0.0) + b
+        return out
+
+
 def warm_trainer(runner, state=None, data=None, draws=None):
     """The first of two steps of a :class:`repro_torch.api.TrainerRunner`
     from ``state`` (default: a fresh one; consumed) over ``data`` (default:
@@ -297,3 +323,19 @@ def recording_all_reduce(trainer):
         yield rec
     finally:
         trainer.all_reduce = rec.inner
+
+
+@contextlib.contextmanager
+def recording_tp(seam):
+    """A :class:`RecordingTP` in ``seam.recorder`` for the block, the
+    seam's earlier recorder put back on exit; None when the node runs
+    whole (M = 1)."""
+    if seam.M == 1:
+        yield None
+        return
+    rec, prev = RecordingTP(), seam.recorder
+    seam.recorder = rec
+    try:
+        yield rec
+    finally:
+        seam.recorder = prev

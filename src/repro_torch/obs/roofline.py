@@ -32,6 +32,12 @@ collective bytes parsed from its HLO text (loop-aware) and XLA's raw
   ``"collective-permute"``: what ``jax.lax.ppermute`` moves in the
   reference; on a process mesh also the bytes of the trainer's metric
   all-reduces (``"all-reduce"``).
+* ``tp_bytes`` -- on a tensor-parallel node (``repro_torch.models.tp``),
+  the bytes one rank-row hands the model axis's collectives over the step,
+  forward and backward (:class:`repro_torch.obs.record.RecordingTP`), by
+  kind: each collective's operand (a sum over ``DistTP`` moves 2 (M - 1)
+  / M of it, as a ring all-reduce does).  On their own key: ``t_collective`` prices the node's wire and
+  stays the reference's formula.
 
 :func:`count_step` does this counting around one step; :func:`analyze`
 calls it on a real step after a warm-up, and the dry run
@@ -168,6 +174,14 @@ class Roofline:
     model_flops_per_chip: float    # 6ND / 2ND only (no attention terms)
     hlo_flops: float               # FlopCounterMode over one step
     hlo_bytes: float               # bytes the step's ATen ops read + write
+    # a rank-row's model-axis bytes, by kind: not in :meth:`as_dict`,
+    # whose keys are the reference's
+    tp_breakdown: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+    @property
+    def tp_bytes(self):
+        return sum(self.tp_breakdown.values())
 
     @property
     def t_compute(self):
@@ -232,23 +246,28 @@ class StepCounts:
     flops: float                  # FlopCounterMode's
     aten_bytes: float             # the ATen ops' operand + output bytes
     coll: Dict[str, float]        # bytes sent, by collective
+    tp: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
-def count_step(trainer, step: Callable[[], Any]) -> Tuple[StepCounts, Any]:
+def count_step(trainer, step: Callable[[], Any], tp=None
+               ) -> Tuple[StepCounts, Any]:
     """Run ``step()`` -- one train step of ``trainer`` -- once under
     ``FlopCounterMode``, :class:`repro_torch.obs.record.StepRecorder`
-    (``count_bytes``) and recorders in the trainer's ``pp`` and
-    ``all_reduce`` seams (the all-reduces count on a process mesh;
-    ``trainer`` None: a step with no seams, e.g. serving, and no
-    collectives).  -> (its counts, what ``step`` returned)."""
+    (``count_bytes``) and recorders in the trainer's ``pp``,
+    ``all_reduce`` and ``tp`` seams (the all-reduces count on a process
+    mesh, the tp seam at M > 1; ``trainer`` None: a step with no trainer
+    seams, e.g. serving, whose ``tp`` seam may be given).  -> (its counts,
+    what ``step`` returned)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.obs.record import (StepRecorder, recording_all_reduce,
-                                        recording_pp)
+                                        recording_pp, recording_tp)
     with contextlib.ExitStack() as seams:
         if trainer is not None:
             rec = seams.enter_context(recording_pp(trainer))
             ar = seams.enter_context(recording_all_reduce(trainer))
+            tp = trainer.tp
+        tp = None if tp is None else seams.enter_context(recording_tp(tp))
         counter = FlopCounterMode(display=False)
         with counter, StepRecorder(count_bytes=True) as sr:
             out = step()
@@ -258,7 +277,8 @@ def count_step(trainer, step: Callable[[], Any]) -> Tuple[StepCounts, Any]:
         if trainer.process_mesh is not None:
             coll["all-reduce"] = float(sum(b for _, b in ar.calls))
     return StepCounts(float(counter.get_total_flops()), float(sr.bytes),
-                      coll), out
+                      coll, tp.bytes_by_kind() if tp is not None else {}
+                      ), out
 
 
 def roofline_of(cfg, shape, n_nodes: int, n_chips: int,
@@ -275,6 +295,7 @@ def roofline_of(cfg, shape, n_nodes: int, n_chips: int,
         model_flops_per_chip=model_flops(cfg, shape, n_active) / n_chips,
         hlo_flops=counts.flops,
         hlo_bytes=counts.aten_bytes,
+        tp_breakdown=dict(counts.tp),
     )
 
 

@@ -63,6 +63,23 @@ the noise of its own rows.  Only the neighbor backend splits over ranks:
 the dense backend mixes all N nodes with one (N, N) ``DenseMixer`` and is
 refused with a process mesh (ROADMAP §A item 3 (d)).
 
+A tensor-parallel node.  With a ``tp`` seam of M > 1 model ranks
+(``repro_torch.models.tp``: ``StackedTP(M)`` in one process, ``DistTP``
+over a :class:`repro_torch.launch.mesh.TPProcessMesh`, whose default
+``tp`` it is) the state holds rank-rows, row ``n M + m`` = node n's model
+shard m (a sharded leaf's model-local slice, a replicated leaf whole; a
+DistTP rank holds model rank m's rows of its node block).  The forward
+and backward split over the model ranks; each rank-row backpropagates its
+copy of its node's loss, so every leaf's gradient is the node's, a
+replicated leaf's bit-equal on the M ranks.  The update packs each
+rank-row's own model-local leaves straight into the wire's rows (the
+bucketed QInf wire only); the hops go to the same m of the neighbour
+node; a replicated leaf's M copies, which draw the same noise, stay
+bit-equal.  The loss is counted once a node, the consensus over the model
+ranks with a replicated leaf counted once.  Refused at M > 1: the ssm and
+hybrid families (ROADMAP §A item 3 (e)), the dense backend, the per-leaf
+wire and identity compression.
+
 Dry runs.  :meth:`DecentralizedTrainer.abstract_state` is a state of
 ``meta`` tensors; a trainer built on the ``meta`` device steps it with
 :class:`repro_torch.core.draws.MetaDraws`, kernels B1-B4 taking the
@@ -75,6 +92,7 @@ k=1 update with H^1 = 0, D^1 = 0, as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -91,6 +109,7 @@ from repro_torch.core.oracles import OracleState
 from repro_torch.core.prox import Prox
 from repro_torch.core.prox_lead import ProxLEADState
 from repro_torch.models import sharding
+from repro_torch.models import tp as tp_mod
 from repro_torch.models import transformer as TR
 from repro_torch.netsim import SimMixer, make_schedule
 from repro_torch.optim.wire import (WIRE_MODES, DistPP, WireExchange,
@@ -170,18 +189,28 @@ class DecentralizedTrainer:
     rank's node block, when the nodes split over a process group (its
     ``pp`` defaults to :class:`DistPP`; the neighbor backend only).
     ``pp``: the exchange seam (default: the one-card :func:`stacked_pp`).
+    ``tp``: the tensor-parallel seam (``repro_torch.models.tp``; default
+    ``DistTP`` over a :class:`repro_torch.launch.mesh.TPProcessMesh`,
+    else none: a node's products run whole).
     :attr:`all_reduce` ``(t, group)`` is the seam of the metrics' in-place
     sum over the process mesh's ranks (:func:`dist_all_reduce`; a dry run
     records it)."""
 
     def __init__(self, model_cfg: TR.ModelConfig, tcfg: TrainerConfig, *,
-                 device, pp=None, mesh=None, process_mesh=None):
+                 device, pp=None, mesh=None, process_mesh=None, tp=None):
         self.mcfg = model_cfg
         self.tcfg = tcfg
         self.device = torch.device(device)
         self.mesh = mesh
         self.process_mesh = process_mesh
         self.all_reduce = dist_all_reduce
+        #: the node axis of this process (a TPProcessMesh's node_mesh)
+        node_pm = getattr(process_mesh, "node_mesh", process_mesh)
+        if tp is None:
+            tp = (tp_mod.DistTP(process_mesh) if node_pm is not process_mesh
+                  else tp_mod.NO_TP)
+        #: the tensor-parallel seam
+        self.tp = tp
         if process_mesh is not None:
             if tcfg.backend == "dense":
                 raise ValueError(
@@ -194,18 +223,20 @@ class DecentralizedTrainer:
                 raise ValueError(
                     f"process mesh over {process_mesh.n_nodes} nodes, "
                     f"trainer of {tcfg.n_nodes}")
-            pp = pp or DistPP(process_mesh)
+            pp = pp or DistPP(node_pm)
         #: the exchange seam: ppermute semantics on node-stacked tensors
         self.pp = pp or stacked_pp
         #: nodes this process holds, from node ``node_lo`` on
-        self.n_local = (process_mesh.n_local if process_mesh is not None
+        self.n_local = (node_pm.n_local if node_pm is not None
                         else tcfg.n_nodes)
-        self.node_lo = process_mesh.lo if process_mesh is not None else 0
+        self.node_lo = node_pm.lo if node_pm is not None else 0
         paths = tree.flatten_with_paths(TR.abstract_params(model_cfg))
         #: per-node partition spec of every leaf, in leaf order
         self.leaf_specs = [sharding.spec_for_path(path, leaf.dim())
                            for path, leaf in paths]
         self.model_shards = sharding.model_axis_size(mesh)
+        if tp.M > 1:
+            self._check_tp(tp)
         self._layout: Optional[bucket.BucketLayout] = None
         sizes = {"model": self.model_shards}
         for (path, leaf), spec in zip(paths, self.leaf_specs):
@@ -237,6 +268,24 @@ class DecentralizedTrainer:
                 + [h.weights[None] for h in self.plan.hops], 0
             )[:, :, lo:lo + self.n_local].astype(np.float32),
                 device=self.device)
+
+    def _check_tp(self, tp) -> None:
+        """What a tensor-parallel node refuses, at build."""
+        tcfg, M = self.tcfg, tp.M
+        tp_mod.refuse_family(self.mcfg.family, M, self.mcfg.name)
+        if M != self.model_shards:
+            raise ValueError(f"a tp seam of {M} model ranks on a mesh of "
+                             f"{self.model_shards} model shards")
+        if (tcfg.backend not in ("neighbor", "ring")
+                or tcfg.wire_mode != "bucketed"
+                or tcfg.compressor != "qinf"):
+            raise ValueError(
+                f"a tensor-parallel node (M = {M}) runs the neighbor "
+                f"backend's bucketed QInf wire, each rank-row packing its "
+                f"own model-local leaves; backend {tcfg.backend!r}, "
+                f"wire_mode {tcfg.wire_mode!r}, compressor "
+                f"{tcfg.compressor!r} mix whole leaves (the dense backend "
+                f"over ranks is ROADMAP §A item 3 (d)); run them at M = 1")
 
     @property
     def sharded(self) -> bool:
@@ -331,19 +380,49 @@ class DecentralizedTrainer:
         return self.state_from_stacked(X)
 
     def state_from_stacked(self, X) -> TrainState:
+        """A fresh state from ``X``, this process's node rows (n_local,
+        ...) of every whole leaf (cut into rank-rows under a ``tp`` seam)."""
         self.start_fault_stream()
-        return self._state_of(X)
+        return self._state_of(self.to_rank_rows(X))
+
+    def to_rank_rows(self, X, lead: int = 1):
+        """A tree of this process's node rows of whole leaves -> its
+        rank-rows (the tree itself without a ``tp`` seam)."""
+        if self.tp.M == 1:
+            return X
+        leaves, treedef = tree.flatten(X)
+        return tree.unflatten(treedef, self.tp.cut(leaves, self.leaf_specs,
+                                                   lead))
+
+    def from_rank_rows(self, X, lead: int = 1):
+        """Inverse of :meth:`to_rank_rows` (one process holding every
+        model rank: ``StackedTP``)."""
+        if self.tp.M == 1:
+            return X
+        leaves, treedef = tree.flatten(X)
+        return tree.unflatten(treedef, self.tp.join(leaves, self.leaf_specs,
+                                                    lead))
+
+    def join_state(self, state: TrainState):
+        """(X, D, H, Hw) of ``state`` as whole node-stacked trees (the Hw
+        slots' lead is 2 under a time-varying plan)."""
+        p = state.plead
+        hw_lead = 1 if self.hw_slots is None else 2
+        return {"X": self.from_rank_rows(p.X), "D": self.from_rank_rows(p.D),
+                "H": self.from_rank_rows(p.comm.H),
+                "Hw": self.from_rank_rows(p.comm.Hw, hw_lead)}
 
     def abstract_state(self) -> TrainState:
         """The state :meth:`init_state` makes, as ``meta`` tensors (the
         reference's ``abstract_state``): this process's rows (n_local,
-        ...) of every leaf in the model's dtype, D, H and Hw each their own
-        storage, Hw with its T slots; nothing allocated."""
+        ...) of every leaf in the model's dtype (its rank-rows under a
+        ``tp`` seam), D, H and Hw each their own storage, Hw with its T
+        slots; nothing allocated."""
         X = tree.tree_map(
             lambda p: torch.empty((self.n_local,) + tuple(p.shape),
                                   dtype=p.dtype, device="meta"),
             TR.abstract_params(self.mcfg))
-        return self._state_of(X)
+        return self._state_of(self.to_rank_rows(X))
 
     def _state_of(self, X) -> TrainState:
         zeros = lambda: tree.tree_map(torch.zeros_like, X)   # noqa: E731
@@ -358,13 +437,19 @@ class DecentralizedTrainer:
 
     # ------------------------------------------------------------------ loss
     def loss_and_grad(self, X, batch):
-        """(mean node cross entropy, gradient of the SUM of node losses)."""
+        """(mean node cross entropy, gradient of the SUM of node losses).
+        ``batch``: this process's node rows; under a ``tp`` seam ``X`` is
+        rank-rows, each rank-row reads its node's rows and backpropagates
+        its copy of its node's loss, and the mean counts a node once."""
+        tp = self.tp
+        batch = tp.node_rows(batch)
         leaves_X, treedef = tree.flatten(X)
         xs = [x.detach().requires_grad_(True) for x in leaves_X]
         with torch.enable_grad():
             logits, _, aux = TR.forward(self.mcfg,
-                                        tree.unflatten(treedef, xs), batch)
-            ces = TR.loss_fn(self.mcfg, logits, batch["labels"])
+                                        tree.unflatten(treedef, xs), batch,
+                                        tp=tp)
+            ces = TR.loss_fn(self.mcfg, logits, batch["labels"], tp=tp)
             del logits
             total = (ces + self.tcfg.aux_weight * aux).sum()
             grads = torch.autograd.grad(total, xs, allow_unused=True)
@@ -372,7 +457,18 @@ class DecentralizedTrainer:
         # is an RMSNorm) has gradient zero, as under jax.grad
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, xs)]
-        return ces.detach().mean(), tree.unflatten(treedef, grads)
+        return (tp.first_of_node(ces.detach()).mean(),
+                tree.unflatten(treedef, grads))
+
+    def node_losses(self, X, batch) -> torch.Tensor:
+        """Each node's loss of parameters ``X`` (the state's rows) on
+        ``batch`` (this process's node rows), forward only -> (n_local,)."""
+        tp = self.tp
+        batch = tp.node_rows(batch)
+        with torch.no_grad():
+            logits = TR.forward(self.mcfg, X, batch, tp=tp)[0]
+            return tp.first_of_node(TR.loss_fn(self.mcfg, logits,
+                                               batch["labels"], tp=tp))
 
     # ------------------------------------------------------------------ step
     def train_step(self, state: TrainState, batch, draws: Draws
@@ -392,9 +488,12 @@ class DecentralizedTrainer:
         else:
             plead = self.alg.update(state.plead, G, draws)
         del G
-        if self.process_mesh is None:
+        if self.process_mesh is None and self.tp.M == 1:
             consensus = sum(((leaf - leaf.mean(0, keepdim=True)) ** 2).sum()
                             for leaf in tree.leaves(plead.X))
+        elif self.process_mesh is None:     # StackedTP: (n, M) rank-rows
+            consensus = sum(self._stacked_deviation(leaf, sp) for leaf, sp
+                            in zip(tree.leaves(plead.X), self.leaf_specs))
         else:
             ce, consensus = self._reduced_metrics(ce, tree.leaves(plead.X))
         metrics = {"loss": ce, "consensus": consensus, "step": state.step}
@@ -409,23 +508,39 @@ class DecentralizedTrainer:
         return {k: v[lo:hi] if v.shape[0] == self.tcfg.n_nodes else v
                 for k, v in batch.items()}
 
+    def _stacked_deviation(self, leaf, spec):
+        """Sum over a leaf's rank-rows (n M, ...) of the squared deviation
+        from the node mean, a replicated leaf counted once."""
+        v = leaf.unflatten(0, (leaf.shape[0] // self.tp.M, self.tp.M))
+        if sharding.model_dim(spec) is None:
+            v = v[:, :1]
+        return ((v - v.mean(0, keepdim=True)) ** 2).sum()
+
     def _reduced_metrics(self, ce, leaves):
         """The mean node loss and the consensus error over every rank's
         nodes: one all-reduce of the node sums (for the node mean), one of
-        the loss and consensus partial sums (:attr:`all_reduce`)."""
-        group, N = self.process_mesh.group, self.tcfg.n_nodes
+        the loss and consensus partial sums (:attr:`all_reduce`).  On a
+        :class:`repro_torch.launch.mesh.TPProcessMesh` the node sums go
+        over the rank's node group (the ranks of its model shard), the
+        partial sums over the world, model rank 0 alone counting the loss
+        and the replicated leaves."""
+        pm, N = self.process_mesh, self.tcfg.n_nodes
+        node_group = getattr(pm, "node_group", pm.group)
+        m = getattr(pm, "m", 0)
         sums = torch.cat([leaf.sum(0).reshape(-1) for leaf in leaves])
-        self.all_reduce(sums, group)
+        self.all_reduce(sums, node_group)
         parts, off = [], 0
-        for leaf in leaves:
+        for leaf, sp in zip(leaves, self.leaf_specs):
             n = leaf[0].numel()
             mean = (sums[off:off + n] / N).view(leaf.shape[1:])
-            parts.append(((leaf - mean) ** 2).sum())
+            if m == 0 or sharding.model_dim(sp) is not None:
+                parts.append(((leaf - mean) ** 2).sum())
             off += n
         del sums
-        total = sum(parts)
-        tot = torch.stack([(ce * self.n_local).to(total.dtype), total])
-        self.all_reduce(tot, group)
+        total = sum(parts) if parts else leaves[0].new_zeros(())
+        tot = torch.stack([(ce * (self.n_local if m == 0 else 0))
+                           .to(total.dtype), total])
+        self.all_reduce(tot, pm.group)
         return tot[0] / N, tot[1]
 
     def _adam_precondition(self, G, precond, step: int):
@@ -526,6 +641,12 @@ class DecentralizedTrainer:
         D, H, Hw = (tree.leaves(t) for t in (plead.D, plead.comm.H,
                                              plead.comm.Hw))
         n, M, specs = leaves_X[0].shape[0], self.wire_shards, self.leaf_specs
+        if self.tp.M > 1:
+            # rank-rows are the wire's rows: each its own model-local leaf
+            n, M = n, 1
+            view = lambda a, sp, lead=1: a.unsqueeze(1)    # noqa: E731
+        else:
+            view = functools.partial(sharding.shard_view, model=M)
         wx = WireExchange(bits=tcfg.bits, block=tcfg.block,
                           scales_bf16=tcfg.scales_bf16,
                           pack_mode=tcfg.pack_mode,
@@ -541,7 +662,7 @@ class DecentralizedTrainer:
                 diffs.append(z - h)
             else:                     # the diff lands in its group's rows
                 rows.leaf_view(j).unflatten(0, (n, M)).copy_(
-                    sharding.shard_view(z - h, specs[j], M))
+                    view(z - h, specs[j]))
             zs.append(z)
         # COMM: per leaf, the dequantized self payload and W Q
         if not use_q:
@@ -557,17 +678,17 @@ class DecentralizedTrainer:
         for j, (z, d, h, hw) in enumerate(zip(zs, D, H, Hw)):
             sp = specs[j]
             # (n, Mj, ...): the M shards, or one for a replicated leaf
-            zv, dv, hv = (sharding.shard_view(a, sp, M) for a in (z, d, h))
+            zv, dv, hv = (view(a, sp) for a in (z, d, h))
             mj = hv.shape[1]
             q = qs[j].unflatten(0, (n, M))[:, :mj]
             w = wq[j].unflatten(0, (n, M))[:, :mj]        # (n, Mj, T, ...)
             zhat = q.add_(hv)                             # h + Q_self
             if T == 1:
-                hwv = sharding.shard_view(hw, sp, M)
+                hwv = view(hw, sp)
                 zhat_w = w[:, :, 0].add_(hwv)             # Hw + (W Q)
                 hwv.mul_(1 - alpha).add_(alpha * zhat_w)
             else:
-                hwv = sharding.shard_view(hw, sp, M, lead=2)
+                hwv = view(hw, sp, lead=2)
                 zhat_w = hwv[:, :, t] + w[:, :, t]        # slot k % T
                 # Hw[t'] tracks W_t' H: H += alpha Q => += alpha W_t' Q
                 hwv.add_(w, alpha=alpha)

@@ -43,6 +43,20 @@ rows.  The draw rule, which keeps the replicated copies equal:
     draws it from one key on every shard, or its replicated copies would
     diverge.
 
+On a tensor-parallel node (``repro_torch.models.tp``) the state's rows
+are the rank-rows themselves and the trainer writes each into its own row
+of the tables.  Under ``StackedTP`` the draws are the same calls as above,
+so a rank-row (n, m) consumes exactly the noise the one-process (N, M)
+run gives shard m of a sharded leaf, and every model rank of a node the
+same noise of a replicated leaf: the replicated copies stay bit-equal.
+A ``DistTP`` rank (its rows: model rank m of its node block, M = 1
+here) draws a sharded leaf's noise from its draw source and a replicated
+leaf's from ``draws.shared()``, the source its node block's model ranks
+share (``core.draws.TPRankDraws``: in a seeded run its own stream per
+(node block, model rank) and one per node block; a replay of the
+one-process run's noise hands rank (b, m) shard m's rows of a sharded
+leaf and the node rows of a replicated one, in leaf order).
+
 The wire buffers are laid out ``(N, M x bytes)``: a node's M shard
 payloads side by side, so the node-dim ``pp`` moves all M shards of a
 node with the hop pairs as they are, and a process holding whole nodes
@@ -215,14 +229,16 @@ class WireExchange:
                                  zero_pad=False)
         for j in range(len(layout.slots)):
             view = noise.block_view(j)
+            # a model-replicated leaf draws from the node's shared source
+            src = draws.shared() if sharded and not sharded[j] else draws
             if M == 1:
-                draws.uniform(tuple(view.shape), out=view)
+                src.uniform(tuple(view.shape), out=view)
                 continue
             view = view.unflatten(0, (n, M))
             if sharded[j]:
                 draws.uniform(tuple(view.shape), out=view)
             else:                     # one draw, the same on every shard
-                view.copy_(draws.uniform(
+                view.copy_(src.uniform(
                     (n,) + tuple(view.shape[2:])).unsqueeze(1))
         cw, sw = bucket.pack_to_wire(layout, rows.tables, noise.tables)
         rows.free()

@@ -532,3 +532,97 @@ def test_mesh_functions_name_the_reference_counts():
     assert (mesh_mod.n_nodes(one), mesh_mod.n_chips(one)) == (16, 256)
     assert (mesh_mod.n_nodes(two), mesh_mod.n_chips(two)) == (32, 512)
     assert mesh_mod.n_nodes(one) == one.n_nodes
+
+
+# --- a tensor-parallel node: placement "tp" ----------------------------------
+
+TP_ARCHS = [a for a in tconfigs.ARCH_IDS
+            if tconfigs.get(a).family in ("dense", "moe", "vlm", "encdec")]
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_rank_state_bytes_equal_a_model_shard(reference_records, arch):
+    """Placement "tp" on (16, 16): rank (0, 0) of 256 holds one model shard
+    of one node, whose Prox-LEAD state (X, D, H, Hw) is, to the byte,
+    ``state_bytes_per_model_shard`` and the reference's per-device state."""
+    from repro_torch.models import tp as tp_mod
+    cfg = dataclasses.replace(tconfigs.get(arch), dtype=torch.bfloat16)
+    mesh = mesh_mod.make_production_mesh()
+    tr, placement = dryrun.meta_trainer(dryrun.train_spec(cfg, mesh), mesh,
+                                        cfg, "tp")
+    assert placement == "tp" and tr.n_local == 1
+    assert isinstance(tr.tp, tp_mod.DryDistTP) and tr.tp.M == 16
+    rank = dryrun.state_bytes_per_rank(tr)
+    assert rank == dryrun.state_bytes_per_model_shard(tr) == \
+        reference_records[f"{arch} False"]["state"]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_tp_placement_skips_what_is_not_tensor_parallel(arch, tmp_path):
+    for shape in ("train_4k", "decode_32k"):
+        rec = dryrun.run_one(arch, shape, backend="neighbor", out_dir=None,
+                             verbose=False, placement="tp")
+        assert rec["status"] == "skipped" and "ROADMAP" in rec["reason"]
+    rec = dryrun.run_one("qwen3-1.7b", "decode_32k", backend="neighbor",
+                         out_dir=None, verbose=False, placement="tp")
+    assert rec["status"] == "skipped" and "3 (f)" in rec["reason"]
+
+
+def test_tp_bytes_of_a_head_aligned_step_have_a_closed_form():
+    """A head-aligned dense config (16 heads of 32, 16 KV heads, qk_norm)
+    dry-run at rank (0, 0) of the (16, 16) mesh: the bytes a rank hands the
+    model axis in a train step, as integers.  Forward: the embedding's
+    ``reduce_out`` and each layer's two (attention, MLP), B T D each;
+    backward: the LM head's ``copy_in`` and each layer's two, B T D each,
+    and each layer's ``q_norm`` and ``k_norm`` gradients, hd each; the
+    loss: the max (``all-reduce-max``), the sum of exponentials and the
+    label's logit, B T f32 each.  No gather on aligned heads."""
+    cfg = dataclasses.replace(tconfigs.get("qwen3-1.7b").reduced(
+        n_layers=2, d_model=256), n_heads=16, n_kv_heads=16)
+    L_, D, hd = cfg.n_layers, cfg.d_model, cfg.hd
+    assert cfg.qk_norm and (cfg.n_heads * hd) % 16 == 0 and hd == 32
+    mesh = mesh_mod.make_production_mesh()
+    Bl, T = 2, 16
+    shape = tshapes.InputShape("train_small", T, 16 * Bl, "train")
+    rec = dryrun.dry_train(cfg, shape, mesh, placement="tp")
+    isz = 4                                   # f32
+    act = Bl * T * D * isz
+    want = {"all-reduce": (4 * L_ + 2) * act + 2 * L_ * hd * isz
+            + 2 * Bl * T * 4,
+            "all-reduce-max": Bl * T * 4}
+    assert rec["tp_breakdown"] == want
+    assert rec["tp_bytes"] == sum(want.values())
+    assert rec["cards"] == 256 and rec["model_shards_per_card"] == 1
+    assert rec["state_bytes_per_rank"] == rec["state_bytes_per_model_shard"]
+    # the wire of one shard: the rank sends its shard's payload a hop
+    gossip = rec["gossip"]
+    assert rec["roofline"]["coll_breakdown"]["collective-permute"] * 8 * 16 \
+        == gossip["hops"] * gossip["payload_bits_per_edge"]
+
+
+def test_tp_one_process_dry_step_equals_the_real_cpu_step():
+    """``StackedTP`` on the golden (4, 2) spec's model, dry on ``meta``
+    and real on the CPU: the same TP bytes and ``pp`` bytes, call for
+    call (the products differ from the card's kernels' outputs only in
+    values)."""
+    from repro_torch.models.tp import StackedTP
+    cfg = _small_cfg()
+    mesh = mesh_mod.Mesh((4, 2))
+    spec = _spec(cfg, mesh)
+    runner = tapi.build_trainer_runner(spec, device="cpu", model_cfg=cfg,
+                                       tp=StackedTP(2))
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, s, generator=g)
+             for k, (s, _) in tshapes.train_input_specs(
+                 cfg, SMALL_SHAPE, spec.n_nodes).items()}
+    real, _, _, _ = dryrun.counted_step(
+        runner.trainer, [runner.init_state()], batch,
+        GeneratorDraws(0, "cpu"))
+    tr, placement = dryrun.meta_trainer(spec, mesh, cfg, "tp one process")
+    assert placement == "tp one process"
+    mbatch = {k: torch.empty(v.shape, dtype=v.dtype, device=META)
+              for k, v in batch.items()}
+    dry, _, _, _ = dryrun.counted_step(tr, [tr.abstract_state()], mbatch)
+    assert dry.tp == real.tp and sum(real.tp.values()) > 0
+    assert dry.coll == real.coll
+    assert dry.flops == real.flops

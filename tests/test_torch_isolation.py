@@ -64,6 +64,7 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/check/contracts.py",
                  "src/repro_torch/check/__main__.py",
                  "src/repro_torch/models/sharding.py",
+                 "src/repro_torch/models/tp.py",
                  "src/repro_torch/launch/mesh.py", "chip_smoke.py",
                  "launch_cost.py"):
         assert must in names
