@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    both started together, and prints each kernel's registers, spills and
    resident warps per SM from ``ptxas -v``; B3's row kernel and its seven
    vector instances (nibble packing K = 1, 2, 4 units a lane, byte packing
-   K = 1, 2, 4, 8) must all be there, and none may spill.
+   K = 1, 2, 4, 8) must all be there, and none may spill.  Then one
+   unmeasured ``torch.profiler`` window over a few launches
+   (``warm_profiler``): a process's first window once saw no device
+   operation, so every window whose events are required comes after it.
 3. B1/B2 against their plain PyTorch versions on the card, same x and u:
    B1 through ``ops.qinf_quantize_lastdim``, which hands it the leaf
    unpadded (the kernel reads the ragged last block in place), against
@@ -302,18 +305,45 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``pp`` bytes and TP bytes equal to (a)'s ``[roofline]`` counts, the
    peak within DRY_PEAK_TOL of ``max_memory_allocated``.  (d) The
    production sweep under ``--placement tp`` (rank (0, 0) of N x M: one
-   model shard of one node a card), the dense, moe, vlm and encdec
-   architectures: every shape on (16, 16) (``train_4k`` and
-   ``prefill_32k`` run, the rest skipped with their reasons) and
-   ``train_4k`` on (2, 16, 16); one line a combo: per-rank peak and
-   ``fits``, the rank's state bytes beside ``state_bytes_per_model_shard``,
-   the TP bytes, the roofline terms.  Records in
+   model shard of one node a card), phase 16 (b)'s jobs: all ten
+   architectures, every shape on (16, 16) and ``train_4k`` on (2, 16,
+   16), less DRY_LOOPED's ``train_4k`` and ``prefill_32k`` (the CLI runs
+   them); every combo ``ok`` or skipped as ``configs.shapes.applicable``
+   says; one line a combo: per-rank peak and ``fits``, the rank's state
+   bytes beside ``state_bytes_per_model_shard`` (a train step) or its
+   cache bytes beside the whole node's and the whole node's / M (a
+   decode step), the TP bytes, the roofline terms.  Records in
    ``chiprun_out/dryrun_torch_tp/``.
+18. (Run after phase 17, before the result lines.)  RWKV-6 and the RG-LRU
+   on a tensor-parallel node, and serving at M > 1, ``StackedTP`` in one
+   process.  (a) rwkv6-7b (1 of 32 layers) on the mesh (4, 2) and
+   recurrentgemma-9b (one (rec, rec, attn) unit, 3 of 38) on (2, 2)
+   (TP_RECURRENT: N the largest of 8, 4, 2 whose whole-node step fits
+   FAMILY_PEAK_GB by the dry run), published widths, the vocabulary's
+   first eighth, TP_RECURRENT_SEQ tokens, the ring, the bucketed wire,
+   2-bit QInf in 256-blocks, f32, TF32 off: TP_TF_STEPS steps
+   teacher-forced against the whole-node step (C4's bar, RWKV-6's
+   SSM_REPLAY_ELEM_TOL; every B3 and B4 launch of the first bit-equal to
+   its plain version), then SLICE_STEPS free steps of the whole node and
+   of the split node: the loss falls and stays finite, B3 and B4 once per
+   bucket group a step, ``bits_per_step`` = the ring's hops x a host
+   recount from the model-local shapes, the ``[contracts]`` line under
+   ``set_sync_debug_mode("error")``, the ``[roofline]`` line with the TP
+   bytes, the median step and peak of both.  (b) Phase 11's six
+   architectures at its depths (batch 4, prompt 16, 32 tokens) under
+   ``StackedTP(2)``, then recurrentgemma-9b (3 layers) at M = 16 (one
+   query head a rank, its one KV head cut in 16) and whisper-large-v3 at
+   M = 8 (2.5 query heads a rank), through ``serve.prefill(tp=)`` and
+   ``serve.generate(tp=)``: the logits each token was taken from within
+   SERVE_TOL x max |logits| of the whole node's teacher-forced forward;
+   prefill ms, ms a decode step, tok/s and peak beside phase 11's;
+   RWKV-6's token-shift caches bit-equal over the ranks after the last
+   step.  The phase's seconds.
 13. Result lines: ``{"kernels": [...]}`` (B1-B4; B3's entry also names
    its variant at each shape and the row variant's ms at the trainer's
    shape; B3's and B4's the (8, 2) groups and launches, and their
-   launches at phase 17's tensor-parallel layouts), the nvidia-smi
-   line,
+   launches at phase 17's and phase 18 (a)'s tensor-parallel layouts),
+   the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Everything is also written to
    ``chiprun_out/chip_smoke.json``.
 
@@ -359,6 +389,7 @@ PAPER_STEPS = 800           # steps of a Fig. 1 / Fig. 2 row (the paper's)
 PAPER_REPLAY_STEPS = 20     # baseline steps held against the CPU path
 EMPIRICAL_C_TRIALS = 64
 PAPER_PROFILE_STEPS = 50    # LEAD (2bit) steps under torch.profiler
+PROFILE_GUARD_S = 0.05      # idle host time at each edge of a profiler window
 NETSIM_STEPS = 300          # scenario steps with counters on
 NETSIM_STATIC_STEPS = 20    # static netsim steps held bit-equal to dense
 NETSIM_TIMED_STEPS = 100    # steps timed per engine
@@ -664,6 +695,41 @@ def time_kernels(torch, qk, ref, shape, iters: int = 20):
     return res
 
 
+def warm_profiler(torch, launches: int = 20) -> None:
+    """One unmeasured ``torch.profiler`` window over a few device launches,
+    run right after the build: a process's first window once came back
+    with no device event at all (CUPTI sets up its activity buffers in
+    it), so every window whose events are required comes after this one,
+    which requires nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.zeros(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(launches):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    del x
+
+
+@contextlib.contextmanager
+def profiled(torch):
+    """A ``torch.profiler`` window over host and device activities with an
+    idle guard of ``PROFILE_GUARD_S`` at each edge, inside which the caller
+    fences and times its own work.  The profiler keeps a device event only
+    if its time, converted to the host's clock, falls inside the window,
+    and on the card that conversion has read up to 4.6 ms behind the host:
+    without the guard, 4 of 150 windows of 50 LEAD (2bit) steps lost their
+    first 2-62 device events, with the guard none of 150
+    (``profile_edges.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+
+
 def device_us(torch, fn, calls: int = MAIN_SHAPE_ITERS):
     """Device time of one call of ``fn`` under ``torch.profiler`` over
     ``calls`` back-to-back calls, each launching the same device
@@ -672,11 +738,9 @@ def device_us(torch, fn, calls: int = MAIN_SHAPE_ITERS):
     their names.  (The profiler may drop an event at the window's edge,
     so calls are not cut from the event stream one by one.)"""
     import tempfile
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -766,10 +830,7 @@ def profile_steps(torch, runner, st, draws, steps: int = PROFILE_STEPS,
     exported trace, the busy share that sum over the fenced wall time;
     every device operation by name (time and count a step), B1's launches
     a step and the operations that ran just before them."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        torch.cuda.synchronize()
+    with profiled(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             st = runner.step(st, draws)
@@ -1488,12 +1549,8 @@ def profile_trainer(torch, runner, st, data, draws, steps: int,
     """torch.profiler over ``steps`` trainer steps: device busy share,
     device time by kernel and the wire's share (:func:`wire_breakdown`;
     the trace written to OUT_DIR / ``trace_name``)."""
-    from torch.profiler import ProfilerActivity, profile
     t_first = int(st.step)
-    with wire_spans(torch), profile(
-            activities=[ProfilerActivity.CPU,
-                        ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    with wire_spans(torch), profiled(torch) as prof:
         t0 = time.perf_counter()
         for t in range(t_first, t_first + steps):
             st, _ = runner.step(st, data.batch_at(t), draws)
@@ -1627,13 +1684,14 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
                  device: str = "cuda", hops: int = 2,
                  bits_per_hop: int = SLICE_BITS_PER_HOP,
                  trace_name: str = "slice_trace.json", peak_limit_gb=None,
-                 tp=None):
+                 tp=None, audit: bool = True):
     """The slice's trainer on the card through api.build(spec) (with a
     ``tp`` seam: ``api.build_trainer_runner(spec, tp=tp)``, a
     tensor-parallel node); ``hops``: the exchange plan's (2 on the ring,
     5 under the alternating schedule); at full width ``bits_per_step``
     must be hops x ``bits_per_hop``; ``peak_limit_gb``: the peak
-    allocation must stay below it."""
+    allocation must stay below it; ``audit``: the contracts and roofline
+    of two more steps (:func:`contracts_and_roofline`)."""
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     spec = spec or slice_spec(api, steps)
@@ -1704,7 +1762,8 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
     del state
     audited = contracts_and_roofline(
         torch, runner, held, data, draws, hops, int(bits) // hops,
-        step_s[len(step_s) // 2] if step_s else report.s_per_step)
+        step_s[len(step_s) // 2] if step_s else report.s_per_step) \
+        if audit else {"roofline": None, "contracts": None}
     return {**audited, "spec": spec.name, "steps": steps,
             "dtype": str(cfg.dtype),
             "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
@@ -2636,10 +2695,7 @@ def profile_decode(torch, TR, cfg, sp, cache, tokens, pos: int,
     """``torch.profiler`` over ``steps`` greedy decode steps from ``cache``
     at ``pos``: wall and device ms a step, busy share, device ops a step
     and the five costliest device operations."""
-    from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    with torch.no_grad(), profiled(torch) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             logits, cache = TR.decode_step(cfg, sp, cache,
@@ -2669,10 +2725,21 @@ def profile_decode(torch, TR, cfg, sp, cache, tokens, pos: int,
                      "per_step": n / steps} for k, (ms, n) in top]}
 
 
+def shifts_bit_equal(torch, tree, cache, M: int) -> bool:
+    """RWKV-6's token shifts (replicated cache leaves) bit-equal over a
+    node's M rank-rows."""
+    ok = True
+    for path, x in tree.flatten_with_paths(cache):
+        if path.endswith("_shift"):
+            v = x.unflatten(0, (-1, M))
+            ok &= all(torch.equal(v[:, 0], v[:, m]) for m in range(M))
+    return ok
+
+
 def serve_arch(torch, configs, TR, serve, arch: str, overrides: dict, *,
                batch: int = SERVE_BATCH, prompt: int = SERVE_PROMPT,
                gen: int = SERVE_GEN, frames: int = SERVE_FRAMES,
-               device: str = "cuda"):
+               device: str = "cuda", M: int = 1):
     """One architecture through ``repro_torch.launch.serve``: random f32
     weights from a seeded generator on the card, a random prompt batch
     (and vision tokens / encoder frames), ``prefill`` timed (after one
@@ -2681,7 +2748,16 @@ def serve_arch(torch, configs, TR, serve, arch: str, overrides: dict, *,
     generated sequence at the same positions, within SERVE_TOL x
     max|logits|; every generated id in [0, padded vocab).  Then a
     ``torch.profiler`` window of SERVE_PROFILE_STEPS decode steps after a
-    fresh prefill, and a decode step's bytes bound (``decode_bytes``)."""
+    fresh prefill, and a decode step's bytes bound (``decode_bytes``).
+    ``M`` > 1 (phase 18 (b)): the node split over M model ranks
+    (``StackedTP(M)``), the same weights cut into rank-rows through
+    ``serve.prefill(tp=)`` and ``serve.generate(tp=)``, each token taken
+    from the logits gathered over the ranks and held to the whole node's
+    teacher-forced forward; RWKV-6's token-shift caches bit-equal over the
+    ranks after a prefill and ``gen`` - 1 decode steps; no profile."""
+    from repro_torch import tree
+    from repro_torch.models import sharding
+    from repro_torch.models.tp import NO_TP, StackedTP
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2702,21 +2778,41 @@ def serve_arch(torch, configs, TR, serve, arch: str, overrides: dict, *,
     if cfg.family == "encdec":
         extras["frames"] = torch.randn((batch, frames, cfg.d_model),
                                        generator=g, device=device)
+    sp = TR.stack_nodes(params)
+    tp, run, run_params = NO_TP, sp, params   # what prefill, generate take
+    if M > 1:
+        tp = StackedTP(M)
+        leaves, treedef = tree.flatten(sp)
+        specs = tree.leaves(sharding.param_specs(TR.abstract_params(cfg)))
+        run = run_params = tree.unflatten(treedef, tp.cut(leaves, specs))
+        del leaves
     sync()
     setup_s = time.perf_counter() - t0
-    sp = TR.stack_nodes(params)
-    serve.prefill(cfg, sp, toks, prompt + gen, extras)        # warm-up
+    serve.prefill(cfg, run, toks, prompt + gen, extras, tp)   # warm-up
     sync()
     t0 = time.perf_counter()
-    serve.prefill(cfg, sp, toks, prompt + gen, extras)
+    serve.prefill(cfg, run, toks, prompt + gen, extras, tp)
     sync()
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out, logits = serve.generate(cfg, params, toks, gen, extras,
-                                 return_logits=True)
+    out, logits = serve.generate(cfg, run_params, toks, gen, extras,
+                                 return_logits=True, tp=tp)
     sync()
     gen_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    shifts = None
+    if M > 1 and cfg.family == "ssm":
+        _, cache = serve.prefill(cfg, run, toks, prompt + gen, extras, tp)
+        with torch.no_grad():
+            for i in range(gen - 1):
+                nxt = tp.node_rows(out[None, :, prompt + i:prompt + i + 1])
+                _, cache = TR.decode_step(cfg, run, cache, nxt, prompt + i,
+                                          tp=tp)
+        shifts = shifts_bit_equal(torch, tree, cache, M)
+        require(shifts, f"{arch} at M = {M}: the token-shift caches differ "
+                f"over a node's ranks")
+        del cache
+    del run, run_params
     with torch.no_grad():
         full = TR.forward(cfg, sp, {"tokens": out[None], **{
             k: v[None] for k, v in extras.items()}})[0][0]
@@ -2725,15 +2821,17 @@ def serve_arch(torch, configs, TR, serve, arch: str, overrides: dict, *,
     scale = float(want.abs().max())
     err = float((logits - want).abs().max())
     require(math.isfinite(err) and err <= SERVE_TOL * scale,
-            f"{arch}: decode logits vs teacher-forced: max |diff| {err} > "
-            f"{SERVE_TOL} x {scale}")
+            f"{arch} at M = {M}: decode logits vs the whole node's "
+            f"teacher-forced forward: max |diff| {err} > {SERVE_TOL} x "
+            f"{scale}")
     new = out[:, prompt:]
     require(out.shape == (batch, prompt + gen) and int(new.min()) >= 0
             and int(new.max()) < cfg.padded_vocab,
-            f"{arch}: generated ids out of [0, {cfg.padded_vocab})")
+            f"{arch} at M = {M}: generated ids out of [0, "
+            f"{cfg.padded_vocab})")
     decode_ms = 1e3 * (gen_s - prefill_s) / (gen - 1)
     profile = bound = None
-    if on_card:
+    if on_card and M == 1:
         last, cache = serve.prefill(cfg, sp, toks, prompt + gen, extras)
         bound = bound_ms(decode_bytes(TR, cfg, cache, batch), 0)[0]
         profile = profile_decode(torch, TR, cfg, sp, cache, last.argmax(-1),
@@ -2752,7 +2850,10 @@ def serve_arch(torch, configs, TR, serve, arch: str, overrides: dict, *,
            "setup_s": setup_s, "prefill_ms": 1e3 * prefill_s,
            "generate_ms": 1e3 * gen_s, "decode_ms_per_step": decode_ms,
            "tokens_per_s": batch * gen / gen_s, "peak_mem_gb": peak,
-           "decode_bound_ms": bound, "decode_profile": profile}
+           "decode_bound_ms": bound, "decode_profile": profile, "M": M,
+           "kv_heads_per_rank": (None if cfg.family == "ssm"
+                                 else TR.kv_heads_per_rank(cfg, M)),
+           "shift_caches_bit_equal": shifts}
     del params, sp, logits, want, out, extras
     if on_card:
         torch.cuda.empty_cache()
@@ -3125,7 +3226,7 @@ TP_TF_STEPS = 2          # teacher-forced steps of (a) and (b)
 TP_STEP_TOL = 1e-5       # C4's step bar: within this x max|X| ...
 TP_STEP_MAX_OFF = 1e-3   # ... on all but this fraction of each array
 TP_CHECK_ROWS = 1 << 20  # B3's plain version checked this many rows a time
-TP_FAMILIES = ("dense", "moe", "vlm", "encdec")
+TP_TF_CARD_SHARE = 0.8   # teacher-forced states stay on the card below this
 
 
 def tp_spec(api, mesh, steps: int = SLICE_STEPS, spec=None):
@@ -3181,18 +3282,21 @@ def checked_wire_kernels(torch, qk, ref, errs, what: str):
 
 def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
                       M: int, steps: int = TP_TF_STEPS,
-                      device: str = "cuda"):
+                      device: str = "cuda", elem_tol: float = TP_STEP_TOL):
     """Phase 17 (a)/(b), teacher-forced: ``steps`` steps of ``spec`` as a
     tensor-parallel node (``StackedTP(M)``), each from the whole-node
     run's state (cut into rank-rows) and with its draws (two generators
     seeded alike and called alike), against the whole-node step of phase
-    15's program: X, D, H and Hw within TP_STEP_TOL of each array's
-    largest entry on all but TP_STEP_MAX_OFF of its elements (C4's bar),
+    15's program: X, D, H and Hw within ``elem_tol`` (TP_STEP_TOL) of each
+    array's largest entry on all but TP_STEP_MAX_OFF of its elements (C4's
+    bar; RWKV-6's is SSM_REPLAY_ELEM_TOL),
     the node loss within 1e-5 relative.  Every B3 and B4 launch of the
     first TP step is held to its plain version on the same operands
-    (:func:`checked_wire_kernels`), once per bucket group.  The state
-    not in use waits on the host, so the card holds one state and one
-    step at a time."""
+    (:func:`checked_wire_kernels`), once per bucket group.  Where three
+    states fit TP_TF_CARD_SHARE of the card (the whole node's, the split
+    node's and a step's activations, about one state's) both states stay
+    on the card; otherwise the state not in use waits on the host, so the
+    card holds one state and one step at a time."""
     from repro_torch.core.comm import CommState
     from repro_torch.core.prox_lead import ProxLEADState
     from repro_torch.models.tp import StackedTP
@@ -3217,18 +3321,47 @@ def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
 
     sw = whole.init_state()
     treedef = tree.flatten(sw.plead.X)[1]
+    state_bytes = sum(nbytes(*tree.leaves(t)) for t in parts(sw))
+    on_card = device == "cuda" and 3 * state_bytes <= TP_TF_CARD_SHARE * \
+        torch.cuda.get_device_properties(0).total_memory
+    park = (lambda x: x) if on_card else (lambda x: x.cpu())  # noqa: E731
+
+    def held_to_whole(tp_parts, w_host, k):
+        """The TP step's (X, D, H, Hw) joined and held to the whole node's
+        (on the host) -> (the whole trees on the card, worst off
+        fraction, worst |diff| / max); nothing else stays on the card."""
+        back, worst_off, worst_rel = [], 0.0, 0.0
+        for t_tp, t_w, lead, name in zip(tp_parts, w_host, leads,
+                                         ("X", "D", "H", "Hw")):
+            leaves = []
+            for j, (g, wh) in enumerate(zip(tree.leaves(t_tp),
+                                            tree.leaves(t_w))):
+                w = wh.to(device)
+                diff = (tr.tp.join([g], [tr.leaf_specs[j]], lead)[0]
+                        - w).abs()
+                scale = max(float(w.abs().max()), 1e-30)
+                off = float((diff > elem_tol * scale).float().mean())
+                worst_off = max(worst_off, off)
+                worst_rel = max(worst_rel, float(diff.max()) / scale)
+                require(off <= TP_STEP_MAX_OFF, f"{spec.name} step {k}: "
+                        f"{name} leaf {j} off on {off:.2e} of its elements")
+                leaves.append(w)
+                del diff
+            back.append(tree.unflatten(treedef, leaves))
+        return back, worst_off, worst_rel
+
     worst_off = worst_rel = 0.0
     losses, checked, t0 = [], [], time.perf_counter()
     for k in range(steps):
         meta = (sw.plead.oracle, sw.plead.k, sw.step)
         tp_host = [tree.unflatten(treedef, [
-            tr.tp.cut([x], [sp], lead)[0].cpu()
+            park(tr.tp.cut([x], [sp], lead)[0])
             for x, sp in zip(tree.leaves(t), tr.leaf_specs)])
             for t, lead in zip(parts(sw), leads)]
         batch = data.batch_at(k)
         sw, mw = whole.step(sw, batch, dw)
         w_meta = (sw.plead.oracle, sw.plead.k, sw.step)
-        w_host = [tree.tree_map(lambda x: x.cpu(), t) for t in parts(sw)]
+        w_host = [tree.tree_map(park, t) for t in parts(sw)]
         del sw
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -3248,31 +3381,16 @@ def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
         require(abs(lt - lw) <= 1e-5 * abs(lw), f"{spec.name} step {k}: "
                 f"TP loss {lt} vs whole-node {lw}")
         losses.append([lw, lt])
-        back = []                     # the whole state returns to the card
-        for t_tp, t_w, lead, name in zip(parts(st), w_host, leads,
-                                         ("X", "D", "H", "Hw")):
-            leaves = []
-            for j, (g, wh) in enumerate(zip(tree.leaves(t_tp),
-                                            tree.leaves(t_w))):
-                w = wh.to(device)
-                diff = (tr.tp.join([g], [tr.leaf_specs[j]], lead)[0]
-                        - w).abs()
-                scale = max(float(w.abs().max()), 1e-30)
-                off = float((diff > TP_STEP_TOL * scale).float().mean())
-                worst_off = max(worst_off, off)
-                worst_rel = max(worst_rel, float(diff.max()) / scale)
-                require(off <= TP_STEP_MAX_OFF, f"{spec.name} step {k}: "
-                        f"{name} leaf {j} off on {off:.2e} of its elements")
-                leaves.append(w)
-                del diff
-            back.append(tree.unflatten(treedef, leaves))
+        back, off, rel = held_to_whole(parts(st), w_host, k)
+        worst_off, worst_rel = max(worst_off, off), max(worst_rel, rel)
         del st, w_host
-        sw = state_of(back, w_meta)
+        sw = state_of(back, w_meta)   # the whole state returns to the card
+        del back
     del sw
     return {"spec": spec.name, "M": M, "steps": steps, "losses": losses,
             "worst_off_fraction": worst_off, "worst_rel_max": worst_rel,
             "wire_checked": checked, "bucket_groups": groups,
-            "seconds": time.perf_counter() - t0}
+            "states_on_card": on_card, "seconds": time.perf_counter() - t0}
 
 
 def tp_phase(torch, api, draws_mod, tree, qk, ref, errs, spec, M: int, *,
@@ -3304,29 +3422,25 @@ def tp_phase(torch, api, draws_mod, tree, qk, ref, errs, spec, M: int, *,
     return out
 
 
-def tp_sweep_jobs(archs):
-    """(arch, shape or "all", multi_pod) of phase 17 (d): the dense, moe,
-    vlm and encdec architectures, every shape on (16, 16) (``train_4k``
-    and ``prefill_32k`` run; decode and ``long_500k`` are skipped) and
-    ``train_4k`` on (2, 16, 16)."""
-    from repro_torch import configs
-    return [job for a in archs if configs.get(a).family in TP_FAMILIES
-            for job in ((a, "all", False), (a, "train_4k", True))]
-
-
 def tp_dry_line(r) -> str:
     """One combo of the TP sweep: per-rank peak, fits, the rank's state
-    bytes beside ``state_bytes_per_model_shard``, the TP bytes a step,
-    the roofline terms."""
+    bytes beside ``state_bytes_per_model_shard`` (a train step) or its
+    cache bytes beside the whole node's / M (a decode step), the TP bytes
+    a step, the roofline terms."""
     head = f"[tp] (17d) {r['arch']} x {r['shape']} x {r['mesh']}: "
     if r["status"] != "ok":
         return head + f"{r['status']} ({r.get('reason') or r.get('error')})"
     m, rl = r["memory"], r["roofline"]
     state = r.get("state_bytes_per_rank")
+    cache = r.get("cache_bytes_per_rank")
     return (head + f"ok, rank (0, 0) of {r['cards']}, peak "
             f"{m['peak_bytes'] / 2 ** 30:.2f} GiB/card, fits {m['fits']}, "
             + (f"state {state:,} B/rank = {r['state_bytes_per_model_shard']:,}"
                f" B/model shard, " if state is not None else "")
+            + (f"cache {cache:,} B/rank (whole node "
+               f"{r['cache_bytes_whole_node']:,} B, / M "
+               f"{r['cache_bytes_even_split']:,} B), " if cache is not None
+               else "")
             + f"TP {r['tp_bytes']:,.0f} B/step "
             f"{ {k: int(v) for k, v in r['tp_breakdown'].items()} }, "
             f"t_compute {rl['t_compute_s']:.4g} s, t_memory "
@@ -3410,8 +3524,7 @@ def tp_node_phase(torch, api, configs, draws_mod, tree, qk, ref, errs, smi,
           f"{smi}", flush=True)
     torch.cuda.empty_cache()
     from repro_torch.configs import shapes as shp17
-    from repro_torch.launch import dryrun as dry17
-    jobs17 = tp_sweep_jobs(configs.ARCH_IDS)
+    jobs17 = dry_sweep_jobs(configs.ARCH_IDS)
     recs17, sweep17 = dry_sweep(out_dir=OUT_DIR / "dryrun_torch_tp",
                                 jobs=jobs17, placement="tp")
     for r in recs17:
@@ -3421,8 +3534,7 @@ def tp_node_phase(torch, api, configs, draws_mod, tree, qk, ref, errs, smi,
         for s_ in (shp17.SHAPES if shape_ == "all" else (shape_,)):
             cfg_, sh_ = configs.get(a), shp17.SHAPES[s_]
             want17[(a, s_, "2pod" if mp_ else "1pod")] = (
-                "ok" if shp17.applicable(cfg_, sh_) is None
-                and dry17.tp_skip(cfg_, sh_) is None else "skipped")
+                "ok" if shp17.applicable(cfg_, sh_) is None else "skipped")
     got17 = {(r["arch"], r["shape"], r["mesh"]): r["status"]
              for r in recs17}
     require(got17 == want17, f"TP dry-run sweep: got {got17}, want "
@@ -3436,11 +3548,173 @@ def tp_node_phase(torch, api, configs, draws_mod, tree, qk, ref, errs, smi,
     p17.update(sweep=recs17, sweep_s=sweep17,
                seconds=time.perf_counter() - t0)
     print(f"[tp] (17d) {len(recs17)} combos: {st17.count('ok')} ok, "
-          f"{st17.count('skipped')} skipped, 0 errors, in {sweep17:.1f} "
-          f"s ({len(jobs17)} processes); phase {p17['seconds']:.1f} s; "
+          f"{st17.count('skipped')} skipped (the reference's skips), 0 "
+          f"errors, in {sweep17:.1f} s ({len(jobs17)} processes; "
+          f"{', '.join(DRY_LOOPED)} x train_4k, prefill_32k by the CLI "
+          f"only); phase {p17['seconds']:.1f} s; "
           f"DistTP across processes not run here: one card, and NCCL "
           f"refuses two ranks on one device | {smi}", flush=True)
     return p17
+
+
+# --- phase 18 ------------------------------------------------------------------
+
+#: (arch, overrides of the published configuration: the depth cut and the
+#: vocabulary's first eighth, N): phase 18 (a)'s recurrent trainers on the
+#: mesh (N, 2).  N is the largest of 8, 4, 2 whose whole-node (N, 2) step
+#: peaks under FAMILY_PEAK_GB by ``repro_torch.launch.dryrun`` (placement
+#: "one process", on the CPU): rwkv6-7b 75.9 GiB at 8, 38.0 at 4;
+#: recurrentgemma-9b 112.1 at 4, 54.4 at 2
+TP_RECURRENT = (("rwkv6-7b", {"n_layers": 1, "vocab": 8192}, 4),
+                ("recurrentgemma-9b", {"n_layers": 3, "vocab": 32000}, 2))
+TP_RECURRENT_SEQ = 512
+TP_WHOLE_STEPS = 2 * LOSS_WINDOW   # the whole node's steps beside the split
+TP_SERVE_M = 2               # phase 11's architectures at M = 2, then ...
+#: ... (arch, overrides, M) whose ranks cut heads: recurrentgemma's one KV
+#: head in 16 (one query head a rank), whisper's 20 heads in 8 (2.5 a rank)
+TP_SERVE_CUT = (("recurrentgemma-9b", {"n_layers": 3}, 16),
+                ("whisper-large-v3", {}, 8))
+
+
+def recurrent_tp_trainer(torch, api, draws_mod, tree, TR, qk, ref, errs,
+                         spec, *, device: str = "cuda",
+                         steps: int = SLICE_STEPS,
+                         whole_steps: int = TP_WHOLE_STEPS,
+                         profile_steps: int = SLICE_PROFILE_STEPS,
+                         tf_steps: int = TP_TF_STEPS):
+    """Phase 18 (a), one family: ``tf_steps`` steps of ``spec`` under
+    ``StackedTP(2)`` teacher-forced against the whole-node (N, 2) step
+    (:func:`tp_teacher_forced`: C4's bar, RWKV-6's SSM_REPLAY_ELEM_TOL;
+    every B3 and B4 launch of the first bit-equal to its plain version),
+    then ``whole_steps`` free steps of the whole node (its median step and
+    peak, under FAMILY_PEAK_GB) and ``steps`` of the split node
+    (:func:`trainer_path`: the loss falls and stays finite, B3/B4 once per
+    bucket group a step, ``bits_per_step`` = the ring's hops (one on a
+    ring of two) x the host recount; the split node's ``[contracts]`` and
+    ``[roofline]`` lines)."""
+    from repro_torch.models.tp import StackedTP
+    full = spec.model.full
+    hops = 1 if spec.n_nodes == 2 else 2      # a ring of two: one neighbour
+    tr = api.build(spec, device="cpu").trainer
+    bph = host_bits_per_hop(tr, tree, TR)
+    del tr
+    tol = (SSM_REPLAY_ELEM_TOL if spec.model.arch == "rwkv6-7b"
+           else TP_STEP_TOL)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tf = tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
+                           2, steps=tf_steps, device=device, elem_tol=tol)
+    out = {"spec": spec.name, "mesh": list(spec.execution.mesh),
+           "hops": hops, "host_bits_per_hop": bph, "elem_tol": tol,
+           "teacher_forced": tf}
+    for key, tp, n, prof in (("whole", None, whole_steps, 0),
+                             ("tp", StackedTP(2), steps, profile_steps)):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out[key] = trainer_path(
+            torch, api, draws_mod, qk, steps=n, spec=spec, device=device,
+            profile_steps=prof, hops=hops, bits_per_hop=bph, tp=tp,
+            trace_name=f"tp_{spec.model.arch}_trace.json",
+            peak_limit_gb=(FAMILY_PEAK_GB if device == "cuda" and tp is None
+                           and full else None), audit=tp is not None)
+    # RWKV-6's trace (~20,000 device ops a step) outgrows what a chip
+    # call brings back; its numbers are in the result
+    (OUT_DIR / f"tp_{spec.model.arch}_trace.json").unlink(missing_ok=True)
+    return out
+
+
+def tp_recurrent_phase(torch, api, configs, draws_mod, tree, TR, serve, qk,
+                       ref, errs, smi, sv=None, device: str = "cuda",
+                       trainers=TP_RECURRENT, serve_cases=None,
+                       full: bool = True, seq_len: int = TP_RECURRENT_SEQ,
+                       steps: int = SLICE_STEPS,
+                       profile_steps: int = SLICE_PROFILE_STEPS,
+                       tf_steps: int = TP_TF_STEPS,
+                       frames: int = SERVE_FRAMES):
+    """Phase 18 (a) and (b) (see the module docstring); ``sv``: phase 11's
+    result, for the whole node's serving numbers beside (b)'s;
+    ``serve_cases`` (arch, overrides, M), default phase 11's at
+    TP_SERVE_M and TP_SERVE_CUT; ``full``, ``seq_len``, ``steps``,
+    ``profile_steps``, ``tf_steps`` and ``frames`` cut a rehearsal on the
+    CPU.  -> the phase's results."""
+    t0 = time.perf_counter()
+    p18 = {"trainers": [], "serve": []}
+    for arch, ov, n in trainers:
+        spec = tp_spec(api, (n, 2), spec=family_spec(
+            api, arch, steps, full=full, params=ov, seq_len=seq_len,
+            name=f"{arch}-{ov['n_layers']}L-vocab8-qinf2"))
+        r = recurrent_tp_trainer(torch, api, draws_mod, tree, TR, qk, ref,
+                                 errs, spec, device=device, steps=steps,
+                                 profile_steps=profile_steps,
+                                 tf_steps=tf_steps)
+        p18["trainers"].append(r)
+        tf, w, t = r["teacher_forced"], r["whole"], r["tp"]
+        print(f"[tp18] (18a) {r['spec']} under StackedTP(2): {tf['steps']} "
+              f"steps teacher-forced against the whole-node {r['mesh']} "
+              f"step (element bar {r['elem_tol']:g} x max): worst off "
+              f"fraction {tf['worst_off_fraction']:.2e}, worst |diff|/max "
+              f"{tf['worst_rel_max']:.2e}, losses (whole, TP) "
+              f"{tf['losses']}; {len(tf['wire_checked'])} B3/B4 launches "
+              f"bit-equal to the plain versions "
+              f"{[s_ for _, s_ in tf['wire_checked']]}; "
+              f"{tf['seconds']:.1f} s", flush=True)
+        for key, x in (("whole", w), ("TP", t)):
+            rl = x["roofline"] or {"tp_bytes": 0, "tp_breakdown": {}}
+            print(f"[tp18] (18a) {key}: {x['steps']} steps, loss (mean of "
+                  f"{LOSS_WINDOW}) {x['loss_first_window']:.6f} -> "
+                  f"{x['loss_last_window']:.6f}, held out "
+                  f"{x['held_out_loss'][0]:.6f} -> "
+                  f"{x['held_out_loss'][1]:.6f}; launches {x['launches']} "
+                  f"({x['bucket_groups']} bucket groups); "
+                  f"{x['bits_per_step']:.0f} bits/step/node = {r['hops']} "
+                  f"hop(s) x {r['host_bits_per_hop']:,} (host count); step "
+                  f"{x['step_ms_median']:.1f} ms median "
+                  f"({x['step_ms_min']:.1f} min), peak "
+                  f"{x['peak_mem_gb']:.2f} GiB; TP "
+                  f"{rl['tp_bytes']:,.0f} B a rank-row a step "
+                  f"{ {k_: int(v) for k_, v in rl['tp_breakdown'].items()} }"
+                  f" | {smi}", flush=True)
+            if x["profile"]:
+                pf = x["profile"]
+                print(f"[tp18] (18a) profile: {pf['wall_ms_per_step']:.1f} "
+                      f"ms/step wall, {pf['device_ms_per_step']:.1f} ms/step "
+                      f"on the device (busy {pf['busy_share']:.1%}), "
+                      f"{pf['device_ops_per_step']:.0f} device ops/step",
+                      flush=True)
+                print_wire_share("[tp18]", pf)
+            if x["contracts"] is not None:
+                print_contracts_and_roofline(f"(18a {key})", x, smi)
+    if serve_cases is None:
+        serve_cases = [(a, ov, TP_SERVE_M) for a, ov in SERVE_CASES] + list(
+            TP_SERVE_CUT)
+    whole_by_arch = {r["arch"]: r for r in (sv or {}).get("archs", [])}
+    for arch, ov, M in serve_cases:
+        r = serve_arch(torch, configs, TR, serve, arch, ov, device=device,
+                       frames=frames, M=M)
+        p18["serve"].append(r)
+        w = whole_by_arch.get(arch)
+        versus = (f" (phase 11, whole node: prefill {w['prefill_ms']:.2f} "
+                  f"ms, decode {w['decode_ms_per_step']:.2f} ms/step, "
+                  f"{w['tokens_per_s']:.1f} tok/s, peak "
+                  f"{w['peak_mem_gb']:.2f} GiB)" if w and w["overrides"] == ov
+                  else "")
+        kv = ("" if r["kv_heads_per_rank"] is None else
+              f", {r['kv_heads_per_rank']} KV head(s) a rank")
+        print(f"[tp18] (18b) {arch} {ov or 'published depth'} under "
+              f"StackedTP({M}){kv}: "
+              f"batch {r['batch']}, prompt {r['prompt']}, gen {r['gen']}: "
+              f"prefill {r['prefill_ms']:.2f} ms, decode "
+              f"{r['decode_ms_per_step']:.2f} ms/step, "
+              f"{r['tokens_per_s']:.1f} tok/s, peak {r['peak_mem_gb']:.2f} "
+              f"GiB{versus}; logits vs the whole node's teacher-forced "
+              f"max |diff| {r['max_abs_diff']:.3e} of max |logit| "
+              f"{r['max_abs_logit']:.3e}"
+              + ("; token-shift caches bit-equal over the ranks"
+                 if r["shift_caches_bit_equal"] else "") + f" | {smi}",
+              flush=True)
+    p18["seconds"] = time.perf_counter() - t0
+    print(f"[tp18] phase 18 {p18['seconds']:.1f} s | {smi}", flush=True)
+    return p18
 
 
 # --- phase 12 ------------------------------------------------------------------
@@ -3482,17 +3756,21 @@ def host_bits_per_hop(tr, tree, TR) -> int:
     """The bits a node sends a neighbour per hop, recounted on the host
     from the parameter shapes: per leaf, rows x packed bytes per row plus
     a 4-byte scale a row (block = the configured one, capped at an even
-    narrower last dim)."""
+    narrower last dim); on a model-sharded wire of M shards, M x the bits
+    of each leaf's model-local slice (every shard moves a replicated leaf
+    whole)."""
     import numpy as np
-    bits, block = tr.tcfg.bits, tr.tcfg.block
+    from repro_torch.models import sharding
+    bits, block, M = tr.tcfg.bits, tr.tcfg.block, tr.wire_shards
     total = 0
-    for p in tree.leaves(TR.abstract_params(tr.mcfg)):
-        shape = tuple(p.shape) or (1,)
+    for p, sp in zip(tree.leaves(TR.abstract_params(tr.mcfg)),
+                     tr.leaf_specs):
+        shape = sharding.model_local_shape(tuple(p.shape), sp, M) or (1,)
         last = shape[-1]
         b = last if last % 2 == 0 and last < block else block
         rows = int(np.prod(shape[:-1], dtype=np.int64)) * -(-last // b)
         width = b // 2 if bits + 1 <= 4 else b
-        total += rows * (width + 4)
+        total += M * rows * (width + 4)
     return 8 * total
 
 
@@ -3680,6 +3958,7 @@ def main() -> int:
                 f"the row kernel and 7 vector instances")
         require(all(r["spill_bytes"] == 0 for r in b3_kernels),
                 f"a B3 instance spills: {b3_kernels}")
+        warm_profiler(torch)
 
         # 3. kernels against their plain versions
         errs = {k: 0.0 for k in qk.LAUNCHES}
@@ -4201,6 +4480,13 @@ def main() -> int:
                             errs, smi, ms_)
         result["tp"] = p17
 
+        # 18. RWKV-6 and the RG-LRU on a tensor-parallel node; serving at
+        # M > 1
+        torch.cuda.empty_cache()
+        p18 = tp_recurrent_phase(torch, api, configs, draws_mod, tree, TR,
+                                 serve, qk, ref, errs, smi, sv)
+        result["tp_recurrent"] = p18
+
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4252,6 +4538,9 @@ def main() -> int:
                 gm["card_vs_cpu"]["launches"][name_]
             extra["tp_8x2_launches"] = p17["a"]["launches"][name_]
             extra["tp_2x16_launches"] = p17["b"]["launches"][name_]
+            extra["tp_recurrent_launches"] = {
+                r["tp"]["spec"]: r["tp"]["launches"][name_]
+                for r in p18["trainers"]}
         kernels.append({
             "name": name_, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + src,

@@ -1088,7 +1088,9 @@ def build_trainer_runner(spec: ExperimentSpec, *, device,
     a node's M model ranks in this process; default ``DistTP`` over a
     TPProcessMesh, else a node's products run whole).  The spec's mesh
     sets the model shards of the bucketed wire and the tp seam's M.  At M
-    > 1 the rwkv6 and hybrid families are refused here, at build."""
+    > 1 every family builds (RWKV-6 where M divides its heads); the dense
+    backend, the per-leaf wire and identity compression are refused
+    here, at build."""
     if model_cfg is None:
         if spec.model is None:
             raise ValueError(

@@ -304,7 +304,7 @@ def audit_tp_spec(spec, device="cpu") -> List[GateFinding]:
     """The contract findings of a sharded neighbor spec's (4, 2) variant
     as a tensor-parallel node (``StackedTP(2)``), named ``<variant>/tp``;
     none for a spec that does not run tensor-parallel (another backend,
-    wire or compressor; the ssm and hybrid families)."""
+    wire or compressor)."""
     from repro_torch import api, tree
     from repro_torch.models.tp import StackedTP
     from repro_torch.obs.record import RecordingPP
@@ -314,8 +314,7 @@ def audit_tp_spec(spec, device="cpu") -> List[GateFinding]:
     if (ex.engine != "sharded"
             or ex.backend not in ("neighbor", "ring")
             or ex.wire_mode != "bucketed" or spec.compressor.name != "qinf"
-            or spec.model is None
-            or spec.model.build().family in ("ssm", "hybrid")):
+            or spec.model is None):
         return []
     variant = mesh_variants(spec)[1]
     variant = dataclasses.replace(variant, name=variant.name + "/tp")

@@ -240,3 +240,76 @@ def cache_to_numpy(cache):
                              f"reference layout; want a stack of one")
         return t[0].detach().cpu().numpy()
     return tree_map(one, cache)
+
+
+def _cache_cut(cfg, name: str, model: int):
+    """How a whole node's cache leaf ``name`` splits over ``model`` ranks:
+    (its dim, an (M, k) index of the entries each rank holds), or None for
+    a leaf every rank holds whole (RWKV-6's token shifts).  KV heads as
+    ``transformer._head_plan`` reads them, RWKV-6's wkv state by heads,
+    the RG-LRU's ``h`` and ``conv`` by columns."""
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.tp import StackedTP
+    M = model
+    if name in ("k", "v"):
+        KV = cfg.n_kv_heads
+        kv = TR._head_plan(cfg, StackedTP(M), M, "cpu")[1]
+        return -2, (torch.arange(KV).view(M, KV // M) if kv is None else kv)
+    if name == "wkv":
+        H = cfg.d_model // cfg.rwkv_head_size
+        return -3, torch.arange(H).view(M, H // M)
+    if name in ("h", "conv"):
+        W = cfg.lru_width or cfg.d_model
+        return -1, torch.arange(W).view(M, W // M)
+    return None
+
+
+def cache_to_rank_rows(cache, cfg, model: int, *, device=None,
+                       dtype: torch.dtype = None):
+    """A whole node's decode cache -> the rank-rows of ``StackedTP(model)``
+    (``transformer.init_cache(..., tp=)``'s layout): the port's M = 1 cache
+    (node-stacked torch tensors (n, ...)), or the reference's (a tree of
+    numpy arrays without the node dim, one node; carried with
+    :func:`cache_to_torch` onto ``device`` in ``dtype``).  Row ``n M + m``
+    holds rank m's KV heads, wkv heads and RG-LRU columns of node n and
+    the token shifts whole.  Always a copy."""
+    from repro_torch import tree
+    leaves = tree.leaves(cache)
+    if leaves and isinstance(leaves[0], np.ndarray):
+        cache = cache_to_torch(cache, device=device, dtype=dtype)
+    out = []
+    paths = tree.flatten_with_paths(cache)
+    for path, x in paths:
+        cut = _cache_cut(cfg, path.rsplit("/", 1)[-1], model)
+        if cut is None:
+            out.append(x.repeat_interleave(model, 0))
+            continue
+        dim, idx = cut
+        idx = idx.to(x.device)
+        out.append(torch.stack([x.index_select(x.dim() + dim, idx[m])
+                                for m in range(model)], 1).flatten(0, 1))
+    return tree.unflatten(tree.flatten(cache)[1], out)
+
+
+def cache_from_rank_rows(rows, cfg, model: int):
+    """Inverse of :func:`cache_to_rank_rows`: ``StackedTP(model)``'s
+    rank-row cache -> the whole node's (n, ...), each entry from a rank
+    that holds it (a KV head some ranks share: the last of them), a token
+    shift from model rank 0."""
+    from repro_torch import tree
+    out = []
+    for path, x in tree.flatten_with_paths(rows):
+        v = x.unflatten(0, (x.shape[0] // model, model))
+        cut = _cache_cut(cfg, path.rsplit("/", 1)[-1], model)
+        if cut is None:
+            out.append(v[:, 0].clone())
+            continue
+        dim, idx = cut
+        shape = list(v[:, 0].shape)
+        d = len(shape) + dim
+        shape[d] = int(idx.max()) + 1
+        whole = x.new_empty(shape)
+        for m in range(model):
+            whole.index_copy_(d, idx[m].to(x.device), v[:, m])
+        out.append(whole)
+    return tree.unflatten(tree.flatten(rows)[1], out)

@@ -49,10 +49,17 @@ batch.  The record adds the bytes the rank hands the model axis's
 collectives over the step (``tp_bytes``, by kind in ``tp_breakdown``:
 :class:`repro_torch.obs.record.RecordingTP`), the rank's own state bytes
 (``state_bytes_per_rank``, to hold against ``state_bytes_per_model_shard``)
-and ``"cards"`` N x M.  Prefill runs the same way (``forward`` at one
-model shard, the last position's logits gathered over the ranks); decode
-and the ssm and hybrid families are not tensor-parallel yet and are
-skipped with the ROADMAP item that names them.  ``"tp one process"``
+and ``"cards"`` N x M.  Prefill and decode run the same way (``forward``
+or ``decode_step`` at one model shard, the last position's logits
+gathered over the ranks), decode on rank (0, 0)'s cache
+(``transformer.init_cache`` with the seam: the KV heads its query heads
+read, RWKV-6's wkv state of its heads, the RG-LRU's W / M columns); a
+decode record adds ``cache_bytes_per_rank`` beside
+``cache_bytes_whole_node`` and ``cache_bytes_even_split`` (the whole
+node's / M, the reference's split of every cache leaf's last dim), which
+a rank exceeds where its query heads read more than KV / M heads.
+Every family and shape that ``configs.shapes.applicable`` admits runs.
+``"tp one process"``
 runs all N x M rank-rows in one process (``StackedTP``), the program a
 card runs for a tensor-parallel node.
 
@@ -321,21 +328,22 @@ def _serve_batch_rows(B: int, n_nodes: int) -> int:
     return B // n_nodes if B % n_nodes == 0 else B
 
 
+def _cache_bytes(cache) -> int:
+    return sum(x.numel() * x.element_size() for x in tree.leaves(cache))
+
+
 def dry_serve(cfg, shape, mesh, placement: Optional[str] = None) -> dict:
     """The serve record of ``cfg`` at ``shape``: one prefill or decode
     step of a rank (whole parameters, its rows of the batch); at
-    ``placement`` ``"tp"`` a prefill of rank (0, 0): one model shard of
-    the parameters, the last position's logits gathered over the model
-    ranks."""
+    ``placement`` ``"tp"`` a step of rank (0, 0): one model shard of the
+    parameters (and of the cache), the last position's logits gathered
+    over the model ranks."""
     N = mesh_mod.n_nodes(mesh)
     params = tree.tree_map(lambda p: _meta((1,) + tuple(p.shape), p.dtype),
                            TR.abstract_params(cfg))
-    M, tp = 1, None
+    M, tp = 1, tp_mod.NO_TP
     if placement == "tp":
         M = sharding.model_axis_size(mesh)
-        if shape.kind != "prefill":
-            raise ValueError("placement 'tp' runs prefill; decode at M > 1 "
-                             "is ROADMAP §A item 3 (f)")
         pm = mesh_mod.TPProcessMesh(mesh, rank=0, world=N * M, groups=False)
         tp = tp_mod.DryDistTP(pm)
         leaves, treedef = tree.flatten(params)
@@ -345,52 +353,48 @@ def dry_serve(cfg, shape, mesh, placement: Optional[str] = None) -> dict:
     B = shape.global_batch
     Bl = _serve_batch_rows(B, N)
     specs = shp.serve_input_specs(cfg, shape)
+    cache_rec = {}
     if shape.kind == "prefill":
         inputs = {k: _meta((1, _serve_batch_rows(s[0], N)) + tuple(s[1:]),
                            dt) for k, (s, dt) in specs.items()}
 
         def step():
-            if tp is not None:
-                logits = TR.forward(cfg, params, inputs, mode="train",
-                                    tp=tp)[0]
-                return tp.gather_last(logits[:, :, -1])
-            logits = TR.forward(cfg, params, inputs, mode="train")[0]
-            return logits[:, :, -1]
+            logits = TR.forward(cfg, params, inputs, mode="train",
+                                tp=tp)[0]
+            return tp.gather_last(logits[:, :, -1])
     else:
-        cache = TR.init_cache(cfg, Bl, shape.seq_len, abstract=True)
+        cache = TR.init_cache(cfg, Bl, shape.seq_len, abstract=True,
+                              tp=tp)
         tokens = _meta((1, Bl, 1), torch.int64)
         inputs = {"cache": cache, "tokens": tokens}
+        whole = _cache_bytes(TR.init_cache(cfg, Bl, shape.seq_len,
+                                           abstract=True))
+        cache_rec = {"cache_bytes_whole_node": whole}
+        if M > 1:
+            cache_rec.update(cache_bytes_per_rank=_cache_bytes(cache),
+                             cache_bytes_even_split=whole // M)
 
         def step():
-            return TR.decode_step(cfg, params, cache, tokens,
-                                  shape.seq_len - 1)
+            logits, new = TR.decode_step(cfg, params, cache, tokens,
+                                         shape.seq_len - 1, tp=tp)
+            return tp.gather_last(logits), new
     cards = (N if Bl < B else 1) * M
     qk.reset_meta_calls()
     with torch.no_grad(), LiveBytes((params, inputs)) as lb:
         counts, result = roofline.count_step(None, step, tp=tp)
-    rec = {"placement": "tp" if tp is not None else (
+    rec = {"placement": "tp" if M > 1 else (
                "ranks" if cards > 1 else "one process"),
            "cards": cards, "batch_rows_per_card": Bl,
            "memory": _memory(lb, result),
            "roofline": roofline.roofline_of(cfg, shape, N, cards,
                                             counts).as_dict(),
            "kernels": {k: {"calls": n}
-                       for k, n in qk.meta_call_counts().items()}}
-    if tp is not None:
+                       for k, n in qk.meta_call_counts().items()},
+           **cache_rec}
+    if M > 1:
         rec.update(tp_bytes=sum(counts.tp.values()), tp_breakdown=counts.tp,
                    model_shards_per_card=1)
     return rec
-
-
-def tp_skip(cfg, shape) -> Optional[str]:
-    """Why placement ``"tp"`` does not run ``cfg`` at ``shape``, or None."""
-    if cfg.family in ("ssm", "hybrid"):
-        return (f"the {cfg.family} family is not tensor-parallel yet "
-                f"(ROADMAP §A item 3 (e))")
-    if shape.kind == "decode":
-        return "decode at M > 1 needs head-sharded caches (ROADMAP §A " \
-               "item 3 (f))"
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -407,8 +411,6 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     cfg = dataclasses.replace(configs.get(arch), dtype=torch.bfloat16)
     shape = shp.SHAPES[shape_name]
     skip = shp.applicable(cfg, shape)
-    if skip is None and placement == "tp":
-        skip = tp_skip(cfg, shape)
     mesh_tag = "2pod" if multi_pod else "1pod"
     variant = tag or (backend if topology == "ring"
                       else f"{backend}-{topology}")

@@ -8,6 +8,10 @@ The port of ``repro.launch.serve``: a reduced configuration of any of the
 ten architectures (``--layers``, ``--d-model``) with random weights from a
 seeded generator, on the card unless ``--device cpu``.  The model code is
 the trainer's node-stacked forward run as a stack of one node.
+:func:`prefill` and :func:`generate` also run one node split over M
+model ranks (a ``tp`` seam, ``repro_torch.models.tp``): rank-row
+parameters and caches, each token the argmax of the logits gathered over
+the ranks, the same on every rank.
 """
 from __future__ import annotations
 
@@ -19,44 +23,55 @@ import torch
 
 from repro_torch import configs
 from repro_torch.models import transformer as TR
+from repro_torch.models.tp import NO_TP
+
+
+def _whole(tp, logits: torch.Tensor) -> torch.Tensor:
+    """A node's rank-row logits (rows, B, Vp / M) -> its whole (B, Vp)."""
+    return tp.first_of_node(tp.gather_last(logits))[0]
 
 
 @torch.no_grad()
 def prefill(cfg: TR.ModelConfig, sparams, prompt_tokens: torch.Tensor,
-            S_max: int, extras: Optional[dict] = None):
+            S_max: int, extras: Optional[dict] = None, tp=NO_TP):
     """Teacher-forced pass over prompt (B, Tp) that fills a cache of S_max
-    positions; ``sparams`` is node-stacked (one node), ``extras`` have no
-    node dim.  -> (logits of the last prompt position (B, Vp), cache)."""
+    positions; ``sparams`` is node-stacked (one node; under a ``tp`` seam
+    its rank-rows), ``extras`` have no node dim.  -> (logits of the last
+    prompt position (B, Vp), gathered over the model ranks; cache)."""
     B = prompt_tokens.shape[0]
-    cache = TR.init_cache(cfg, B, S_max, device=prompt_tokens.device)
+    cache = TR.init_cache(cfg, B, S_max, device=prompt_tokens.device,
+                          tp=tp)
     batch = {"tokens": prompt_tokens, **(extras or {})}
-    logits, cache, _ = TR.forward(cfg, sparams,
-                                  {k: v[None] for k, v in batch.items()},
-                                  mode="prefill", cache=cache)
-    return logits[0, :, -1], cache
+    logits, cache, _ = TR.forward(
+        cfg, sparams, tp.node_rows({k: v[None] for k, v in batch.items()}),
+        mode="prefill", cache=cache, tp=tp)
+    return _whole(tp, logits[:, :, -1]), cache
 
 
 @torch.no_grad()
 def generate(cfg: TR.ModelConfig, params, prompt_tokens: torch.Tensor,
              gen_len: int, extras: Optional[dict] = None, *,
-             return_logits: bool = False):
+             return_logits: bool = False, tp=NO_TP):
     """Greedy decode: prompt (B, Tp) -> (B, Tp + gen_len) tokens.
-    ``params`` is one replica (``init_params``' tree, no node dim);
-    ``extras`` the family's inputs without a node dim (``vision`` (B,
-    n_vision_tokens, D), ``frames`` (B, S_enc, D)).  ``return_logits``
-    also returns the logits each new token was taken from, (gen_len, B,
-    Vp)."""
+    ``params`` is one replica (``init_params``' tree, no node dim), or
+    under a ``tp`` seam of M > 1 the process's rank-rows of one node
+    (``convert.model_params_to_rank_rows``); ``extras`` the family's
+    inputs without a node dim (``vision`` (B, n_vision_tokens, D),
+    ``frames`` (B, S_enc, D)).  Each token is the argmax of the logits
+    gathered over the model ranks.  ``return_logits`` also returns the
+    logits each new token was taken from, (gen_len, B, Vp)."""
     B, Tp = prompt_tokens.shape
-    sparams = TR.stack_nodes(params)
+    sparams = params if tp.M > 1 else TR.stack_nodes(params)
     logits, cache = prefill(cfg, sparams, prompt_tokens, Tp + gen_len,
-                            extras)
+                            extras, tp)
     seen = [logits]
     next_tok = logits.argmax(-1)
     out = [next_tok]
     for i in range(gen_len - 1):
-        logits, cache = TR.decode_step(cfg, sparams, cache,
-                                       next_tok[None, :, None], Tp + i)
-        logits = logits[0]
+        logits, cache = TR.decode_step(
+            cfg, sparams, cache, tp.node_rows(next_tok[None, :, None]),
+            Tp + i, tp=tp)
+        logits = _whole(tp, logits)
         seen.append(logits)
         next_tok = logits.argmax(-1)
         out.append(next_tok)

@@ -15,6 +15,13 @@ code sees a seam object with these operators over the model axis, each a
                   row-parallel product; a row bias is added once, after it.
   gather_last(x)  concatenation of the ranks' last dims forward, the
                   rank's own slice backward.
+  scatter_last(x) the rank's own slice of a replicated tensor's last dim
+                  forward, the concatenation of the ranks' gradients
+                  backward (an all-gather).  How a rank reads its columns
+                  of a replicated per-channel leaf or activation: the
+                  gradient comes back whole and the same on every rank,
+                  cheaper than ``copy_in`` and a slice, whose backward
+                  all-reduces a mostly-zero whole tensor.
   all_max(x)      max forward; no gradient (the loss's detached shift).
   all_sum(x)      sum forward, identity backward (the vocab-parallel
                   loss's sums).
@@ -63,15 +70,19 @@ Implementations:
 
 Every collective is first handed to the seam's ``recorder``, where one is
 set: a callable ``(kind, operand)``, kind ``"all-reduce"`` (a sum),
-``"all-reduce-max"`` or ``"all-gather"`` (``repro_torch.obs.record.
-RecordingTP`` counts a step's bytes so).
+``"all-reduce-max"``, ``"all-gather"`` (``gather_last``'s forward) or
+``"all-gather-grad"`` (``scatter_last``'s backward: the ranks' gradient
+slices joined), so that ``repro_torch.obs.record.RecordingTP`` counts a
+step's bytes by kind.
 
 Each seam also maps between a process's node rows and its rank-rows
-(:meth:`node_rows`, :meth:`first_of_node`) and cuts a node-stacked state
-into rank-rows and back (:meth:`cut`, :meth:`join`).
+(:meth:`node_rows`, :meth:`first_of_node`, ``rows_per_node``: the
+rank-rows a process holds of each of its nodes) and cuts a node-stacked
+state into rank-rows and back (:meth:`cut`, :meth:`join`).
 """
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import numpy as np
@@ -112,6 +123,18 @@ class _GatherLast(torch.autograd.Function):
         return None, ctx.seam._slice_last(g)
 
 
+class _ScatterLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, seam, x):
+        ctx.seam = seam
+        return seam._slice_last(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.seam._collective("all-gather-grad",
+                                          ctx.seam._cat_last, g)
+
+
 class TPSeam:
     """The Megatron operators over the primitives a seam implements:
     ``_sum``, ``_max`` and ``_cat_last`` (collectives over the model
@@ -119,6 +142,8 @@ class TPSeam:
     own columns, local)."""
 
     M: int = 1
+    #: rank-rows a process holds of each of its nodes
+    rows_per_node: int = 1
     #: None, or a callable ``(kind, operand)`` told of each collective
     #: before it runs (the module docstring)
     recorder = None
@@ -136,6 +161,9 @@ class TPSeam:
 
     def gather_last(self, x: torch.Tensor) -> torch.Tensor:
         return _GatherLast.apply(self, x)
+
+    def scatter_last(self, x: torch.Tensor) -> torch.Tensor:
+        return _ScatterLast.apply(self, x)
 
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         return self._collective("all-reduce-max", self._max, x.detach())
@@ -164,6 +192,9 @@ class NoTP(TPSeam):
         return x
 
     def gather_last(self, x):
+        return x
+
+    def scatter_last(self, x):
         return x
 
     def all_max(self, x):
@@ -206,7 +237,7 @@ class StackedTP(TPSeam):
     def __init__(self, model: int) -> None:
         if model < 1:
             raise ValueError(f"StackedTP needs M >= 1, got {model}")
-        self.M = int(model)
+        self.M = self.rows_per_node = int(model)
 
     def _nodes(self, t: torch.Tensor) -> torch.Tensor:
         return t.unflatten(0, (t.shape[0] // self.M, self.M))
@@ -370,13 +401,20 @@ def head_geometry(n_heads: int, head_dim: int, model: int):
     return False, max(b - a for a, b in zip(h0, h1)), h0
 
 
-def refuse_family(family: str, model: int, what: str = "") -> None:
-    """RWKV-6 and RG-LRU do not run tensor-parallel yet: refused at M >
-    1, never run whole behind the seam's back."""
-    if model > 1 and family in ("ssm", "hybrid"):
-        raise ValueError(
-            f"{what or 'this model'}: the {family} family does not run "
-            f"tensor-parallel (M = {model}): its rules shard rwkv_wo's "
-            f"output and its recurrences and replicated per-channel "
-            f"leaves need their own design (ROADMAP §A item 3 (e), RWKV-6 "
-            f"and RG-LRU under TP); run it at M = 1")
+@functools.lru_cache(maxsize=None)
+def kv_group(n_heads: int, n_kv_heads: int, head_dim: int, model: int
+             ) -> int:
+    """How many of a rank's query heads share one KV slot of its cache
+    where its heads are not aligned with the KV heads
+    (:func:`head_geometry`): the largest g dividing the Hn heads a rank
+    computes such that every block of g of them reads one KV head, on
+    every rank (1: a KV slot a query head).  ``transformer._head_plan``
+    keeps every g-th KV head of a rank's heads, so a rank's attention
+    groups g query heads a KV slot, as GQA does."""
+    H, KV, hd, M = n_heads, n_kv_heads, head_dim, model
+    whole, Hn, h0 = head_geometry(H, hd, M)
+    rep = H // KV
+    kv = [[min(h0[m] + j, H - 1) // rep for j in range(Hn)]
+          for m in range(M)]
+    return max(g for g in range(1, Hn + 1) if Hn % g == 0 and all(
+        row[j] == row[j - j % g] for row in kv for j in range(Hn)))

@@ -35,26 +35,31 @@ slot p % S_c, in prefill as in decode (ROADMAP C11: the reference's
 prefill stores the last S_c keys at slots 0..S_c-1 instead, which decode's
 ring writes agree with only when T <= S_c or T % S_c == 0).
 
-Tensor parallelism.  Every entry point of the dense, moe, vlm and encdec
-families takes a ``tp`` seam (``repro_torch.models.tp``; default ``NO_TP``,
-M = 1).  At M > 1 the leading dim holds rank-rows, each a node's model
-shard (sharded leaves model-local, replicated leaves whole), and
-``forward`` in mode ``train`` splits the products: attention on a rank's
-heads (``wq``/``wk``/``wv`` and their biases column-parallel, ``wo``
-row-parallel, ``wo_b`` added once after ``reduce_out``), the MLPs and
-MoE experts column- then row-parallel, the embeddings vocab-parallel (a
-masked local lookup, then ``reduce_out``), ``lm_logits`` column-parallel
-over the vocabulary, and :func:`loss_fn` a vocab-parallel cross entropy.
-The norms and the residual stream stay replicated; ``copy_in`` sits after
+Tensor parallelism.  Every entry point takes a ``tp`` seam
+(``repro_torch.models.tp``; default ``NO_TP``, M = 1).  At M > 1 the
+leading dim holds rank-rows, each a node's model shard (sharded leaves
+model-local, replicated leaves whole), and the products split: attention
+on a rank's heads (``wq``/``wk``/``wv`` and their biases column-parallel,
+``wo`` row-parallel, ``wo_b`` added once after ``reduce_out``), the MLPs
+and MoE experts column- then row-parallel, the embeddings vocab-parallel
+(a masked local lookup, then ``reduce_out``), ``lm_logits``
+column-parallel over the vocabulary, and :func:`loss_fn` a vocab-parallel
+cross entropy; RWKV-6 and the RG-LRU split as their modules say.  The
+norms and the residual stream stay replicated; ``copy_in`` sits after
 each norm, at the inputs of the column-parallel products.  The rules
 shard the flattened ``H hd`` and ``KV hd`` columns, not whole heads:
 where a rank's columns cut a head, q, k and v are gathered to whole heads
 (RoPE pairs (i, i + hd/2), ``q_norm``/``k_norm`` and the scores need a
 whole head) and the rank computes the heads its ``wo`` rows read, then
 keeps its columns; where its query heads are whole but its KV columns are
-not (K < M), only k and v are gathered.  Modes ``prefill`` and
-``decode`` (caches) and the ssm and hybrid families are refused at M > 1
-(ROADMAP §A item 3 (e), (f)).
+not (K < M), only k and v are gathered.  A rank keeps the KV heads its
+query heads read (:func:`_head_plan`), and so does its cache in modes
+``prefill`` and ``decode`` (:func:`init_cache` with ``tp``;
+``repro_torch.convert.cache_to_rank_rows`` cuts a whole node's): one
+KV slot per block of its query heads that read one KV head, so where its
+heads straddle KV groups a rank holds more than KV / M heads (Megatron
+replicates KV heads where K < M too).  A decode's logits are a rank's
+(..., Vp / M) columns (``tp.gather_last`` joins them).
 """
 from __future__ import annotations
 
@@ -462,9 +467,11 @@ def attn_block(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
 def _head_plan(cfg: ModelConfig, tp, R: int, device):
     """Which heads each of R rank-rows computes -> (q_heads, kv_heads,
     cols).  All None where a rank's columns of q and of k, v are whole
-    heads (M = 1 included): a plain reshape.  Otherwise kv_heads (R, Hn)
+    heads (M = 1 included): a plain reshape.  Otherwise kv_heads (R, Kn)
     are the KV heads a rank-row's query heads read, gathered to whole
-    heads; where its query columns cut heads too, q_heads (R, Hn) are the
+    heads, g query heads a KV slot (:func:`repro_torch.models.tp.
+    kv_group`: the rank's heads in blocks of g that each read one KV
+    head); where its query columns cut heads too, q_heads (R, Hn) are the
     heads its ``wo`` rows read (at most ceil(H / M) + 1,
     :func:`repro_torch.models.tp.head_geometry`) and cols (R, H hd / M)
     its columns of their output, else both None (q reshaped)."""
@@ -473,14 +480,24 @@ def _head_plan(cfg: ModelConfig, tp, R: int, device):
         return None, None, None
     m = tp.model_index(R, device)
     whole, Hn, _ = tp_mod.head_geometry(H, hd, M)
+    g = tp_mod.kv_group(H, KV, hd, M)
     ar = torch.arange(Hn, device=device)
     if whole:                        # K < M: only k and v are gathered
-        return None, (m[:, None] * Hn + ar) // (H // KV), None
+        return None, ((m[:, None] * Hn + ar) // (H // KV))[:, ::g], None
     cq = H * hd // M                 # the columns cut heads
     h0 = m * cq // hd
     heads = (h0[:, None] + ar).clamp(max=H - 1)
     cols = (m * cq - h0 * hd)[:, None] + torch.arange(cq, device=device)
-    return heads, heads // (H // KV), cols
+    return heads, (heads // (H // KV))[:, ::g], cols
+
+
+def kv_heads_per_rank(cfg: ModelConfig, model: int) -> int:
+    """KV heads a rank's attention and cache hold (:func:`_head_plan`)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if model == 1 or (H % model == 0 and KV % model == 0):
+        return KV // model
+    return (tp_mod.head_geometry(H, hd, model)[1]
+            // tp_mod.kv_group(H, KV, hd, model))
 
 
 def _heads(tp, t: torch.Tensor, n_heads: int, hd: int,
@@ -587,19 +604,11 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
             cache=None, pos: Optional[int] = None, tp=NO_TP):
     """Family dispatch on node-stacked inputs.  Returns (logits (N, B, T,
     Vp), new cache (None without one), aux loss: (N,) for an MoE model,
-    else 0.0).  Under a ``tp`` seam of M > 1 (mode ``train`` only) the
-    inputs are rank-rows and the logits a rank's (..., Vp / M)."""
+    else 0.0).  Under a ``tp`` seam of M > 1 the inputs are rank-rows
+    (a cache :func:`init_cache`'s with the same seam) and the logits a
+    rank's (..., Vp / M)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
-    if tp.M > 1:
-        tp_mod.refuse_family(cfg.family, tp.M, cfg.name)
-        if mode != "train":
-            raise ValueError(
-                f"mode {mode!r} at M = {tp.M} model ranks: a cache under "
-                f"tensor parallelism needs head-sharded KV and recurrent "
-                f"caches (ROADMAP §A item 3 (f), decode at M > 1); the "
-                f"teacher-forced forward (mode 'train') runs, decode at "
-                f"M = 1")
     if mode != "train" and cache is None:
         raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
     if mode == "decode" and pos is None:
@@ -607,11 +616,11 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     if cfg.family == "ssm":
         from repro_torch.models import rwkv6
         return rwkv6.forward(cfg, params, batch, mode=mode, cache=cache,
-                             pos=pos)
+                             pos=pos, tp=tp)
     if cfg.family == "hybrid":
         from repro_torch.models import rglru
         return rglru.forward(cfg, params, batch, mode=mode, cache=cache,
-                             pos=pos)
+                             pos=pos, tp=tp)
     if cfg.family == "encdec":
         return _forward_encdec(cfg, params, batch, mode=mode, cache=cache,
                                pos=pos, tp=tp)
@@ -693,14 +702,12 @@ def _forward_encdec(cfg, params, batch, *, mode, cache, pos, tp=NO_TP):
     x = embed_tokens(cfg, params, tokens, tp)
     pos_embed = params["pos_embed"].to(x.dtype)
     last = cfg.max_target_positions - 1
-    if mode == "decode":
-        x = x + pos_embed[:, min(pos, last)][:, None, None]
-    elif tp.M > 1:                   # vocab-parallel rows of the table
-        idx = torch.arange(T, device=x.device).clamp(max=last)
+    idx = (torch.arange(pos, pos + 1, device=x.device) if mode == "decode"
+           else torch.arange(T, device=x.device)).clamp(max=last)
+    if tp.M > 1:                     # vocab-parallel rows of the table
         x = x + tp.reduce_out(_local_lookup(
-            pos_embed, idx.expand(x.shape[0], T), tp))[:, None]
+            pos_embed, idx.expand(x.shape[0], idx.shape[0]), tp))[:, None]
     else:
-        idx = torch.arange(T, device=x.device).clamp(max=last)
         x = x + pos_embed[:, idx][:, None]
 
     aux_sum, new_self, new_cross = 0.0, [], []
@@ -732,24 +739,29 @@ def _forward_encdec(cfg, params, batch, *, mode, cache, pos, tp=NO_TP):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, B: int, S: int, *, n_nodes: int = 1,
-               device=None, abstract: bool = False):
+               device=None, abstract: bool = False, tp=NO_TP):
     """Pre-allocated decode cache for seq_len S, zeros of cfg.dtype with a
     leading node dim (``abstract``: ``meta`` tensors, nothing
     allocated).  The cross-attention entries are placeholders that prefill
-    replaces with the encoder's / the vision tokens' k and v."""
+    replaces with the encoder's / the vision tokens' k and v.  Under a
+    ``tp`` seam of M > 1 the leading dim holds the process's rank-rows of
+    its ``n_nodes`` nodes, each a rank's cache: the KV heads its query
+    heads read (:func:`kv_heads_per_rank`), RWKV-6's wkv state of its
+    heads, the RG-LRU's W / M columns; the token shifts whole."""
     dev = "meta" if abstract else device
+    rows = n_nodes * tp.rows_per_node
 
     def mk(shape):
-        return torch.zeros((n_nodes,) + tuple(shape), dtype=cfg.dtype,
+        return torch.zeros((rows,) + tuple(shape), dtype=cfg.dtype,
                            device=dev)
 
-    KV, hd = cfg.n_kv_heads, cfg.hd
+    KV, hd = kv_heads_per_rank(cfg, tp.M), cfg.hd
     if cfg.family == "ssm":
         from repro_torch.models import rwkv6
-        return rwkv6.init_cache(cfg, B, mk)
+        return rwkv6.init_cache(cfg, B, mk, tp.M)
     if cfg.family == "hybrid":
         from repro_torch.models import rglru
-        return rglru.init_cache(cfg, B, S, mk)
+        return rglru.init_cache(cfg, B, S, mk, tp.M, KV)
     Seff = S if cfg.sliding_window is None else min(S, cfg.sliding_window)
     if cfg.decode_cache_cap is not None:
         Seff = min(Seff, cfg.decode_cache_cap)
@@ -773,8 +785,9 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, n_nodes: int = 1,
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
                 pos: int, tp=NO_TP):
     """ONE new token (N, B, 1) against a pre-allocated cache at absolute
-    position ``pos`` -> (logits (N, B, Vp), new cache).  Refused under a
-    ``tp`` seam of M > 1 (ROADMAP §A item 3 (f))."""
+    position ``pos`` -> (logits (N, B, Vp), new cache).  Under a ``tp``
+    seam of M > 1 the rows are rank-rows, the cache :func:`init_cache`'s
+    with the seam, and the logits a rank's (N M, B, Vp / M)."""
     logits, new_cache, _ = forward(cfg, params, {"tokens": tokens},
                                    mode="decode", cache=cache, pos=pos,
                                    tp=tp)

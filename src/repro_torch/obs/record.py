@@ -31,8 +31,9 @@ contract audit (:mod:`repro_torch.check.contracts`):
 * :class:`RecordingTP` -- the ``recorder`` of a tensor-parallel seam
   (``repro_torch.models.tp``): each collective its operators make,
   forward and backward, as ``(kind, dtype, bytes one rank-row hands
-  it)``, kind ``all-reduce`` (a sum), ``all-reduce-max`` or
-  ``all-gather``; :func:`recording_tp`.
+  it)``, kind ``all-reduce`` (a sum), ``all-reduce-max``,
+  ``all-gather`` (``gather_last``) or ``all-gather-grad``
+  (``scatter_last``'s backward); :func:`recording_tp`.
 * :class:`LiveBytes` -- a ``TorchDispatchMode`` that follows every storage
   an op makes (a weakref finalizer on its ``untyped_storage()``) from its
   first output to its death, beside the arguments' storages: the peak

@@ -35,9 +35,12 @@ collective bytes parsed from its HLO text (loop-aware) and XLA's raw
 * ``tp_bytes`` -- on a tensor-parallel node (``repro_torch.models.tp``),
   the bytes one rank-row hands the model axis's collectives over the step,
   forward and backward (:class:`repro_torch.obs.record.RecordingTP`), by
-  kind: each collective's operand (a sum over ``DistTP`` moves 2 (M - 1)
-  / M of it, as a ring all-reduce does).  On their own key: ``t_collective`` prices the node's wire and
-  stays the reference's formula.
+  kind (``all-reduce``, ``all-reduce-max``, ``all-gather``, and
+  ``all-gather-grad`` for ``scatter_last``'s backward gathers): each
+  collective's operand (a sum over ``DistTP`` moves 2 (M - 1) / M of it,
+  as a ring all-reduce does).  A serving step's (prefill, decode) count
+  the same way, given its seam.  On their own key: ``t_collective``
+  prices the node's wire and stays the reference's formula.
 
 :func:`count_step` does this counting around one step; :func:`analyze`
 calls it on a real step after a warm-up, and the dry run

@@ -76,9 +76,9 @@ rank-row's own model-local leaves straight into the wire's rows (the
 bucketed QInf wire only); the hops go to the same m of the neighbour
 node; a replicated leaf's M copies, which draw the same noise, stay
 bit-equal.  The loss is counted once a node, the consensus over the model
-ranks with a replicated leaf counted once.  Refused at M > 1: the ssm and
-hybrid families (ROADMAP §A item 3 (e)), the dense backend, the per-leaf
-wire and identity compression.
+ranks with a replicated leaf counted once.  Every family runs so (RWKV-6
+where M divides its heads); refused at M > 1: the dense backend, the
+per-leaf wire and identity compression.
 
 Dry runs.  :meth:`DecentralizedTrainer.abstract_state` is a state of
 ``meta`` tensors; a trainer built on the ``meta`` device steps it with
@@ -272,7 +272,9 @@ class DecentralizedTrainer:
     def _check_tp(self, tp) -> None:
         """What a tensor-parallel node refuses, at build."""
         tcfg, M = self.tcfg, tp.M
-        tp_mod.refuse_family(self.mcfg.family, M, self.mcfg.name)
+        if self.mcfg.family == "ssm":
+            from repro_torch.models import rwkv6
+            rwkv6.check_tp(self.mcfg, M)
         if M != self.model_shards:
             raise ValueError(f"a tp seam of {M} model ranks on a mesh of "
                              f"{self.model_shards} model shards")

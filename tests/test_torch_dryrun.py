@@ -536,11 +536,7 @@ def test_mesh_functions_name_the_reference_counts():
 
 # --- a tensor-parallel node: placement "tp" ----------------------------------
 
-TP_ARCHS = [a for a in tconfigs.ARCH_IDS
-            if tconfigs.get(a).family in ("dense", "moe", "vlm", "encdec")]
-
-
-@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
 def test_tp_rank_state_bytes_equal_a_model_shard(reference_records, arch):
     """Placement "tp" on (16, 16): rank (0, 0) of 256 holds one model shard
     of one node, whose Prox-LEAD state (X, D, H, Hw) is, to the byte,
@@ -557,15 +553,78 @@ def test_tp_rank_state_bytes_equal_a_model_shard(reference_records, arch):
         reference_records[f"{arch} False"]["state"]
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
-def test_tp_placement_skips_what_is_not_tensor_parallel(arch, tmp_path):
-    for shape in ("train_4k", "decode_32k"):
-        rec = dryrun.run_one(arch, shape, backend="neighbor", out_dir=None,
-                             verbose=False, placement="tp")
-        assert rec["status"] == "skipped" and "ROADMAP" in rec["reason"]
-    rec = dryrun.run_one("qwen3-1.7b", "decode_32k", backend="neighbor",
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_tp_placement_runs_every_family_and_shape(arch):
+    """Placement "tp" runs every family: ``decode_32k`` on (16, 16) by
+    ``run_one`` (a decode step of rank (0, 0) on its cache), each record
+    carrying ``cache_bytes_per_rank`` beside the whole node's and its even
+    split; no combo that ``applicable`` admits is skipped."""
+    rec = dryrun.run_one(arch, "decode_32k", backend="neighbor",
                          out_dir=None, verbose=False, placement="tp")
-    assert rec["status"] == "skipped" and "3 (f)" in rec["reason"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["placement"] == "tp" and rec["model_shards_per_card"] == 1
+    assert rec["cards"] == 256 and rec["tp_bytes"] > 0
+    whole = rec["cache_bytes_whole_node"]
+    assert rec["cache_bytes_even_split"] == whole // 16
+    assert whole // 16 <= rec["cache_bytes_per_rank"] <= whole
+    for shape in tshapes.SHAPES:
+        cfg = tconfigs.get(arch)
+        rec = dryrun.run_one(arch, shape, backend="neighbor", out_dir=None,
+                             verbose=False, placement="tp") \
+            if tshapes.applicable(cfg, tshapes.SHAPES[shape]) else None
+        assert rec is None or (rec["status"] == "skipped" and
+                               rec["reason"] == tshapes.applicable(
+                                   cfg, tshapes.SHAPES[shape]))
+
+
+@pytest.mark.parametrize("arch,layers", [("rwkv6-7b", 1),
+                                         ("recurrentgemma-9b", 3)])
+def test_tp_placement_trains_the_recurrent_families(arch, layers):
+    """RWKV-6 and the RG-LRU train at rank (0, 0) of (16, 16): published
+    widths, ``train_4k``'s batch, cut to ``layers`` layers and 64 tokens
+    (their recurrences loop over the tokens: the whole ``train_4k`` combos
+    take ~1 h and ~8 min on one core, ``python -m repro_torch.launch.
+    dryrun --placement tp`` runs them).  The rank's state is one model
+    shard's; the TP bytes carry ``scatter_last``'s gathers."""
+    cfg = dataclasses.replace(tconfigs.get(arch), dtype=torch.bfloat16,
+                              n_layers=layers)
+    shape = dataclasses.replace(tshapes.SHAPES["train_4k"], seq_len=64)
+    rec = dryrun.dry_train(cfg, shape, mesh_mod.make_production_mesh(),
+                           placement="tp")
+    assert rec["placement"] == "tp" and rec["cards"] == 256
+    assert rec["state_bytes_per_rank"] == rec["state_bytes_per_model_shard"]
+    assert rec["tp_breakdown"]["all-gather-grad"] > 0
+    assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"]
+
+
+def test_cache_bytes_per_rank_are_the_heads_and_columns_a_rank_holds():
+    """``cache_bytes_per_rank`` of a decode record equals the bytes of the
+    cache entries rank (0, 0) holds, counted from the whole node's cache
+    leaf by leaf: its KV heads (``kv_heads_per_rank`` of the whole KV),
+    RWKV-6's wkv state of H / M heads, the RG-LRU's W / M columns, the
+    token shifts whole."""
+    from repro_torch.models import transformer as TR
+    shape = tshapes.SHAPES["decode_32k"]
+    mesh = mesh_mod.make_production_mesh()
+    for arch in tconfigs.ARCH_IDS:
+        cfg = dataclasses.replace(tconfigs.get(arch), dtype=torch.bfloat16)
+        rec = dryrun.dry_serve(cfg, shape, mesh, placement="tp")
+        Bl = rec["batch_rows_per_card"]
+        kv = TR.kv_heads_per_rank(cfg, 16)
+        want = 0
+        for path, x in tree.flatten_with_paths(TR.init_cache(
+                cfg, Bl, shape.seq_len, abstract=True)):
+            name = path.rsplit("/", 1)[-1]
+            n = x.numel() * x.element_size()
+            if name in ("k", "v"):
+                n = n // cfg.n_kv_heads * kv
+            elif name in ("wkv", "h", "conv"):
+                n //= 16
+            want += n
+        assert rec["cache_bytes_per_rank"] == want, arch
+        assert rec["cache_bytes_whole_node"] == sum(
+            x.numel() * x.element_size() for x in tree.leaves(
+                TR.init_cache(cfg, Bl, shape.seq_len, abstract=True)))
 
 
 def test_tp_bytes_of_a_head_aligned_step_have_a_closed_form():
@@ -598,6 +657,36 @@ def test_tp_bytes_of_a_head_aligned_step_have_a_closed_form():
     gossip = rec["gossip"]
     assert rec["roofline"]["coll_breakdown"]["collective-permute"] * 8 * 16 \
         == gossip["hops"] * gossip["payload_bits_per_edge"]
+
+
+def test_tp_bytes_of_an_rwkv6_step_have_a_closed_form():
+    """RWKV-6 (16 heads of 32, d_ff 1024, f32) dry-run at rank (0, 0) of
+    the (16, 16) mesh: the bytes a rank hands the model axis in a train
+    step, as integers.  All-reduce: the embedding's ``reduce_out`` and the
+    LM head's ``copy_in`` (B T D each); a layer's ``rwkv_wo``
+    ``reduce_out``, the backward of the ddlerp's four ``copy_in``s and of
+    the channel mix's two (B T D each), of its gathered squared ReLU (B T
+    F); the loss's two sums (B T f32).  All-reduce-max: the loss's max.
+    All-gather (forward): a layer's squared ReLU (B T F / M) and its
+    output columns (B T D / M).  All-gather-grad (``scatter_last``'s
+    backward): a layer's decay w (B T D / M) and ``u``, ``lnx``,
+    ``lnx_b`` (D / M each)."""
+    cfg = tconfigs.get("rwkv6-7b").reduced(n_layers=2, d_model=512)
+    L_, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    M = 16
+    assert D // cfg.rwkv_head_size == 16 and cfg.dtype == torch.float32
+    mesh = mesh_mod.make_production_mesh()
+    Bl, T = 2, 8
+    shape = tshapes.InputShape("train_small", T, 16 * Bl, "train")
+    rec = dryrun.dry_train(cfg, shape, mesh, placement="tp")
+    isz, BT = 4, Bl * T                        # f32
+    want = {"all-reduce": isz * BT * (L_ * (7 * D + F) + 2 * D + 2),
+            "all-reduce-max": isz * BT,
+            "all-gather": L_ * isz * BT * (F + D) // M,
+            "all-gather-grad": L_ * isz * (BT * D + 3 * D) // M}
+    assert rec["tp_breakdown"] == want
+    assert rec["tp_bytes"] == sum(want.values())
+    assert rec["state_bytes_per_rank"] == rec["state_bytes_per_model_shard"]
 
 
 def test_tp_one_process_dry_step_equals_the_real_cpu_step():

@@ -38,11 +38,13 @@ and against the port's whole-node run, on the CPU.
   loss within 1e-6 and the consensus (a replicated leaf counted once)
   within 1e-5 relative; 3 x 459,072 bits a step a node; the contract audit of a
   step: 6 u8 ``pp`` calls, 86,076 B a model shard, no f64, no host read.
-* Refusals at M > 1: the ssm (RWKV-6) and hybrid (RG-LRU) families at
-  build and in ``forward``, ``decode_step`` and the prefill mode (caches),
-  the dense backend and the per-leaf wire at build.
+* Refusals at M > 1: the dense backend and the per-leaf wire at build
+  (RWKV-6 and the RG-LRU, and caches, run tensor-parallel:
+  ``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_decode.py``).
 * The seam's own operators: ``StackedTP``'s sum, max, gather and the
-  gather's backward, ``rank_rows`` / ``join_rank_rows`` round trips.
+  gather's backward, ``scatter_last`` (the rank's slice forward, the
+  gradient gathered whole on every rank backward, recorded as
+  ``"all-gather-grad"``), ``rank_rows`` / ``join_rank_rows`` round trips.
 """
 import dataclasses
 import json
@@ -316,39 +318,6 @@ def _spec_for(arch, mesh=(4, 2), **execution):
     return tapi.ExperimentSpec.from_json(json.dumps(d))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
-def test_recurrent_families_are_refused_at_m_above_1(arch):
-    spec = _spec_for(arch)
-    with pytest.raises(ValueError, match=r"ROADMAP §A item 3 \(e\)"):
-        tapi.build_trainer_runner(spec, device="cpu", tp=StackedTP(2))
-    cfg = tconfigs.get(arch).reduced()
-    params = TTR.abstract_params(cfg)
-    with pytest.raises(ValueError, match=r"ROADMAP §A item 3 \(e\)"):
-        TTR.forward(cfg, params, {"tokens": torch.zeros(
-            (2, 1, 4), dtype=torch.int64)}, tp=StackedTP(2))
-    # at M = 1 the family trains as before
-    assert tapi.build_trainer_runner(spec, device="cpu").trainer.tp.M == 1
-
-
-@pytest.mark.parametrize("mode", ["decode", "prefill"])
-def test_caches_at_m_above_1_are_refused(mode):
-    cfg = tconfigs.get("qwen3-1.7b").reduced()
-    tp = StackedTP(2)
-    params = tree.leaves(convert.model_params_to_rank_rows(
-        tree.tree_map(lambda t: np.zeros(t.shape, np.float32),
-                      TTR.param_template(cfg)), 2, device="cpu"))
-    treedef = tree.flatten(TTR.abstract_params(cfg))[1]
-    p = tree.unflatten(treedef, params)
-    cache = TTR.init_cache(cfg, 1, 8, n_nodes=2)
-    tok = torch.zeros((2, 1, 1), dtype=torch.int64)
-    with pytest.raises(ValueError, match=r"ROADMAP §A item 3 \(f\)"):
-        if mode == "decode":
-            TTR.decode_step(cfg, p, cache, tok, 0, tp=tp)
-        else:
-            TTR.forward(cfg, p, {"tokens": tok}, mode="prefill",
-                        cache=cache, tp=tp)
-
-
 @pytest.mark.parametrize("execution", [{"backend": "dense"},
                                        {"wire_mode": "per_leaf"}])
 def test_whole_leaf_mixing_is_refused_under_tp(execution):
@@ -389,6 +358,28 @@ def test_stacked_seam_operators():
     # copy_in: identity forward, summed gradient backward
     (gc,) = torch.autograd.grad((tp.copy_in(xr) * x).sum(), xr)
     assert torch.equal(gc.unflatten(0, (2, 3))[:, 1], v.sum(1))
+
+
+def test_scatter_last_slices_forward_and_gathers_backward():
+    from repro_torch.models.tp import NO_TP
+    from repro_torch.obs.record import recording_tp
+    tp = StackedTP(3)
+    g = torch.Generator().manual_seed(2)
+    w = torch.randn(2, 5, 12, generator=g, dtype=torch.float64)
+    x = tp.node_rows(w).requires_grad_(True)        # replicated over ranks
+    with recording_tp(tp) as rec:
+        own = tp.scatter_last(x)
+        assert own.shape == (6, 5, 4)
+        v = own.unflatten(0, (2, 3))
+        for m in range(3):
+            assert torch.equal(v[:, m], w[..., 4 * m:4 * (m + 1)])
+        up = torch.randn(6, 5, 4, generator=g, dtype=torch.float64)
+        (gx,) = torch.autograd.grad((own * up).sum(), x)
+    assert rec.calls == [("all-gather-grad", torch.float64, 5 * 4 * 8)]
+    whole = torch.cat([up.unflatten(0, (2, 3))[:, m] for m in range(3)], -1)
+    gv = gx.unflatten(0, (2, 3))
+    assert all(torch.equal(gv[:, m], whole) for m in range(3))
+    assert NO_TP.scatter_last(w) is w
 
 
 @pytest.mark.parametrize("spec,shape", [

@@ -25,6 +25,14 @@ reference):
   could not hold); every replicated leaf is
   bit-equal across the model ranks; the loss and consensus (all-reduced, a node's loss and a
   replicated leaf counted once) match within 1e-6 relative;
+* RWKV-6 and the RG-LRU (the same spec with rwkv6-7b and
+  recurrentgemma-9b, 8 tokens) at world 2 (1 x 2), f32: bit for bit the
+  one-process run as above;
+* one decode on ranks: recurrentgemma-9b ``.reduced()`` (its one KV head
+  cut in halves and gathered, its RG-LRU's gate blocks split) prefills 8
+  tokens and decodes 4 under ``DistTP`` at world 2 (one node, M = 2):
+  every step's gathered logits and the final rank-row cache equal the
+  ``StackedTP(2)`` run's BIT FOR BIT;
 * a seeded run on ranks (each rank's own stream for its sharded leaves,
   its node block's for the replicated ones): the replicated copies stay
   bit-equal over the model ranks, every rank reports the same metrics;
@@ -52,18 +60,55 @@ SPEC_4X2 = ROOT / "tests" / "golden_specs" / \
     "trainer_neighbor_alternating_4x2.json"
 STEPS = 3
 DEADLINE_S = 180
-#: (key, mesh, model dtype): the golden spec, and at M = 4 in f64
-CASES = {"4x2": ((4, 2), None), "4x4": ((4, 4), "float64")}
+#: key: (mesh, model dtype, arch): the golden spec, at M = 4 in f64, and
+#: the recurrent families (8 tokens)
+CASES = {"4x2": ((4, 2), None, None), "4x4": ((4, 4), "float64", None),
+         "rwkv6-4x2": ((4, 2), None, "rwkv6-7b"),
+         "rglru-4x2": ((4, 2), None, "recurrentgemma-9b")}
+#: the decode case: one node's reduced model over M = 2 ranks
+DECODE_ARCH, DECODE_M, DECODE_B, DECODE_PROMPT, DECODE_GEN = \
+    "recurrentgemma-9b", 2, 2, 8, 4
 
 
 def _spec(key):
     from repro_torch import api
     d = json.loads(SPEC_4X2.read_text())
-    mesh, dtype = CASES[key]
+    mesh, dtype, arch = CASES[key]
     d["execution"]["mesh"] = list(mesh)
     if dtype:
         d["model"]["params"] = {"dtype": dtype}
+    if arch:
+        d["model"].update(arch=arch, seq_len=8)
     return api.ExperimentSpec.from_json(json.dumps(d))
+
+
+@torch.no_grad()
+def _decode_run(tp):
+    """Prefill and DECODE_GEN decode steps of DECODE_ARCH's reduced model
+    (weights and tokens from a seeded CPU generator) under ``tp``, its
+    rank-rows cut by ``tp.cut`` -> (each step's logits gathered over the
+    ranks, the final cache's leaves): this process's rank-rows."""
+    from repro_torch import configs, tree
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as TR
+    cfg = configs.get(DECODE_ARCH).reduced()
+    g = torch.Generator().manual_seed(0)
+    leaves, treedef = tree.flatten(TR.stack_nodes(TR.init_params(cfg, g,
+                                                                 "cpu")))
+    specs = tree.leaves(sharding.param_specs(TR.abstract_params(cfg)))
+    rows = tree.unflatten(treedef, tp.cut(leaves, specs))
+    B, T = DECODE_B, DECODE_PROMPT
+    prompt = torch.randint(0, cfg.vocab, (1, B, T), generator=g)
+    steps = torch.randint(0, cfg.vocab, (DECODE_GEN, 1, B, 1), generator=g)
+    cache = TR.init_cache(cfg, B, 2 * T, tp=tp)
+    lg, cache, _ = TR.forward(cfg, rows, tp.node_rows({"tokens": prompt}),
+                              mode="prefill", cache=cache, tp=tp)
+    out = [tp.gather_last(lg[:, :, -1])]
+    for i in range(DECODE_GEN):
+        lg, cache = TR.decode_step(cfg, rows, cache, tp.node_rows(steps[i]),
+                                   T + i, tp=tp)
+        out.append(tp.gather_last(lg))
+    return out, tree.leaves(cache)
 
 
 def _state_rows(state):
@@ -124,6 +169,15 @@ def _rank_seeded(args, rank, world):
             "m": pm.m}
 
 
+def _rank_decode(args, rank, world):
+    """Rank ``rank``'s part of the decode case under ``DistTP``."""
+    from repro_torch.launch.mesh import Mesh, TPProcessMesh
+    from repro_torch.models.tp import DistTP
+    pm = TPProcessMesh(Mesh((1, DECODE_M)), rank=rank, world=world)
+    logits, cache = _decode_run(DistTP(pm))
+    return {"logits": logits, "cache": cache, "b": pm.b, "m": pm.m}
+
+
 def _worker(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int)
@@ -141,7 +195,8 @@ def _worker(argv):
     try:
         if args.mode == "die" and args.rank == 1:
             os._exit(3)          # a crash: the others wait in a collective
-        run = _rank_seeded if args.mode == "seeded" else _rank_trainer
+        run = {"seeded": _rank_seeded,
+               "decode": _rank_decode}.get(args.mode, _rank_trainer)
         out = run(args, args.rank, args.world)
         torch.save(out, pathlib.Path(args.dir) / f"rank{args.rank}.pt")
     finally:
@@ -231,7 +286,8 @@ def one_process(tmp_path_factory):
 
 
 @pytest.mark.parametrize("case,world", [("4x2", 2), ("4x2", 4),
-                                        ("4x4", 4)])
+                                        ("4x4", 4), ("rwkv6-4x2", 2),
+                                        ("rglru-4x2", 2)])
 def test_ranks_equal_the_stacked_run(case, world, one_process, tmp_path):
     from repro_torch.models import sharding
     rec_dir, want = one_process
@@ -260,6 +316,23 @@ def test_ranks_equal_the_stacked_run(case, world, one_process, tmp_path):
             torch.tensor(r["metrics"], dtype=torch.float64),
             torch.tensor(w["metrics"], dtype=torch.float64),
             rtol=1e-6, atol=0.0)
+
+
+def test_decode_ranks_equal_the_stacked_decode(tmp_path):
+    from repro_torch.models.tp import StackedTP
+    ranks = launch(DECODE_M, tmp_path, mode="decode")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        logits, cache = _decode_run(StackedTP(DECODE_M))
+    finally:
+        torch.set_num_threads(threads)
+    for m, r in enumerate(ranks):
+        assert (r["b"], r["m"]) == (0, m)
+        for got, want in zip(r["logits"], logits, strict=True):
+            assert torch.equal(got[0], want[m])
+        for got, want in zip(r["cache"], cache, strict=True):
+            assert torch.equal(got[0], want[m])
 
 
 def test_seeded_ranks_keep_replicated_leaves_equal(tmp_path):
