@@ -339,10 +339,45 @@ Phases, in order; any failure exits non-zero before the result lines:
    prefill ms, ms a decode step, tok/s and peak beside phase 11's;
    RWKV-6's token-shift caches bit-equal over the ranks after the last
    step.  The phase's seconds.
+19. (Run after phase 18, before the result lines.)  The dense backend
+   on ranks and whole-leaf mixing on a split node.  (a) Phase 6's slice
+   on the dense backend (published widths, 2 layers, vocab/8, the ring,
+   2-bit QInf, f32) over N nodes, N the largest of DENSE_NODES whose
+   dense step on one rank the dry run fits under DENSE_PEAK_GB, on the
+   rank of a one-rank NCCL group (``torch.distributed``, a
+   ``ProcessMesh`` of world 1: the machine has one card, and NCCL
+   refuses two ranks on one device), its mixer a ``RowsMixer`` gathering
+   each leaf through ``DistAG`` (``all_gather_into_tensor``):
+   DENSE_RANK_STEPS steps, each from one state and one gradient, the
+   rank's update (X, D, H, Hw) bit for bit the one-process update's with
+   the same draws, every B1 and B2 launch of its first update bit for bit
+   its plain version on the same operands; then DENSE_TIMED_STEPS full
+   steps: B1 and B2 once a
+   leaf a step, the median step, the peak; the same again under
+   ``drop_rate`` = DROP_RATE (every rank draws the whole fault mask).  A
+   failed init or collective fails the run; nothing falls back to the
+   CPU.  (b) (a)'s step dry at world 1 (``dryrun.dry_train(...,
+   placement="ranks", world=1)``): FLOPs, ATen bytes and the all-gather
+   bytes a rank receives (none on one rank) equal to the real step's
+   (``dryrun.counted_step``), and at one node a rank (N - 1) x a node's
+   leaf bytes; ``train_4k`` of every arch on (16, 16) with ``--backend
+   dense`` (one node a rank, the default placement), started with phase
+   16 (b)'s jobs, less DRY_LOOPED's (minutes a combo on ``meta``; the
+   CLI runs them): one line a combo, peak, ``fits``, all-gather bytes.
+   (c) Phase 17 (a)'s split node, ``StackedTP(2)`` at (8, 2), with
+   ``wire_mode="per_leaf"`` and on the dense backend: TP_TF_STEPS steps
+   teacher-forced against the whole-node (8, 2) step of the same mode
+   (C4's bar; the states wait on the host in page-locked memory), every
+   B1 and B2 launch of the first split step bit for bit its plain
+   version, ``bits_per_step`` equal to the whole node's, then
+   WHOLE_LEAF_STEPS timed steps of the split and of the whole node (B1
+   once a leaf a step; B2 once a leaf, 1 + hops times on the per-leaf
+   wire), the median step and the peak.  The phase's seconds.
 13. Result lines: ``{"kernels": [...]}`` (B1-B4; B3's entry also names
    its variant at each shape and the row variant's ms at the trainer's
    shape; B3's and B4's the (8, 2) groups and launches, and their
-   launches at phase 17's and phase 18 (a)'s tensor-parallel layouts),
+   launches at phase 17's and phase 18 (a)'s tensor-parallel layouts;
+   B1's and B2's their launches in phase 19 (a) and (c)),
    the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Everything is also written to
    ``chiprun_out/chip_smoke.json``.
@@ -3068,6 +3103,30 @@ def dry_sweep_jobs(archs):
     return jobs
 
 
+def dense_dry_jobs(archs):
+    """Phase 19 (b)'s jobs, started with phase 16 (b)'s: every arch's
+    train_4k on (16, 16) on the dense backend, one node a rank, less
+    DRY_LOOPED's (their recurrences loop over the tokens on ``meta``:
+    minutes a combo; the CLI runs them)."""
+    return [(a, "train_4k", False, "dense") for a in archs
+            if a not in DRY_LOOPED]
+
+
+def dense_dry_line(r) -> str:
+    """One combo of phase 19 (b): per-rank peak, fits, the all-gather
+    bytes a rank receives a step and their NVLink time."""
+    head = f"[dense] (19b) {r['arch']} x {r['shape']} x {r['mesh']}: "
+    if r["status"] != "ok":
+        return head + f"{r['status']} ({r.get('reason') or r.get('error')})"
+    m, rl = r["memory"], r["roofline"]
+    return (head + f"ok, {r['placement']} ({r['cards']} cards), peak "
+            f"{m['peak_bytes'] / 2 ** 30:.2f} GiB/card, fits {m['fits']}, "
+            f"all-gather {r['all_gather_bytes']:,.0f} B a step, "
+            f"t_collective {rl['t_collective_s']:.4g} s, t_compute "
+            f"{rl['t_compute_s']:.4g} s, bottleneck {rl['bottleneck']}, "
+            f"{r['t_dry_s']} s")
+
+
 def dry_against_real(torch, api, draws_mod, spec, real_roofline=None,
                      device: str = "cuda", tp_ways: int = 1):
     """Phase 16 (a): ``spec`` (a trainer spec) dry-run in one process on
@@ -3147,8 +3206,9 @@ def dry_against_real(torch, api, draws_mod, spec, real_roofline=None,
 def dry_sweep(out_dir=DRY_OUT, archs=None, timeout=DRY_SWEEP_TIMEOUT_S,
               jobs=None, placement=None):
     """Phase 16 (b): the production dry run by its CLI (``python -m
-    repro_torch.launch.dryrun``, neighbor backend), one process a job of
-    ``jobs`` (default :func:`dry_sweep_jobs`), all started together (the
+    repro_torch.launch.dryrun``, neighbor backend unless a job names its
+    backend fourth), one process a job of ``jobs`` (default
+    :func:`dry_sweep_jobs`), all started together (the
     meta device is the host's: the card's machine has 8 cores), each
     required to exit 0; ``placement`` the CLI's ``--placement`` (phase 17
     (d): ``"tp"``).  -> (records, seconds)."""
@@ -3163,9 +3223,10 @@ def dry_sweep(out_dir=DRY_OUT, archs=None, timeout=DRY_SWEEP_TIMEOUT_S,
         archs = configs.ARCH_IDS
     t0 = time.perf_counter()
     procs = []
-    for a, shape, multi_pod in (jobs or dry_sweep_jobs(archs)):
+    for a, shape, multi_pod, *backend in (jobs or dry_sweep_jobs(archs)):
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               a, "--shape", shape, "--backend", "neighbor", "--out",
+               a, "--shape", shape, "--backend",
+               backend[0] if backend else "neighbor", "--out",
                str(out_dir)] + (["--multi-pod"] if multi_pod else []) + (
             ["--placement", placement] if placement else [])
         procs.append((cmd, subprocess.Popen(
@@ -3226,6 +3287,7 @@ TP_TF_STEPS = 2          # teacher-forced steps of (a) and (b)
 TP_STEP_TOL = 1e-5       # C4's step bar: within this x max|X| ...
 TP_STEP_MAX_OFF = 1e-3   # ... on all but this fraction of each array
 TP_CHECK_ROWS = 1 << 20  # B3's plain version checked this many rows a time
+QINF_CHECK_BLOCKS = 1 << 16  # B1's and B2's, this many blocks a time
 TP_TF_CARD_SHARE = 0.8   # teacher-forced states stay on the card below this
 
 
@@ -3280,6 +3342,92 @@ def checked_wire_kernels(torch, qk, ref, errs, what: str):
             setattr(qk, name, fn)
 
 
+@contextlib.contextmanager
+def checked_qinf_kernels(torch, ops, qk, ref, errs, what: str):
+    """Every B1 and B2 launch in the block held, as it returns, to its
+    plain version on the same operands, bit for bit: B1's leaf (..., D)
+    blocked and padded as the plain path pads it, B2's (R, block) codes,
+    QINF_CHECK_BLOCKS blocks a time (the plain temporaries stay small
+    beside a full card).  ``calls`` [(kernel, operand shape)].  Restored on exit."""
+    calls = []
+    saved = {k: getattr(qk, k) for k in (B1, B2)}
+
+    def b1(fn):
+        @functools.wraps(fn)
+        def inner(x, u, bits, levels=None):
+            out = fn(x, u, bits, levels)
+            require(levels is None, f"B1 {what}: a per-point level launch")
+            D, block = (x.shape[-1] if x.dim() else 1), u.shape[-1]
+            xr, ur = x.reshape(-1, D), u.reshape(-1, block)
+            codes, scales = out[0].reshape(-1, block), out[1].reshape(-1, 1)
+            nb = ur.shape[0] // xr.shape[0]
+            step = max(1, QINF_CHECK_BLOCKS // nb)
+            for lo in range(0, xr.shape[0], step):
+                rows = slice(lo, lo + step)
+                blocks = slice(lo * nb, (lo + step) * nb)
+                xb = ops.blockwise_lastdim(xr[rows], block=block)
+                cp, sp = ref.qinf_quantize_blocks_ref(
+                    xb.reshape(-1, block), ur[blocks], bits)
+                ck, sk = codes[blocks], scales[blocks]
+                e = max(float((ck.int() - cp.int()).abs().max()),
+                        float((sk - sp).abs().max()))
+                errs[B1] = max(errs[B1], e)
+                require(torch.equal(ck, cp) and torch.equal(sk, sp),
+                        f"B1 != plain {what}: leaf {tuple(x.shape)} "
+                        f"{x.dtype}, bits {bits}, rows from {lo} (max diff "
+                        f"{e})")
+            calls.append((B1, list(x.shape)))
+            return out
+        return inner
+
+    def b2(fn):
+        @functools.wraps(fn)
+        def inner(codes, scales, out_dtype=torch.float32):
+            out = fn(codes, scales, out_dtype)
+            for lo in range(0, codes.shape[0], QINF_CHECK_BLOCKS):
+                sl = slice(lo, lo + QINF_CHECK_BLOCKS)
+                dp = ref.qinf_dequantize_blocks_ref(codes[sl], scales[sl],
+                                                    out_dtype)
+                e = float((out[sl].double() - dp.double()).abs().max())
+                errs[B2] = max(errs[B2], e)
+                require(torch.equal(out[sl], dp), f"B2 != plain {what}: "
+                        f"codes {tuple(codes.shape)} -> {out_dtype}, rows "
+                        f"from {lo} (max diff {e})")
+            calls.append((B2, list(codes.shape)))
+            return out
+        return inner
+
+    qk.qinf_quantize_blocks = b1(saved[B1])
+    qk.qinf_dequantize_blocks = b2(saved[B2])
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(qk, name, fn)
+
+
+def host_parking(torch, device: str, on_card: bool):
+    """How a check parks a state it is not using: as it is where the
+    states fit on the card (or the run is on the CPU), else in
+    page-locked host memory, whose copies run at the link's rate
+    (pageable memory took 2.5-7.6x as long, PERF.md).  The caching host
+    allocator keeps the buffers for the next step;
+    :func:`release_host_cache` returns them after the check."""
+    if on_card or device != "cuda":
+        return lambda x: x
+    return lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                 pin_memory=True).copy_(x)
+
+
+def release_host_cache(torch, device: str) -> None:
+    """Free the page-locked buffers the caching host allocator keeps, so
+    the next check's states of other sizes do not pile on them."""
+    if device == "cuda":
+        fn = getattr(torch._C, "_host_emptyCache", None) or getattr(
+            torch._C, "_accelerator_emptyHostCache")
+        fn()
+
+
 def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
                       M: int, steps: int = TP_TF_STEPS,
                       device: str = "cuda", elem_tol: float = TP_STEP_TOL):
@@ -3290,22 +3438,30 @@ def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
     15's program: X, D, H and Hw within ``elem_tol`` (TP_STEP_TOL) of each
     array's largest entry on all but TP_STEP_MAX_OFF of its elements (C4's
     bar; RWKV-6's is SSM_REPLAY_ELEM_TOL),
-    the node loss within 1e-5 relative.  Every B3 and B4 launch of the
-    first TP step is held to its plain version on the same operands
-    (:func:`checked_wire_kernels`), once per bucket group.  Where three
-    states fit TP_TF_CARD_SHARE of the card (the whole node's, the split
-    node's and a step's activations, about one state's) both states stay
-    on the card; otherwise the state not in use waits on the host, so the
-    card holds one state and one step at a time."""
+    the node loss within 1e-5 relative.  Every kernel launch of the first
+    TP step is held to its plain version on the same operands: B3 and B4
+    on the bucketed wire (:func:`checked_wire_kernels`, once per bucket
+    group), B1 and B2 where the per-leaf wire or the dense backend
+    quantize whole leaves (:func:`checked_qinf_kernels`, once a leaf, B2
+    once more a hop on the per-leaf wire).  Where three states fit
+    TP_TF_CARD_SHARE of the card (the whole node's, the split node's and
+    a step's activations, about one state's) both states stay on the
+    card; otherwise the state not in use waits on the host
+    (:func:`host_parking`), so the card holds one state and one step at
+    a time."""
     from repro_torch.core.comm import CommState
     from repro_torch.core.prox_lead import ProxLEADState
+    from repro_torch.kernels import ops
     from repro_torch.models.tp import StackedTP
     from repro_torch.optim.decentralized import TrainState
     whole = api.build_trainer_runner(spec, device=device)
     run = api.build_trainer_runner(spec, device=device, tp=StackedTP(M))
     tr = run.trainer
     leads = (1, 1, 1, 1 if tr.hw_slots is None else 2)
-    groups = len(tr.wire_layout().groups)
+    bucketed = tr.sharded and tr.tcfg.wire_mode == "bucketed"
+    groups = len(tr.wire_layout().groups) if bucketed else 0
+    n_leaves = len(tr.leaf_specs)
+    b2_a_leaf = 1 + (len(tr.plan.hops) if tr.plan and not bucketed else 0)
     data = whole.default_data()
     dw = draws_mod.GeneratorDraws(spec.seed, device)
     dt = draws_mod.GeneratorDraws(spec.seed, device)
@@ -3324,7 +3480,7 @@ def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
     state_bytes = sum(nbytes(*tree.leaves(t)) for t in parts(sw))
     on_card = device == "cuda" and 3 * state_bytes <= TP_TF_CARD_SHARE * \
         torch.cuda.get_device_properties(0).total_memory
-    park = (lambda x: x) if on_card else (lambda x: x.cpu())  # noqa: E731
+    park = host_parking(torch, device, on_card)
 
     def held_to_whole(tp_parts, w_host, k):
         """The TP step's (X, D, H, Hw) joined and held to the whole node's
@@ -3368,12 +3524,21 @@ def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
         st = state_of([tree.tree_map(lambda x: x.to(device), t)
                        for t in tp_host], meta)
         del tp_host
-        if k == 0:
+        if k == 0 and bucketed:
             with checked_wire_kernels(torch, qk, ref, errs,
                                       f"at {spec.name}'s TP layout") as cl:
                 st, mt = run.step(st, batch, dt)
             require(len(cl) == 2 * groups, f"{spec.name} TP step: "
                     f"{len(cl)} B3/B4 launches, want 2 x {groups} groups")
+            checked = cl
+        elif k == 0:
+            with checked_qinf_kernels(torch, ops, qk, ref, errs,
+                                      f"at {spec.name}'s TP leaves") as cl:
+                st, mt = run.step(st, batch, dt)
+            n1 = sum(c[0] == B1 for c in cl)
+            require(n1 == n_leaves and len(cl) - n1 == n_leaves * b2_a_leaf,
+                    f"{spec.name} TP step: {n1} B1 and {len(cl) - n1} B2 "
+                    f"launches, want {n_leaves} and {n_leaves * b2_a_leaf}")
             checked = cl
         else:
             st, mt = run.step(st, batch, dt)
@@ -3387,6 +3552,7 @@ def tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs, spec,
         sw = state_of(back, w_meta)   # the whole state returns to the card
         del back
     del sw
+    release_host_cache(torch, device)
     return {"spec": spec.name, "M": M, "steps": steps, "losses": losses,
             "worst_off_fraction": worst_off, "worst_rel_max": worst_rel,
             "wire_checked": checked, "bucket_groups": groups,
@@ -3895,6 +4061,384 @@ def family_phase(torch, api, convert, draws_mod, tree, TR, qk, ref, errs,
             case["where"] = where
             out["wire"].append(case)
     return out
+
+
+# --- phase 19 ------------------------------------------------------------------
+
+#: (a) the dense backend on ranks: N the largest of DENSE_NODES whose dense
+#: step at one rank the dry run fits under DENSE_PEAK_GB (as phase 18 picks
+#: its N; on the CPU the qwen3 slice's dense step at N = 8 peaks at 70.64
+#: GiB, at 4 at 35.32)
+DENSE_NODES = (8, 4, 2)
+DENSE_PEAK_GB = FAMILY_PEAK_GB
+DENSE_RANK_STEPS = 3         # steps held bit for bit to the one-process run
+DENSE_TIMED_STEPS = 5        # then timed a run
+WHOLE_LEAF_STEPS = 3         # (c) timed steps of each node, whole and split
+
+
+def dense_spec(api, n_nodes: int, steps: int = DENSE_RANK_STEPS, params=None,
+               **kw):
+    """Phase 6's slice on the dense backend over ``n_nodes`` nodes
+    (``params``: TrainerConfig fields, e.g. ``drop_rate``)."""
+    base = slice_spec(api, steps, backend="dense", params=params, **kw)
+    return dataclasses.replace(base, n_nodes=n_nodes,
+                               name=base.name.replace("ring8",
+                                                      f"ring{n_nodes}"))
+
+
+def dense_dry(spec, world: int):
+    """The dry record of ``spec``'s step on ranks of a ``world``-rank mesh
+    (``repro_torch.launch.dryrun``, on ``meta``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.obs import roofline
+    return dryrun.dry_train(spec.model.build(), roofline.train_shape(spec),
+                            mesh_mod.Mesh((spec.n_nodes, 1)), spec=spec,
+                            placement="ranks", world=world)
+
+
+def dense_nodes(api, nodes=DENSE_NODES, peak_gb=DENSE_PEAK_GB, **kw):
+    """(N, [(n, dry peak GiB) tried]): the largest n of ``nodes`` whose
+    dense step on one rank the dry run fits under ``peak_gb``."""
+    tried = []
+    for n in nodes:
+        peak = dense_dry(dense_spec(api, n, **kw), 1)["memory"][
+            "peak_bytes"] / 2 ** 30
+        tried.append((n, peak))
+        if peak < peak_gb:
+            return n, tried
+    require(False, f"no dense step fits {peak_gb} GiB: {tried}")
+
+
+def dense_rank_run(torch, api, draws_mod, tree, qk, errs, spec, pm, *,
+                   device: str = "cuda", steps: int = DENSE_RANK_STEPS,
+                   timed: int = DENSE_TIMED_STEPS):
+    """Phase 19 (a), one run: ``spec`` (the dense backend) on the rank of
+    ``pm`` (its ``ag`` a ``DistAG``, its mixer a ``RowsMixer``) against
+    the one-process run.  ``steps`` steps from the same state: each step's
+    gradient once (the rank's forward and backward, the one-process
+    program's), then the one-process update and the rank's from the same
+    state and gradient with two generators seeded alike, their X, D, H
+    and Hw BIT FOR BIT equal (the one-process result waits on the host
+    where three states do not fit TP_TF_CARD_SHARE of the card,
+    :func:`host_parking`), every B1 and B2 launch of the rank's first
+    update bit for bit its plain version (:func:`checked_qinf_kernels`);
+    then ``timed`` full rank steps (``TrainerRunner.step``) with the launch
+    counters zeroed just before and read just after: B1 and B2 once a
+    leaf a step, the loss finite, the median step and the peak; then the
+    counts of one more step (``dryrun.counted_step``: FLOPs, ATen bytes,
+    every collective's bytes) beside its dry run at this world."""
+    from repro_torch.core.comm import RowsMixer
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.decentralized import TrainState
+    from repro_torch.optim.wire import DistAG
+    one = api.build_trainer_runner(spec, device=device)
+    rank = api.build_trainer_runner(spec, device=device, process_mesh=pm)
+    tr = rank.trainer
+    require(isinstance(tr.ag, DistAG) and isinstance(tr.alg.mixer,
+                                                     RowsMixer),
+            f"{spec.name}: the rank's seams are {tr.ag} and {tr.alg.mixer}")
+    data = one.default_data()
+    dw = draws_mod.GeneratorDraws(spec.seed, device)
+    dr = draws_mod.GeneratorDraws(spec.seed, device)
+    t0 = time.perf_counter()
+    state = rank.init_state()          # the rank's fault stream afresh
+    one.trainer.start_fault_stream()   # and the one-process run's
+    n_leaves = len(tree.leaves(state.plead.X))
+    p = state.plead
+    state_bytes = sum(nbytes(*tree.leaves(t))
+                      for t in (p.X, p.D, p.comm.H, p.comm.Hw))
+    del p
+    # the one-process result waits on the host unless three states fit
+    on_card = device != "cuda" or 3 * state_bytes <= TP_TF_CARD_SHARE * \
+        torch.cuda.get_device_properties(0).total_memory
+    park = host_parking(torch, device, on_card)
+    checked = []
+    for k in range(steps):
+        batch = data.batch_at(k)
+        _, G = tr.loss_and_grad(state.plead.X, batch)
+        ref_ = one.trainer.alg.update(state.plead,
+                                      tree.tree_map(torch.clone, G), dw)
+        want = [[park(x) for x in tree.leaves(t)]
+                for t in (ref_.X, ref_.D, ref_.comm.H, ref_.comm.Hw)]
+        del ref_
+        if k == 0:
+            with checked_qinf_kernels(torch, ops, qk, ref, errs,
+                                      f"at {spec.name}'s rank") as checked:
+                new = tr.alg.update(state.plead, G, dr)
+            require(sorted(c[0] for c in checked) == sorted(
+                [B1, B2] * n_leaves), f"{spec.name}: the rank's update "
+                    f"launched {[c[0] for c in checked]}, want one B1 and "
+                    f"one B2 a leaf ({n_leaves})")
+        else:
+            new = tr.alg.update(state.plead, G, dr)
+        del G
+        differ = [(name, j) for name, t, w in zip(
+            ("X", "D", "H", "Hw"), (new.X, new.D, new.comm.H, new.comm.Hw),
+            want) for j, (a, b) in enumerate(zip(tree.leaves(t), w))
+            if not torch.equal(park(a), b)]
+        require(not differ, f"{spec.name} step {k}: the rank's (tree, leaf) "
+                f"{differ} differ from the one-process run's")
+        del want
+        state = TrainState(new, state.step + 1, None)
+        del new
+    release_host_cache(torch, device)
+    checked_s = time.perf_counter() - t0
+    del one
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    qk.reset_launch_counts()
+    step_s, losses = [], []
+    for k in range(steps, steps + timed):
+        t1 = time.perf_counter()
+        state, m = rank.step(state, data.batch_at(k), dr)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t1)
+    launches = qk.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device == "cuda" else 0.0)
+    require(device != "cuda" or (launches[B1] == timed * n_leaves
+                                 and launches[B2] == timed * n_leaves),
+            f"{spec.name}: launches {launches} != one B1 and one B2 a leaf "
+            f"({n_leaves}) a step for {timed} steps")
+    require(all(map(math.isfinite, losses)), f"non-finite loss {losses}")
+    real, _, _, _ = dryrun.counted_step(tr, [state],
+                                        data.batch_at(steps + timed), dr)
+    dry = dense_dry(spec, pm.world)
+    dr_ = dry["roofline"]
+    counts = {"flops": (dr_["hlo_flops_raw"], real.flops),
+              "aten_bytes": (dr_["hlo_bytes_raw"], real.aten_bytes),
+              "all_gather_bytes": (dry["all_gather_bytes"],
+                                   real.coll["all-gather"])}
+    # the CPU's plain kernels move other bytes than the card's
+    require(all(d == r for k, (d, r) in counts.items()
+                if device == "cuda" or k != "aten_bytes"),
+            f"{spec.name}: the dry run's counts differ from the rank's "
+            f"step's (dry, real): {counts}")
+    step_s.sort()
+    return {"spec": spec.name, "n_nodes": spec.n_nodes, "world": pm.world,
+            "leaves": n_leaves, "bit_equal_steps": steps,
+            "kernels_checked": checked,
+            "checked_s": checked_s, "checked_on_card": on_card,
+            "launches": launches,
+            "launches_per_step": {k: v / timed for k, v in launches.items()},
+            "losses": losses, "step_ms_median": 1e3 * step_s[len(step_s) // 2],
+            "step_ms_min": 1e3 * step_s[0], "peak_mem_gb": peak,
+            "counts": counts, "dry_peak_gb": dry["memory"]["peak_bytes"]
+            / 2 ** 30}
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for the process group's rendezvous."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def dense_rank_phase(torch, api, draws_mod, tree, qk, errs,
+                     device: str = "cuda",
+                     peak_gb: float = DENSE_PEAK_GB, **kw):
+    """Phase 19 (a): a one-rank process group (NCCL on the card: the
+    machine has one card, and NCCL refuses two ranks on one device; gloo
+    on the CPU), the node axis on a ``ProcessMesh`` of world 1, so every
+    node is this rank's and its ``DistAG`` gathers through
+    ``all_gather_into_tensor``; N from :func:`dense_nodes`; the plain run
+    and one under ``drop_rate`` = DROP_RATE (:func:`dense_rank_run`).  A
+    failed init or collective fails the run.  Besides: the bytes a rank
+    would receive at one node a rank (the dry run at world N) against a
+    host recount, (N - 1) x a node's leaf bytes a step."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    N, tried = dense_nodes(api, peak_gb=peak_gb, **kw)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    runs = []
+    try:
+        for params in (None, {"drop_rate": DROP_RATE}):
+            spec = dense_spec(api, N, params=params, **kw)
+            pm = mesh_mod.ProcessMesh(mesh_mod.Mesh((N, 1)), rank=0,
+                                      world=1)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            runs.append(dense_rank_run(torch, api, draws_mod, tree, qk, errs,
+                                       spec, pm, device=device))
+    finally:
+        dist.destroy_process_group()
+    spec = dense_spec(api, N, **kw)
+    per_node = sum(p.numel() * p.element_size() for p in tree.leaves(
+        api.build_trainer_runner(spec, device="meta").trainer
+        .abstract_state().plead.X)) // N
+    at_n = dense_dry(spec, N)["all_gather_bytes"]
+    require(at_n == (N - 1) * per_node, f"{spec.name}: the dry all-gather "
+            f"at one node a rank {at_n} != (N - 1) x {per_node}")
+    return {"n_nodes": N, "tried": tried, "runs": runs,
+            "all_gather_bytes_one_node_a_rank": at_n,
+            "node_leaf_bytes": per_node}
+
+
+def whole_leaf_spec(api, mode: str, mesh=None, **kw):
+    """Phase 6's slice on ``mesh`` (default phase 17 (a)'s (8, 2)) with
+    the per-leaf wire (``mode`` "per_leaf") or on the dense backend."""
+    base = slice_spec(api, WHOLE_LEAF_STEPS,
+                      backend="dense" if mode == "dense" else "neighbor",
+                      **kw)
+    if mode == "per_leaf":
+        base = dataclasses.replace(
+            base, name=base.name + "-per_leaf",
+            execution=dataclasses.replace(base.execution,
+                                          wire_mode="per_leaf"))
+    return tp_spec(api, mesh or MESH_8X2, spec=base)
+
+
+def timed_trainer(torch, runner, draws_mod, qk, steps: int,
+                  device: str = "cuda"):
+    """``steps`` steps of ``runner`` from a fresh state: the median step,
+    the peak and the launches (counters zeroed just before the first)."""
+    state = runner.init_state()
+    data = runner.default_data()
+    draws = draws_mod.GeneratorDraws(runner.spec.seed, runner.device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    qk.reset_launch_counts()
+    step_s, losses = [], []
+    for k in range(steps):
+        t1 = time.perf_counter()
+        state, m = runner.step(state, data.batch_at(k), draws)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t1)
+    launches = qk.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device == "cuda" else 0.0)
+    require(all(map(math.isfinite, losses)), f"non-finite loss {losses}")
+    del state
+    step_s.sort()
+    return {"step_ms_median": 1e3 * step_s[len(step_s) // 2],
+            "launches": launches, "peak_mem_gb": peak, "losses": losses}
+
+
+def whole_leaf_phase(torch, api, draws_mod, tree, qk, ref, errs,
+                     device: str = "cuda", steps: int = WHOLE_LEAF_STEPS,
+                     tf_steps: int = TP_TF_STEPS, mesh=None, **kw):
+    """Phase 19 (c): phase 17 (a)'s split node (``StackedTP(2)`` at (8,
+    2)) with the per-leaf wire and on the dense backend: ``tf_steps``
+    steps teacher-forced against the whole-node step of the same mode
+    (:func:`tp_teacher_forced`, C4's bar), ``bits_per_step`` equal to the
+    whole node's, every B1 and B2 launch of the first split step bit for
+    bit its plain version, then ``steps`` timed steps of the split node and of the whole node:
+    B1 once a leaf a step, B2 once a leaf (dense) or 1 + hops times a leaf
+    (the per-leaf wire: its own payload and each hop's), the median step
+    and the peak."""
+    from repro_torch.models.tp import StackedTP
+    out = []
+    for mode in ("per_leaf", "dense"):
+        spec = whole_leaf_spec(api, mode, mesh, **kw)
+        M = spec.execution.mesh[1]
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        tf = tp_teacher_forced(torch, api, draws_mod, tree, qk, ref, errs,
+                               spec, M, steps=tf_steps, device=device)
+        rec = {"mode": mode, "spec": spec.name, "M": M,
+               "teacher_forced": tf}
+        for key, tp in (("tp", StackedTP(M)), ("whole", None)):
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            runner = api.build_trainer_runner(spec, device=device, tp=tp)
+            tr = runner.trainer
+            rec[f"bits_{key}"] = runner.bits_per_step()
+            x = timed_trainer(torch, runner, draws_mod, qk, steps, device)
+            n_leaves = len(tr.leaf_specs)
+            per_leaf_b2 = 1 + (len(tr.plan.hops) if tr.plan else 0)
+            require(device != "cuda" or (
+                x["launches"][B1] == steps * n_leaves
+                and x["launches"][B2] == steps * n_leaves * per_leaf_b2),
+                f"{spec.name} ({key}): launches {x['launches']} != "
+                f"{n_leaves} B1 and {n_leaves * per_leaf_b2} B2 a step")
+            rec[key] = x
+            del runner, tr
+        require(rec["bits_tp"] == rec["bits_whole"],
+                f"{spec.name}: bits_per_step {rec['bits_tp']} split, "
+                f"{rec['bits_whole']} whole")
+        out.append(rec)
+    return out
+
+
+def dense_phase(torch, api, configs, draws_mod, tree, qk, ref, errs, smi,
+                dense19=()):
+    """Phase 19 (a)-(c) (see the module docstring); ``dense19``: (b)'s
+    records, from phase 16 (b)'s sweep.  -> the phase's results."""
+    t0 = time.perf_counter()
+    p19 = {"a": dense_rank_phase(torch, api, draws_mod, tree, qk, errs)}
+    a = p19["a"]
+    print(f"[dense] (19a) N = {a['n_nodes']} (dry peaks on one rank, GiB: "
+          f"{[(n, round(g, 2)) for n, g in a['tried']]}; the largest under "
+          f"{DENSE_PEAK_GB}); a one-rank NCCL group, DistAG through "
+          f"all_gather_into_tensor | {smi}", flush=True)
+    for r in a["runs"]:
+        c = r["counts"]
+        print(f"[dense] (19a) {r['spec']}: {r['bit_equal_steps']} steps "
+              f"bit for bit the one-process run (X, D, H, Hw; "
+              f"{r['checked_s']:.1f} s), the first update's "
+              f"{len(r['kernels_checked'])} B1/B2 launches bit-equal to "
+              f"the plain versions; B1 {r['launches_per_step'][B1]:.0f}"
+              f" and B2 {r['launches_per_step'][B2]:.0f} launches a step "
+              f"({r['leaves']} leaves); step {r['step_ms_median']:.1f} ms "
+              f"median ({r['step_ms_min']:.1f} min), peak "
+              f"{r['peak_mem_gb']:.2f} GiB (dry {r['dry_peak_gb']:.2f}); "
+              f"losses {[round(x_, 6) for x_ in r['losses']]} | {smi}",
+              flush=True)
+        print(f"[dense] (19b) {r['spec']} dry at world {r['world']} = real:"
+              f" FLOPs {c['flops'][0]:.6e} = {c['flops'][1]:.6e}, ATen "
+              f"bytes {c['aten_bytes'][0]:.6e} = {c['aten_bytes'][1]:.6e}, "
+              f"all-gather bytes received {c['all_gather_bytes'][0]:,.0f} = "
+              f"{c['all_gather_bytes'][1]:,.0f} (one rank holds every node)",
+              flush=True)
+    print(f"[dense] (19b) at one node a rank (world {a['n_nodes']}) a rank "
+          f"receives {a['all_gather_bytes_one_node_a_rank']:,} B a step = "
+          f"(N - 1) x {a['node_leaf_bytes']:,} B (a node's leaves, host "
+          f"recount)", flush=True)
+    want = {(r, "train_4k", "1pod"): "ok" for r, *_ in
+            dense_dry_jobs(configs.ARCH_IDS)}
+    got = {(r["arch"], r["shape"], r["mesh"]): r["status"] for r in dense19}
+    require(got == want, f"dense dry runs: got {got}, want {want}")
+    require(all(r["placement"] == "ranks" and r["all_gather_bytes"] > 0
+                for r in dense19), "a dense dry run not on ranks")
+    for r in dense19:
+        print(dense_dry_line(r), flush=True)
+    p19["b"] = dense19
+    torch.cuda.empty_cache()
+    p19["c"] = whole_leaf_phase(torch, api, draws_mod, tree, qk, ref, errs)
+    for r in p19["c"]:
+        tf = r["teacher_forced"]
+        print(f"[dense] (19c) {r['spec']} ({r['mode']}) under "
+              f"StackedTP({r['M']}): {tf['steps']} steps teacher-forced "
+              f"against the whole-node step: worst off fraction "
+              f"{tf['worst_off_fraction']:.2e}, worst |diff|/max "
+              f"{tf['worst_rel_max']:.2e}, losses (whole, split) "
+              f"{tf['losses']}, {tf['seconds']:.1f} s (states on the card: "
+              f"{tf['states_on_card']}), the first split step's "
+              f"{len(tf['wire_checked'])} B1/B2 launches bit-equal to the "
+              f"plain versions; bits_per_step {r['bits_tp']:.0f} = the "
+              f"whole node's {r['bits_whole']:.0f}; step "
+              f"{r['tp']['step_ms_median']:.1f} ms median, peak "
+              f"{r['tp']['peak_mem_gb']:.2f} GiB (whole node "
+              f"{r['whole']['step_ms_median']:.1f} ms, "
+              f"{r['whole']['peak_mem_gb']:.2f} GiB); B1, B2 launches a "
+              f"step {r['tp']['launches'][B1] // WHOLE_LEAF_STEPS}, "
+              f"{r['tp']['launches'][B2] // WHOLE_LEAF_STEPS} | {smi}",
+              flush=True)
+    p19["seconds"] = time.perf_counter() - t0
+    print(f"[dense] phase {p19['seconds']:.1f} s (19b's dry runs ran with "
+          f"phase 16's; {', '.join(DRY_LOOPED)} x train_4k by the CLI only)"
+          f"; several cards not run here: one card, and NCCL refuses two "
+          f"ranks on one device | {smi}", flush=True)
+    return p19
 
 
 def main() -> int:
@@ -4451,7 +4995,10 @@ def main() -> int:
                   f"{ {k: v['calls'] for k, v in da['kernels'].items()} } "
                   f"| {smi}", flush=True)
         torch.cuda.empty_cache()
-        recs, sweep_s = dry_sweep()
+        recs, sweep_s = dry_sweep(jobs=dry_sweep_jobs(configs.ARCH_IDS)
+                                  + dense_dry_jobs(configs.ARCH_IDS))
+        dense19 = [r for r in recs if r["backend"] == "dense"]
+        recs = [r for r in recs if r["backend"] != "dense"]
         for r in recs:
             print(dry_line(r), flush=True)
         status = [r["status"] for r in recs]
@@ -4470,7 +5017,8 @@ def main() -> int:
         print(f"[dryrun] (16b) {len(recs)} combos: {status.count('ok')} ok, "
               f"{status.count('skipped')} skipped (the reference's skips), "
               f"0 errors, in {sweep_s:.1f} s "
-              f"({len(dry_sweep_jobs(configs.ARCH_IDS))} processes; "
+              f"({len(dry_sweep_jobs(configs.ARCH_IDS))} processes, with "
+              f"phase 19 (b)'s {len(dense19)} beside them; "
               f"{', '.join(DRY_LOOPED)} x train_4k, prefill_32k by the CLI "
               f"only); phase "
               f"{dr16['seconds']:.1f} s | {smi}", flush=True)
@@ -4486,6 +5034,12 @@ def main() -> int:
         p18 = tp_recurrent_phase(torch, api, configs, draws_mod, tree, TR,
                                  serve, qk, ref, errs, smi, sv)
         result["tp_recurrent"] = p18
+
+        # 19. the dense backend on ranks; whole-leaf mixing on a split node
+        torch.cuda.empty_cache()
+        p19 = dense_phase(torch, api, configs, draws_mod, tree, qk, ref,
+                          errs, smi, dense19)
+        result["dense"] = p19
 
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -4517,6 +5071,11 @@ def main() -> int:
             if name_ == "qinf_quantize_blocks":
                 extra["main_path_leaf"] = b1_main
                 extra["per_point_levels"] = sw["b1_point_levels"]
+            extra["dense_rank_launches"] = {
+                r["spec"]: r["launches"][name_] for r in p19["a"]["runs"]}
+            extra["whole_leaf_launches"] = {
+                f"{r['spec']}/{key}": r[key]["launches"][name_]
+                for r in p19["c"] for key in ("tp", "whole")}
         else:                          # B3/B4: the trainer path
             m, launches = wtimes[name_], sp["launches"][name_]
             extra = {"scheduled_launches": ss["launches"][name_]}

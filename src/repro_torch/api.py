@@ -920,9 +920,9 @@ class TrainerRunner(Runner):
             num_steps = sp.steps if sp else 0
         if data is None:
             data = self.default_data()
-        if draws is None:             # a DistTP rank: its two streams
+        if draws is None:             # a rank: its own and shared streams
             draws = tp_rank_draws(self.trainer.tp, sp.seed if sp else 0,
-                                  self.device)
+                                  self.device, self.trainer.process_mesh)
         meters = Meters()
         with using_meters(meters), span("run_total", self.device) as tsp:
             if state is None:
@@ -965,9 +965,11 @@ class TrainerRunner(Runner):
         out-degree.  Without a state the count comes from the parameter
         shapes alone (``meta`` tensors, nothing allocated)."""
         tr = self.trainer
-        if state is not None or tr.tp.M > 1:
+        if tr.plan is not None and (state is not None or tr.tp.M > 1):
             leaves = tree.leaves((state or tr.abstract_state()).plead.X)
-        else:
+        elif state is not None and not tr.splits:
+            leaves = tree.leaves(state.plead.X)
+        else:                         # a node's whole leaves, by shape
             N = tr.tcfg.n_nodes
             leaves = [torch.empty((N,) + tuple(p.shape), dtype=p.dtype,
                                   device="meta")
@@ -1074,7 +1076,7 @@ def spec_mesh(spec: ExperimentSpec) -> Optional[Mesh]:
 def build_trainer_runner(spec: ExperimentSpec, *, device,
                          dtype: Optional[torch.dtype] = None,
                          model_cfg: Optional[TR.ModelConfig] = None,
-                         pp=None, process_mesh=None, tp=None
+                         pp=None, process_mesh=None, tp=None, ag=None
                          ) -> TrainerRunner:
     """The sharded engine on ``device``, with an optional prebuilt
     ModelConfig, exchange seam ``pp`` (default: the one-card
@@ -1086,11 +1088,12 @@ def build_trainer_runner(spec: ExperimentSpec, *, device,
     model rank, a tensor-parallel node over ranks) and ``tp`` (the
     tensor-parallel seam, ``repro_torch.models.tp``: ``StackedTP(M)`` runs
     a node's M model ranks in this process; default ``DistTP`` over a
-    TPProcessMesh, else a node's products run whole).  The spec's mesh
-    sets the model shards of the bucketed wire and the tp seam's M.  At M
-    > 1 every family builds (RWKV-6 where M divides its heads); the dense
-    backend, the per-leaf wire and identity compression are refused
-    here, at build."""
+    TPProcessMesh, else a node's products run whole) and ``ag`` (the dense
+    backend's node-axis all-gather seam: default :class:`repro_torch.optim.
+    wire.DistAG` over ``process_mesh``'s node axis, else the one-process
+    seam).  The spec's mesh sets the model shards of the bucketed wire
+    and the tp seam's M.  At M > 1 every family builds (RWKV-6 where M
+    divides its heads), on either backend and wire mode."""
     if model_cfg is None:
         if spec.model is None:
             raise ValueError(
@@ -1100,7 +1103,7 @@ def build_trainer_runner(spec: ExperimentSpec, *, device,
         model_cfg = dataclasses.replace(model_cfg, dtype=dtype)
     trainer = dec.DecentralizedTrainer(
         model_cfg, trainer_config_from_spec(spec), device=device, pp=pp,
-        mesh=spec_mesh(spec), process_mesh=process_mesh, tp=tp)
+        mesh=spec_mesh(spec), process_mesh=process_mesh, tp=tp, ag=ag)
     return TrainerRunner(trainer, spec=spec)
 
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,9 +110,66 @@ class DenseMixer(Mixer):
                 _exact_stochastic(np.asarray(self.W), dtype), device=device)
         return self._cache[key]
 
+    def W_k(self, k, dtype: torch.dtype, device) -> torch.Tensor:
+        """W in ``dtype`` on ``device`` (static: ``k`` is ignored)."""
+        return self._w(dtype, device)
+
     def mix_leaf(self, leaf: torch.Tensor, k=None) -> torch.Tensor:
         acc = acc_dtype(leaf.dtype)
         return mix_with(self._w(acc, leaf.device), leaf, self.node_axis)
+
+
+class RowsMixer(Mixer):
+    """A process's part of ``inner``'s mixing: rows [lo, hi) of W_k X,
+    X the leaf gathered over the node axis (``gather``: the ``ag(x)``
+    seam of :mod:`repro_torch.optim.wire`, this process's rows -> every
+    node's), where a rank holds the node block [lo, hi).  The rank keeps
+    its rows of each column piece of the whole product W_k X
+    (:func:`mix_with` with ``rows``): the one-process run's products, bit
+    for bit, at the cost of the whole product's FLOPs on every rank.  On
+    a split node a leaf holds ``per_node`` rank-rows a node (``n M +
+    m``): each model rank's rows mix on their own, so rank-row (n, m)
+    takes row n of W_k against model rank m of every node.  ``inner``: a
+    :class:`DenseMixer`, or a netsim ``ScheduledMixer``/``SimMixer``,
+    whose round's draws (fault masks) every process makes whole, from its
+    own copy of the stream.  Gathers one leaf at a time; its transient
+    holds the gathered leaf, one piece of the product and the rank's
+    rows."""
+
+    def __init__(self, inner: Mixer, gather, lo: int, hi: int,
+                 per_node: int = 1) -> None:
+        self.inner, self.gather = inner, gather
+        self.lo, self.hi, self.per_node = lo, hi, per_node
+
+    @property
+    def recompute_hw(self) -> bool:
+        return self.inner.recompute_hw
+
+    def _own(self, W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return mix_with(W, self.gather(x), rows=(self.lo, self.hi))
+
+    def _rows(self, W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if self.per_node == 1:
+            return self._own(W, x)
+        v = x.unflatten(0, (x.shape[0] // self.per_node, self.per_node))
+        return torch.stack([self._own(W, v[:, m].contiguous())
+                            for m in range(self.per_node)], 1).flatten(0, 1)
+
+    def mix_leaf(self, leaf, k=None):
+        return self._rows(
+            self.inner.W_k(k, acc_dtype(leaf.dtype), leaf.device), leaf)
+
+    def send_mask(self, k=None):
+        send = self.inner.send_mask(k)
+        if send is None:
+            return None
+        return send[self.lo:self.hi].repeat_interleave(self.per_node)
+
+    def comm_mix(self, h, q, k=None, leaf_idx=0):
+        acc = acc_dtype(h.dtype)
+        payload = self.inner.comm_payload(h, q, k, leaf_idx)
+        return self._rows(self.inner.comm_W(k, acc, h.device),
+                          payload).to(h.dtype)
 
 
 def coef(v, like: torch.Tensor):
@@ -130,19 +187,44 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def mix_with(W: torch.Tensor, leaf: torch.Tensor,
-             node_axis: int = 0) -> torch.Tensor:
+#: a product along node axis 0 is made this many bytes of its result at a
+#: time (column pieces of the leaf): a process that keeps some rows of it
+#: holds one piece of the whole product, not a second whole leaf
+MIX_PIECE_BYTES = 1 << 28
+
+
+def mix_with(W: torch.Tensor, leaf: torch.Tensor, node_axis: int = 0,
+             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """W (n, n) applied along the node axis of ``leaf`` (the leading one,
     or the one after a stacked grid's point axis: one batched product for
     every point), in W's dtype, the result cast back to the leaf's.  Under
     a point axis W may also be (P, n, n), one matrix a point (a netsim
-    grid's fault-masked W_k)."""
-    x = leaf.to(W.dtype)
-    if node_axis == 0:
-        return torch.tensordot(W, x, dims=([1], [0])).to(leaf.dtype)
-    n, rest = x.shape[node_axis], math.prod(x.shape[node_axis + 1:])
-    out = torch.matmul(W, x.reshape(-1, n, rest))
-    return out.reshape(x.shape).to(leaf.dtype)
+    grid's fault-masked W_k).
+
+    Along node axis 0 the leaf's columns (its trailing dims flattened) are
+    multiplied MIX_PIECE_BYTES of the result at a time, each piece by the
+    whole W.  ``rows`` (lo, hi) keeps rows [lo, hi) of each piece: the
+    same products as the whole result's, so they equal its rows bit for
+    bit on any device (a product of W's rows alone is not the same
+    computation: one row of an (8, 8) f32 W against 256 columns rounded
+    otherwise on the CPU)."""
+    if node_axis != 0:
+        x = leaf.to(W.dtype)
+        n, rest = x.shape[node_axis], math.prod(x.shape[node_axis + 1:])
+        out = torch.matmul(W, x.reshape(-1, n, rest))
+        return out.reshape(x.shape).to(leaf.dtype)
+    n = leaf.shape[0]
+    lo, hi = rows or (0, n)
+    x = leaf.reshape(n, -1)
+    cols = x.shape[1]
+    piece = max(1, MIX_PIECE_BYTES // (n * W.element_size()))
+    if (lo, hi) == (0, n) and cols <= piece:
+        return (W @ x.to(W.dtype)).reshape(leaf.shape).to(leaf.dtype)
+    out = torch.empty((hi - lo, cols), dtype=leaf.dtype, device=leaf.device)
+    for c0 in range(0, cols, piece):
+        c1 = min(c0 + piece, cols)
+        out[:, c0:c1] = (W @ x[:, c0:c1].to(W.dtype))[lo:hi]
+    return out.reshape((hi - lo,) + tuple(leaf.shape[1:]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,8 +321,8 @@ def comm(Z, state: CommState, alpha: float, compressor: Compressor,
     zhat, zhat_w, newH, newHw = [], [], [], []
     for j, (z, h, hw) in enumerate(zip(leaves_Z, leaves_H, leaves_Hw)):
         diff = z - h
-        q = diff if isinstance(compressor, Identity) else compressor(diff,
-                                                                     draws)
+        q = (diff if isinstance(compressor, Identity)
+             else compressor.q_leaf(diff, draws, j))
         if send is not None:
             # a straggler skipped its send: its Q is dropped everywhere
             # (wire AND its own H update), so the replicas stay consistent

@@ -70,6 +70,14 @@ class Compressor:
         """Q(x): compress-then-decompress (the mathematical operator)."""
         return self.decompress(self.compress(x, draws), x.shape, x.dtype)
 
+    def q_leaf(self, x: torch.Tensor, draws: Draws, leaf_idx: int
+               ) -> torch.Tensor:
+        """Q of the state's leaf ``leaf_idx`` (COMM asks leaf by leaf, in
+        leaf order): the operator itself, unless a compressor's view
+        depends on the leaf (a rank's part of a split leaf,
+        ``repro_torch.optim.decentralized``)."""
+        return self(x, draws)
+
     def payload_bits(self, shape, dtype=torch.float32) -> int:
         """Exact number of wire bits for a tensor of ``shape``."""
         raise NotImplementedError

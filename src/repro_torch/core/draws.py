@@ -28,8 +28,10 @@ any strides) in place and returns it: the neighbor-gossip backend draws
 each leaf's noise straight into its bucket group's row table.
 
 ``shared()`` is the source the model ranks of a tensor-parallel node
-share for its model-replicated leaves (``repro_torch.optim.wire``): the
-source itself, except for :class:`TPRankDraws`.
+share for its model-replicated leaves (``repro_torch.optim.wire``), and
+``common()`` the source every process of a run shares, from which RandK
+and TopK draw on a leaf stacked over every node: each is the source
+itself, except for :class:`TPRankDraws`.
 
 :class:`StackedDraws` serves a stacked grid (``repro_torch.sweep``): P
 sources, one a grid point, each point drawing from its own stream what
@@ -63,6 +65,10 @@ class Draws:
 
     def shared(self) -> "Draws":
         """The source a node's model ranks share (itself)."""
+        return self
+
+    def common(self) -> "Draws":
+        """The source every process of a run shares (itself)."""
         return self
 
 
@@ -271,14 +277,18 @@ class StackedDraws(Draws):
 
 
 class TPRankDraws(Draws):
-    """The draws of one model rank of a tensor-parallel node block
-    (``repro_torch.models.tp.DistTP``): every call from ``own`` (its
-    stream per (node block, model rank)); :meth:`shared` is ``node``, the
-    stream its block's model ranks share, from which the wire draws the
-    model-replicated leaves' noise."""
+    """The draws of one rank of a seeded run split over processes: every
+    call from ``own``, its stream per (node block, model rank) under
+    ``repro_torch.models.tp.DistTP``, its node block's on a plain
+    ``ProcessMesh``; :meth:`shared` is ``node``, the stream its block's
+    model ranks share, from which the wire draws the model-replicated
+    leaves' noise (``own`` itself where the block has one model rank);
+    :meth:`common` is ``world``, the stream every rank shares (seeded
+    alike on each), from which RandK and TopK draw on the leaf gathered
+    over every node."""
 
-    def __init__(self, own: Draws, node: Draws) -> None:
-        self.own, self.node = own, node
+    def __init__(self, own: Draws, node: Draws, world: Draws) -> None:
+        self.own, self.node, self.world = own, node, world
         self.device = own.device
 
     def randint(self, n, high):
@@ -297,3 +307,6 @@ class TPRankDraws(Draws):
 
     def shared(self) -> Draws:
         return self.node
+
+    def common(self) -> Draws:
+        return self.world

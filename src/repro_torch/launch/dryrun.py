@@ -26,17 +26,22 @@ for one TPU v5e pod of 256 chips, (pod 2, data 16, model 16) for two), as
 do its global batches and node counts (16 and 32), so a record compares
 one for one with the reference's.  On the H100 the node axis is realised
 over ranks (:class:`~repro_torch.launch.mesh.ProcessMesh`, world N, one
-node a rank, N H100s) and the model axis stays inside the rank, as the
-port places a node today: one card holds a node's 16 model shards whole
-(ROADMAP §A item 3 (c) would spread them over 16 cards;
-``state_bytes_per_model_shard`` is what each would hold).  A DGX H100
+node a rank, N H100s) and the model axis stays inside the rank: one
+card holds a node's 16 model shards whole (placement ``"tp"`` below
+spreads them over 16 cards; ``state_bytes_per_model_shard`` is what each
+would hold).  A DGX H100
 joins 8 cards by NVLink, so a 16-way model axis would span two boxes.
-The dry run takes rank 0's view (``"placement": "ranks"``): its node's
-state, its rows of the batch, the ``pp`` bytes it sends to other ranks
-(:class:`~repro_torch.optim.wire.DryDistPP`).  The dense backend does not
-split over ranks (ROADMAP §A item 3 (d)), so a dense record dry-runs all
-N nodes in one process, as the port runs them (``"placement": "one
-process"``).
+The dry run takes rank 0's view (``"placement": "ranks"``, every
+backend's default): its node's state, its rows of the batch, the ``pp``
+bytes it sends to other ranks (:class:`~repro_torch.optim.wire.DryDistPP`)
+and, on the dense backend, the bytes it receives through the node-axis
+all-gather (:class:`~repro_torch.optim.wire.DryDistAG`: every other
+node's Q of each leaf, in the leaf's dtype), ``all_gather_bytes``, which
+``t_collective`` prices over NVLink with the rest of ``coll_bytes``.  A
+rank's peak then holds the gathered leaf, N times its largest leaf, with
+one piece of the product W Q and its own rows of it
+(``core.comm.mix_with``), for the instant of its mix.
+``"one process"`` dry-runs all N nodes in one process.
 
 Placement ``"tp"`` (``--placement tp``) spreads each node over M cards
 as well: rank (0, 0) of the two-axis
@@ -106,9 +111,9 @@ from repro_torch.models import tp as tp_mod
 from repro_torch.models import transformer as TR
 from repro_torch.netsim import metrics as nmetrics
 from repro_torch.obs import roofline, roofline_gate
-from repro_torch.obs.record import (LiveBytes, RecordingAllReduce,
-                                    RecordingPP)
-from repro_torch.optim.wire import DryDistPP
+from repro_torch.obs.record import (LiveBytes, RecordingAG,
+                                    RecordingAllReduce, RecordingPP)
+from repro_torch.optim.wire import DryDistAG, DryDistPP
 
 META = torch.device("meta")
 #: one H100's device memory in bytes, ``torch.cuda.get_device_properties(0)
@@ -248,36 +253,39 @@ def counted_step(trainer, state, batch, draws=None):
     return counts, _memory(lb, result), qk.meta_call_counts(), result[0]
 
 
-def meta_trainer(spec, mesh, cfg, placement: Optional[str] = None):
+def meta_trainer(spec, mesh, cfg, placement: Optional[str] = None,
+                 world: Optional[int] = None):
     """The ``meta`` trainer of ``spec`` (a train spec on ``mesh``) at
-    ``placement`` (default: ``"ranks"`` on the neighbor backend, ``"one
-    process"`` on the dense one): on ranks, rank 0's node block, its
-    ``pp`` a recording :class:`~repro_torch.optim.wire.DryDistPP`; at
+    ``placement`` (default ``"ranks"``): on ranks, rank 0's node block,
+    its ``pp`` a recording :class:`~repro_torch.optim.wire.DryDistPP` and
+    its ``ag`` a recording :class:`~repro_torch.optim.wire.DryDistAG`; at
     ``"tp"`` rank (0, 0) of the two-axis process mesh, one model shard of
-    one node, its ``tp`` a :class:`~repro_torch.models.tp.DryDistTP`; at
-    ``"tp one process"`` every rank-row under ``StackedTP``; always a
-    recording metric all-reduce that sums nothing.  -> (trainer,
-    placement)."""
-    placement = placement or ("one process"
-                              if spec.execution.backend == "dense"
-                              else "ranks")
+    one node, its ``tp`` a :class:`~repro_torch.models.tp.DryDistTP`, its
+    ``pp`` and ``ag`` over its node group; at ``"tp one process"`` every
+    rank-row under ``StackedTP``; always a recording metric all-reduce
+    that sums nothing.  ``world``: the ranks of ``"ranks"`` (default one
+    node a rank).  -> (trainer, placement)."""
+    placement = placement or "ranks"
     if placement not in PLACEMENTS + TP_PLACEMENTS:
         raise ValueError(f"unknown placement {placement!r}; have "
                          f"{PLACEMENTS + TP_PLACEMENTS}")
-    pm = pp = tp = None
+    pm = pp = tp = ag = None
     M = sharding.model_axis_size(mesh)
-    if placement == "ranks":
-        pm = mesh_mod.ProcessMesh(mesh, rank=0, world=spec.n_nodes)
-        pp = RecordingPP(DryDistPP(pm), process_mesh=pm)
-    elif placement == "tp":
-        pm = mesh_mod.TPProcessMesh(mesh, rank=0, world=spec.n_nodes * M,
-                                    groups=False)
-        pp = RecordingPP(DryDistPP(pm.node_mesh), process_mesh=pm.node_mesh)
-        tp = tp_mod.DryDistTP(pm)
+    if placement in ("ranks", "tp"):
+        if placement == "ranks":
+            pm = node = mesh_mod.ProcessMesh(mesh, rank=0,
+                                             world=world or spec.n_nodes)
+        else:
+            pm = mesh_mod.TPProcessMesh(mesh, rank=0,
+                                        world=spec.n_nodes * M, groups=False)
+            node = pm.node_mesh
+            tp = tp_mod.DryDistTP(pm)
+        pp = RecordingPP(DryDistPP(node), process_mesh=node)
+        ag = RecordingAG(DryDistAG(node), process_mesh=node)
     elif placement == "tp one process":
         tp = tp_mod.StackedTP(M)
     tr = api.build_trainer_runner(spec, device=META, model_cfg=cfg, pp=pp,
-                                  process_mesh=pm, tp=tp).trainer
+                                  process_mesh=pm, tp=tp, ag=ag).trainer
     tr.all_reduce = RecordingAllReduce()
     return tr, placement
 
@@ -285,16 +293,17 @@ def meta_trainer(spec, mesh, cfg, placement: Optional[str] = None):
 def dry_train(cfg, shape, mesh, *, backend: str = "neighbor", bits: int = 2,
               pack_mode: str = "lastdim", shard_aligned_blocks: bool = False,
               topology: str = "ring", placement: Optional[str] = None,
-              spec=None) -> dict:
+              spec=None, world: Optional[int] = None) -> dict:
     """The train record of ``cfg`` at ``shape`` on ``mesh`` (see the
-    module docstring; ``placement`` as :func:`meta_trainer`); ``spec``
-    replaces the dry-run spec (its mesh and nodes rule)."""
+    module docstring; ``placement`` and ``world`` as
+    :func:`meta_trainer`); ``spec`` replaces the dry-run spec (its mesh
+    and nodes rule)."""
     spec = spec or train_spec(cfg, mesh, backend=backend, bits=bits,
                               pack_mode=pack_mode,
                               shard_aligned_blocks=shard_aligned_blocks,
                               topology=topology)
     N = spec.n_nodes
-    tr, placement = meta_trainer(spec, mesh, cfg, placement)
+    tr, placement = meta_trainer(spec, mesh, cfg, placement, world)
     n_local = tr.n_local
     batch = {k: _meta((n_local,) + tuple(s[1:]), dt) for k, (s, dt) in
              shp.train_input_specs(cfg, shape, N).items()}
@@ -309,6 +318,7 @@ def dry_train(cfg, shape, mesh, *, backend: str = "neighbor", bits: int = 2,
            "roofline": roofline.roofline_of(cfg, shape, N, cards,
                                             counts).as_dict(),
            "tp_bytes": sum(counts.tp.values()), "tp_breakdown": counts.tp,
+           "all_gather_bytes": counts.coll.get("all-gather", 0.0),
            "kernels": kernel_block(tr, calls, n_local)}
     if isinstance(tr.tp, tp_mod.DistTP):
         rec["model_shards_per_card"] = 1
@@ -487,10 +497,9 @@ def main(argv=None) -> None:
     ap.add_argument("--tag", default=None)
     ap.add_argument("--placement", default=None,
                     choices=list(PLACEMENTS + TP_PLACEMENTS),
-                    help="ranks (the neighbor backend's default: a node a "
-                         "card) | one process | tp (a node's model shards "
-                         "on M cards: rank (0, 0), world N x M) | tp one "
-                         "process")
+                    help="ranks (the default: a node a card) | one process "
+                         "| tp (a node's model shards on M cards: rank "
+                         "(0, 0), world N x M) | tp one process")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 

@@ -25,6 +25,9 @@ code sees a seam object with these operators over the model axis, each a
   all_max(x)      max forward; no gradient (the loss's detached shift).
   all_sum(x)      sum forward, identity backward (the vocab-parallel
                   loss's sums).
+  whole(x, spec)  a leaf's model-local slices joined over the ranks along
+                  the dim its spec shards (an all-gather; no gradient):
+                  how the optimizer quantizes a split leaf whole.
 
 The gradient convention is Megatron's: the M rank-rows of a node hold the
 same loss, and each backpropagates its own copy.  With f and g placed as
@@ -178,6 +181,20 @@ class TPSeam:
         consumers differ by rank."""
         return self.copy_in(self.gather_last(x))
 
+    def whole(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """A leaf's rank-rows ``(rows, *local)`` -> the node's whole leaf
+        on each rank-row ``(rows, *shape)``: a sharded leaf's slices
+        joined over the model ranks along the dim ``spec`` (the per-node
+        leaf's partition spec) shards, by an ``"all-gather"``; a
+        replicated leaf as it is.  Contiguous (kernel B1 reads it as
+        rows).  No gradient (the optimizer's view of a split leaf)."""
+        d = sharding.model_dim(spec)
+        if d is None:
+            return x
+        t = x.detach().movedim(d + 1, -1)
+        return self._collective("all-gather", self._cat_last, t) \
+            .movedim(-1, d + 1).contiguous()
+
 
 class NoTP(TPSeam):
     """M = 1: every operator is the identity and a process's rows are its
@@ -204,6 +221,9 @@ class NoTP(TPSeam):
         return x
 
     def gather_heads(self, x):
+        return x
+
+    def whole(self, x, spec):
         return x
 
     def model_index(self, n_rows: int, device) -> torch.Tensor:
@@ -359,14 +379,18 @@ class DistTP(TPSeam):
     def rank_draws(self, seed: int, device):
         """The draws of this rank in a seeded run: its own stream per
         (node block, model rank) for sharded leaves, one stream per node
-        block, shared by the block's model ranks, for replicated leaves
-        (:class:`repro_torch.core.draws.TPRankDraws`)."""
+        block, shared by the block's model ranks, for replicated leaves,
+        and one every rank shares (:func:`rank_draws`)."""
         from repro_torch.core.draws import TPRankDraws, draws_on
         b = self.pm.b
-        own = int(np.random.SeedSequence([seed, 1, b, self.m])
-                  .generate_state(1)[0])
-        node = int(np.random.SeedSequence([seed, 2, b]).generate_state(1)[0])
-        return TPRankDraws(draws_on(own, device), draws_on(node, device))
+        return TPRankDraws(draws_on(_stream(seed, 1, b, self.m), device),
+                           draws_on(_stream(seed, 2, b), device),
+                           draws_on(_stream(seed, 3), device))
+
+
+def _stream(*key: int) -> int:
+    """The seed of a rank's stream ``key`` (the run's seed first)."""
+    return int(np.random.SeedSequence(list(key)).generate_state(1)[0])
 
 
 class DryDistTP(DistTP):
@@ -377,12 +401,19 @@ class DryDistTP(DistTP):
         pass
 
 
-def rank_draws(tp, seed: int, device):
-    """The draws a seeded run of ``tp``'s process makes: a ``DistTP`` rank's
-    :meth:`DistTP.rank_draws`, else one generator seeded ``seed``."""
+def rank_draws(tp, seed: int, device, process_mesh=None):
+    """The draws a seeded run of this process makes: a ``DistTP`` rank's
+    :meth:`DistTP.rank_draws`; a rank of a plain ``ProcessMesh``
+    (``process_mesh``) its node block's own stream for what it draws row
+    by row (the oracle, QInf's noise: each node block's differs) and the
+    stream every rank shares for RandK and TopK (``Draws.common``); else
+    one generator seeded ``seed``."""
+    from repro_torch.core.draws import TPRankDraws, draws_on
     if isinstance(tp, DistTP):
         return tp.rank_draws(seed, device)
-    from repro_torch.core.draws import draws_on
+    if process_mesh is not None:
+        own = draws_on(_stream(seed, 2, process_mesh.rank), device)
+        return TPRankDraws(own, own, draws_on(_stream(seed, 3), device))
     return draws_on(seed, device)
 
 

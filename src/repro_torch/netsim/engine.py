@@ -170,11 +170,20 @@ class SimMixer(ScheduledMixer):
         return W
 
     # --- COMM-boundary channel (used when recompute_hw) -------------------
-    def comm_mix(self, h, q, k=None, leaf_idx=0):
+    def comm_W(self, k, dtype, device) -> torch.Tensor:
+        """W_k through the round's COMM link faults."""
+        return self._W(k, dtype, device, self.edge_mask_at(k, True, device))
+
+    def comm_payload(self, h, q, k=None, leaf_idx=0) -> torch.Tensor:
+        """What W_k mixes at the COMM boundary: H + Q through the channel,
+        in the mixing dtype."""
         acc = acc_dtype(h.dtype)
-        W = self._W(k, acc, h.device, self.edge_mask_at(k, True, h.device))
-        payload = h.to(acc) + self._wire(q.to(acc), k, leaf_idx)
-        return mix_with(W, payload, self.node_axis).to(h.dtype)
+        return h.to(acc) + self._wire(q.to(acc), k, leaf_idx)
+
+    def comm_mix(self, h, q, k=None, leaf_idx=0):
+        W = self.comm_W(k, acc_dtype(h.dtype), h.device)
+        return mix_with(W, self.comm_payload(h, q, k, leaf_idx),
+                        self.node_axis).to(h.dtype)
 
     # --- raw-iterate gossip (baselines mixing X / xhat directly) ----------
     def __call__(self, X, k=None):

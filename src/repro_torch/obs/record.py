@@ -5,8 +5,9 @@ contract audit (:mod:`repro_torch.check.contracts`):
 
 * :class:`StepRecorder` -- a ``TorchDispatchMode`` over a step.  It
   records the ops that produce float64, the host reads (:class:`Read`)
-  and, when asked, the bytes every op reads and writes.  A host read is
-  one of:
+  and, when asked, the bytes every op reads and writes (a collective of
+  ``torch.distributed``, a ``c10d`` op, counts on its own seam's key, not
+  here).  A host read is one of:
 
   - ``scalar``    -- ``aten._local_scalar_dense`` (``.item()``,
     ``float(t)``, ``bool(t)``): the host waits for the value;
@@ -26,6 +27,10 @@ contract audit (:mod:`repro_torch.check.contracts`):
   before handing the call on; :func:`recording_pp` puts one in a
   trainer's seam for a block.  Over a process mesh it records the bytes
   the rank sends to other ranks.
+* :class:`RecordingAG` -- an ``ag(x)`` seam (the dense backend's node-axis
+  all-gather, ``repro_torch.optim.wire``) that records each call's dtype
+  and the bytes the rank receives: every other node's rows;
+  :func:`recording_ag`.
 * :class:`RecordingAllReduce` -- the trainer's metric ``all_reduce``
   seam, recording each call's dtype and bytes; :func:`recording_all_reduce`.
 * :class:`RecordingTP` -- the ``recorder`` of a tensor-parallel seam
@@ -144,7 +149,8 @@ class StepRecorder(TorchDispatchMode):
             src = [t.device.type for t in _tensors(args[:2])]
             if any(t.device.type != s for t in outs for s in src):
                 self._read("transfer", str(func))
-        if self.count_bytes and not func.is_view:
+        if self.count_bytes and not func.is_view \
+                and func.namespace != "c10d":
             self.bytes += sum(t.numel() * t.element_size()
                               for t in _tensors((args, kwargs)))
             self.bytes += sum(t.numel() * t.element_size() for t in outs)
@@ -234,6 +240,30 @@ class RecordingPP:
         return self.inner(x, pairs)
 
 
+class RecordingAG:
+    """An ``ag(x)`` seam that records ``(dtype, bytes received)`` for
+    each call in ``calls`` and hands the call on to ``inner`` (default:
+    :func:`repro_torch.optim.wire.stacked_ag`).  The bytes are those of
+    the rows of the nodes the process does not hold (``process_mesh``'s
+    ``n_nodes - n_local`` rows; none without one)."""
+
+    def __init__(self, inner: Optional[Callable] = None,
+                 process_mesh=None) -> None:
+        self.inner = inner
+        self.process_mesh = process_mesh
+        self.calls: List[Tuple[torch.dtype, int]] = []
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.inner is None:
+            from repro_torch.optim.wire import stacked_ag
+            self.inner = stacked_ag
+        pm = self.process_mesh
+        rows = 0 if pm is None else pm.n_nodes - pm.n_local
+        row = x.numel() // x.shape[0] if x.dim() else x.numel()
+        self.calls.append((x.dtype, rows * row * x.element_size()))
+        return self.inner(x)
+
+
 class RecordingAllReduce:
     """An ``all_reduce(t, group)`` seam (the trainer's metric all-reduce)
     that records ``(dtype, bytes)`` of each call in ``calls`` and hands it
@@ -307,6 +337,25 @@ def recording_pp(trainer):
         yield rec
     finally:
         trainer.pp = rec.inner
+
+
+@contextlib.contextmanager
+def recording_ag(trainer):
+    """A :class:`RecordingAG` in ``trainer.ag`` for the block, its
+    ``calls`` empty on entry (the trainer's own when it already has one,
+    else one wrapped around its seam, over its process mesh's node axis,
+    and taken out on exit)."""
+    if isinstance(trainer.ag, RecordingAG):
+        trainer.ag.calls.clear()
+        yield trainer.ag
+        return
+    pm = trainer.process_mesh
+    rec = RecordingAG(trainer.ag, getattr(pm, "node_mesh", pm))
+    trainer.ag = rec
+    try:
+        yield rec
+    finally:
+        trainer.ag = rec.inner
 
 
 @contextlib.contextmanager

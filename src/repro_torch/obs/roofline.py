@@ -31,7 +31,9 @@ collective bytes parsed from its HLO text (loop-aware) and XLA's raw
   seam (:class:`repro_torch.obs.record.RecordingPP`), under the key
   ``"collective-permute"``: what ``jax.lax.ppermute`` moves in the
   reference; on a process mesh also the bytes of the trainer's metric
-  all-reduces (``"all-reduce"``).
+  all-reduces (``"all-reduce"``) and those the rank receives through the
+  dense backend's node-axis all-gather (``"all-gather"``,
+  :class:`repro_torch.obs.record.RecordingAG`).
 * ``tp_bytes`` -- on a tensor-parallel node (``repro_torch.models.tp``),
   the bytes one rank-row hands the model axis's collectives over the step,
   forward and backward (:class:`repro_torch.obs.record.RecordingTP`), by
@@ -257,18 +259,20 @@ def count_step(trainer, step: Callable[[], Any], tp=None
     """Run ``step()`` -- one train step of ``trainer`` -- once under
     ``FlopCounterMode``, :class:`repro_torch.obs.record.StepRecorder`
     (``count_bytes``) and recorders in the trainer's ``pp``,
-    ``all_reduce`` and ``tp`` seams (the all-reduces count on a process
-    mesh, the tp seam at M > 1; ``trainer`` None: a step with no trainer
+    ``all_reduce``, ``ag`` and ``tp`` seams (the all-reduces and the
+    all-gathers count on a process mesh, the tp seam at M > 1; ``trainer`` None: a step with no trainer
     seams, e.g. serving, whose ``tp`` seam may be given).  -> (its counts,
     what ``step`` returned)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.obs.record import (StepRecorder, recording_all_reduce,
-                                        recording_pp, recording_tp)
+    from repro_torch.obs.record import (StepRecorder, recording_ag,
+                                        recording_all_reduce, recording_pp,
+                                        recording_tp)
     with contextlib.ExitStack() as seams:
         if trainer is not None:
             rec = seams.enter_context(recording_pp(trainer))
             ar = seams.enter_context(recording_all_reduce(trainer))
+            ag = seams.enter_context(recording_ag(trainer))
             tp = trainer.tp
         tp = None if tp is None else seams.enter_context(recording_tp(tp))
         counter = FlopCounterMode(display=False)
@@ -279,6 +283,8 @@ def count_step(trainer, step: Callable[[], Any], tp=None
         coll["collective-permute"] = float(sum(b for _, b in rec.calls))
         if trainer.process_mesh is not None:
             coll["all-reduce"] = float(sum(b for _, b in ar.calls))
+            if ag.calls:
+                coll["all-gather"] = float(sum(b for _, b in ag.calls))
     return StepCounts(float(counter.get_total_flops()), float(sr.bytes),
                       coll, tp.bytes_by_kind() if tp is not None else {}
                       ), out

@@ -59,9 +59,16 @@ rank r holds the node block [lo, hi), its state, data rows and weight
 rows; the hops cross ranks through :class:`repro_torch.optim.wire.DistPP`;
 the loss and consensus metrics are all-reduced (through the trainer's
 ``all_reduce`` seam, ``torch.distributed`` by default).  Each rank draws
-the noise of its own rows.  Only the neighbor backend splits over ranks:
-the dense backend mixes all N nodes with one (N, N) ``DenseMixer`` and is
-refused with a process mesh (ROADMAP §A item 3 (d)).
+the noise of its own rows.  The dense backend splits too: a rank runs
+``ProxLEAD.update`` on its rows with a :class:`repro_torch.core.comm.
+RowsMixer`, which gathers each leaf's Q over the node axis through the
+trainer's ``ag`` seam (:class:`repro_torch.optim.wire.DistAG`, one
+``all_gather_into_tensor`` a leaf) and keeps rows [lo, hi) of W_k times it;
+under a time-varying schedule or ``drop_rate`` it gathers H + Q, every
+rank drawing the whole fault mask from its own copy of the stream seeded
+``fault_seed``.  RandK and TopK compress the node-stacked leaf as one
+vector, so a rank gathers the diff, compresses it whole with the draw
+every rank shares and keeps its rows (:class:`SplitLeafQ`).
 
 A tensor-parallel node.  With a ``tp`` seam of M > 1 model ranks
 (``repro_torch.models.tp``: ``StackedTP(M)`` in one process, ``DistTP``
@@ -73,12 +80,19 @@ and backward split over the model ranks; each rank-row backpropagates its
 copy of its node's loss, so every leaf's gradient is the node's, a
 replicated leaf's bit-equal on the M ranks.  The update packs each
 rank-row's own model-local leaves straight into the wire's rows (the
-bucketed QInf wire only); the hops go to the same m of the neighbour
-node; a replicated leaf's M copies, which draw the same noise, stay
-bit-equal.  The loss is counted once a node, the consensus over the model
-ranks with a replicated leaf counted once.  Every family runs so (RWKV-6
-where M divides its heads); refused at M > 1: the dense backend, the
-per-leaf wire and identity compression.
+bucketed QInf wire); the hops go to the same m of the neighbour node; a
+replicated leaf's M copies, which draw the same noise, stay bit-equal.
+The per-leaf wire, identity compression and the dense backend mix whole
+leaves, as the reference's partial-manual ``shard_map`` and GSPMD do: a
+rank-row gathers a sharded leaf's diff over its node's model ranks
+(``tp.whole``), quantizes the whole leaf with the node's shared draw and
+keeps its own slice (identity needs no gather); the per-leaf payloads
+then hop to the same m of the neighbour (:mod:`repro_torch.optim.wire`),
+and the dense backend mixes each model rank's slices over the node axis
+within its node group (:class:`repro_torch.core.comm.RowsMixer`).  The
+loss is counted once a node, the consensus over the model ranks with a
+replicated leaf counted once.  Every family runs so (RWKV-6 where M
+divides its heads).
 
 Dry runs.  :meth:`DecentralizedTrainer.abstract_state` is a state of
 ``meta`` tensors; a trainer built on the ``meta`` device steps it with
@@ -102,7 +116,7 @@ import torch
 from repro_torch import registry, tree
 from repro_torch.core import bucket
 from repro_torch.core import topology as topo_mod
-from repro_torch.core.comm import CommState, DenseMixer
+from repro_torch.core.comm import CommState, DenseMixer, RowsMixer
 from repro_torch.core.compression import Compressor, Identity
 from repro_torch.core.draws import Draws, draws_on
 from repro_torch.core.oracles import OracleState
@@ -112,8 +126,8 @@ from repro_torch.models import sharding
 from repro_torch.models import tp as tp_mod
 from repro_torch.models import transformer as TR
 from repro_torch.netsim import SimMixer, make_schedule
-from repro_torch.optim.wire import (WIRE_MODES, DistPP, WireExchange,
-                                    stacked_pp)
+from repro_torch.optim.wire import (WIRE_MODES, DistAG, DistPP,
+                                    WireExchange, stacked_ag, stacked_pp)
 
 #: B3/B4 pack and unpack codes of 1..7 bits (ROADMAP C10)
 WIRE_MAX_BITS = 7
@@ -182,13 +196,41 @@ class TrainState(NamedTuple):
     precond: Any = None
 
 
+class SplitLeafQ(Compressor):
+    """``inner`` where this process holds part of each leaf: its node rows
+    (ranks) and, on a split node, its model ranks' slices.  Q of leaf j is
+    this process's part of ``inner`` applied to the whole leaf: a sharded
+    leaf's diff is first gathered over the node's model ranks
+    (``tp.whole``); a row-wise ``inner`` (QInf) then quantizes each node's
+    whole leaf with the node's shared draw (``draws.shared()``), any other
+    (RandK, TopK, which act on the node-stacked leaf as one vector) the
+    leaf gathered over the node axis too (the trainer's ``ag`` seam), with
+    the draw every rank shares (``draws.common()``), and keeps its rows."""
+
+    def __init__(self, inner: Compressor, trainer) -> None:
+        self.inner, self.trainer = inner, trainer
+
+    def q_leaf(self, x, draws, leaf_idx):
+        tr = self.trainer
+        tp, spec = tr.tp, tr.leaf_specs[leaf_idx]
+        whole = tp.first_of_node(tp.whole(x, spec)).contiguous()  # (n, ...)
+        if self.inner.rowwise:
+            q = self.inner(whole, draws.shared())
+        else:
+            lo = tr.node_lo
+            q = self.inner(tr.ag(whole), draws.common())[lo:lo + tr.n_local]
+        return tp.cut([q], [spec])[0]
+
+
 class DecentralizedTrainer:
     """``mesh``: the (N, M) mesh whose model axis M the bucketed wire cuts
     each node's leaves into (default: none, M = 1; the node count is
     ``tcfg.n_nodes`` whatever the mesh says).  ``process_mesh``: this
     rank's node block, when the nodes split over a process group (its
-    ``pp`` defaults to :class:`DistPP`; the neighbor backend only).
+    ``pp`` defaults to :class:`DistPP`, its ``ag`` to :class:`DistAG`).
     ``pp``: the exchange seam (default: the one-card :func:`stacked_pp`).
+    ``ag``: the dense backend's node-axis all-gather seam (default: the
+    one-process :func:`stacked_ag`).
     ``tp``: the tensor-parallel seam (``repro_torch.models.tp``; default
     ``DistTP`` over a :class:`repro_torch.launch.mesh.TPProcessMesh`,
     else none: a node's products run whole).
@@ -197,7 +239,8 @@ class DecentralizedTrainer:
     records it)."""
 
     def __init__(self, model_cfg: TR.ModelConfig, tcfg: TrainerConfig, *,
-                 device, pp=None, mesh=None, process_mesh=None, tp=None):
+                 device, pp=None, mesh=None, process_mesh=None, tp=None,
+                 ag=None):
         self.mcfg = model_cfg
         self.tcfg = tcfg
         self.device = torch.device(device)
@@ -212,20 +255,16 @@ class DecentralizedTrainer:
         #: the tensor-parallel seam
         self.tp = tp
         if process_mesh is not None:
-            if tcfg.backend == "dense":
-                raise ValueError(
-                    "the dense backend does not split over ranks: it mixes "
-                    "all N nodes with one (N, N) DenseMixer in one process "
-                    "(a dense mixer over ranks is ROADMAP §A item 3 (d)); "
-                    "use backend='neighbor' with a process_mesh, or no "
-                    "process_mesh")
             if process_mesh.n_nodes != tcfg.n_nodes:
                 raise ValueError(
                     f"process mesh over {process_mesh.n_nodes} nodes, "
                     f"trainer of {tcfg.n_nodes}")
             pp = pp or DistPP(node_pm)
+            ag = ag or DistAG(node_pm)
         #: the exchange seam: ppermute semantics on node-stacked tensors
         self.pp = pp or stacked_pp
+        #: the node-axis all-gather seam (the dense backend's)
+        self.ag = ag or stacked_ag
         #: nodes this process holds, from node ``node_lo`` on
         self.n_local = (node_pm.n_local if node_pm is not None
                         else tcfg.n_nodes)
@@ -257,6 +296,13 @@ class DecentralizedTrainer:
             "algorithm", "prox_lead", eta=tcfg.eta, alpha=tcfg.alpha,
             gamma=tcfg.gamma, compressor=self.compressor, prox=self.prox,
             mixer=self.mixer, oracle=None, allow_biased=tcfg.allow_biased)
+        if not self.sharded and self.splits:
+            comp = self.compressor
+            if not isinstance(comp, Identity) and (tp.M > 1
+                                                   or not comp.rowwise):
+                comp = SplitLeafQ(comp, self)
+            self.alg = dataclasses.replace(
+                self.alg, mixer=self._alg_mixer(), compressor=comp)
         self._wmat = None
         if self.plan is not None:
             # (1 + n_hops, T, n): row 0 the exact-stochastic self weight,
@@ -271,27 +317,35 @@ class DecentralizedTrainer:
 
     def _check_tp(self, tp) -> None:
         """What a tensor-parallel node refuses, at build."""
-        tcfg, M = self.tcfg, tp.M
+        M = tp.M
         if self.mcfg.family == "ssm":
             from repro_torch.models import rwkv6
             rwkv6.check_tp(self.mcfg, M)
         if M != self.model_shards:
             raise ValueError(f"a tp seam of {M} model ranks on a mesh of "
                              f"{self.model_shards} model shards")
-        if (tcfg.backend not in ("neighbor", "ring")
-                or tcfg.wire_mode != "bucketed"
-                or tcfg.compressor != "qinf"):
-            raise ValueError(
-                f"a tensor-parallel node (M = {M}) runs the neighbor "
-                f"backend's bucketed QInf wire, each rank-row packing its "
-                f"own model-local leaves; backend {tcfg.backend!r}, "
-                f"wire_mode {tcfg.wire_mode!r}, compressor "
-                f"{tcfg.compressor!r} mix whole leaves (the dense backend "
-                f"over ranks is ROADMAP §A item 3 (d)); run them at M = 1")
 
     @property
     def sharded(self) -> bool:
         return self.tcfg.backend in ("ring", "neighbor")
+
+    @property
+    def splits(self) -> bool:
+        """Does this process hold part of each leaf: some of the nodes
+        (ranks) or some of a node's model shards (a split node)?"""
+        return self.process_mesh is not None or self.tp.M > 1
+
+    def _alg_mixer(self):
+        """The dense backend's mixer as this process runs it: the whole
+        (N, N) mixing, or its rows of the node block over the gathered
+        leaf (:class:`RowsMixer`)."""
+        if not self.splits:
+            return self.mixer
+        return RowsMixer(self.mixer, self._gather, self.node_lo,
+                         self.node_lo + self.n_local, self.tp.rows_per_node)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ag(x)
 
     def _schedule(self):
         tcfg = self.tcfg
@@ -356,7 +410,7 @@ class DecentralizedTrainer:
             fault_draws = draws_on(self.tcfg.fault_seed, self.device)
         self.mixer = SimMixer(self.mixer.schedule, self.mixer.faults,
                               fault_draws)
-        self.alg = dataclasses.replace(self.alg, mixer=self.mixer)
+        self.alg = dataclasses.replace(self.alg, mixer=self._alg_mixer())
 
     @property
     def hw_slots(self) -> Optional[int]:
@@ -674,7 +728,7 @@ class DecentralizedTrainer:
                                  sharded=self.model_sharded_leaf)
         else:
             wq, qs = wx.per_leaf(diffs, draws, self._wmat, hop_pairs,
-                                 self.pp)
+                                 self.pp, tp=self.tp, specs=self.leaf_specs)
         del rows, diffs
         nX = []
         for j, (z, d, h, hw) in enumerate(zip(zs, D, H, Hw)):

@@ -53,7 +53,8 @@ A ``DistTP`` rank (its rows: model rank m of its node block, M = 1
 here) draws a sharded leaf's noise from its draw source and a replicated
 leaf's from ``draws.shared()``, the source its node block's model ranks
 share (``core.draws.TPRankDraws``: in a seeded run its own stream per
-(node block, model rank) and one per node block; a replay of the
+(node block, model rank), one per node block and one every rank shares;
+a replay of the
 one-process run's noise hands rank (b, m) shard m's rows of a sharded
 leaf and the node rows of a replicated one, in leaf order).
 
@@ -69,6 +70,48 @@ Several processes.  :class:`DistPP` is ``pp`` over a
 node block, pairs within it are copied in place, pairs across ranks are
 ``torch.distributed`` point-to-point transfers (gloo on CPU tensors, NCCL
 on CUDA ones).
+
+The node-axis all-gather.  The dense backend mixes with a dense W, so a
+rank holding the node block [lo, hi) needs every node's payload: the
+``ag(x)`` seam takes this process's rows ``(n_local, ...)`` of a
+node-stacked leaf and returns every node's ``(N, ...)``, and the rank
+keeps rows [lo, hi) of W times it (``core.comm.RowsMixer``: its rows of
+the whole product, the one-process run's bits).  :func:`stacked_ag` is the one-process
+seam (every node is here: ``x`` itself); :class:`DistAG` is one
+``torch.distributed.all_gather_into_tensor`` over a
+:class:`~repro_torch.launch.mesh.ProcessMesh`'s group (on a
+:class:`~repro_torch.launch.mesh.TPProcessMesh`, over the node group of
+the rank's model rank m: its ``node_mesh``); :class:`DryDistAG` allocates
+its result on ``meta``.  One leaf is gathered at a time and freed after
+its mix, so a rank's transient peak is N times its largest leaf (the
+gathered leaf), with one piece of the product and the rank's rows of it.
+What is
+gathered is the dequantized Q in the leaf's dtype, as the reference's
+dense backend ships dequantized floats (under a time-varying schedule or
+link faults, H + Q in the mixing dtype: W_k is applied to both).  The
+draw rule on ranks (in a seeded run, ``models.tp.rank_draws``): a
+row-wise compressor (QInf) quantizes the rank's own rows with the noise
+of its own rows, from its node block's own stream (a replay hands the
+rank its rows of the one-process noise); RandK and TopK act on the
+node-stacked leaf as one vector, so the rank gathers the diff ``Z - H``
+through the same seam, compresses the whole leaf with ``draws.common()``
+-- a stream every rank seeds alike -- and keeps its rows.
+
+Whole leaves on a split node (``repro_torch.models.tp`` at M > 1, the
+per-leaf and identity wires).  The reference runs them partial-manual: a
+leaf is quantized whole with one noise draw.  A rank-row gathers each
+model-sharded leaf's diff over its node's model ranks
+(``TPSeam.whole``), quantizes the whole leaf with the node's shared draw
+(``draws.shared()``, ``(n, ..., nb, block)`` in leaf order: under
+``StackedTP`` the whole-node run's very calls) and moves only its own
+slice of the payload to the same m of the neighbour node: the codes and
+scales of its rows of the sharded dim, or of its columns where the last
+dim is sharded and the model boundary falls on a block boundary.  Where a
+quantization block crosses the boundary (``shard_aligned_blocks`` off and
+the slice not a multiple of the block), and for a replicated leaf, every
+rank-row moves the node's whole payload of that leaf and keeps its own
+columns after dequantizing.  Identity compression needs no gather: a raw
+diff is its own slice.
 """
 from __future__ import annotations
 
@@ -158,12 +201,81 @@ class DryDistPP(DistPP):
         pass
 
 
+def stacked_ag(x: torch.Tensor) -> torch.Tensor:
+    """The one-process all-gather seam: every node's rows are here."""
+    return x
+
+
+class DistAG:
+    """``ag(x)`` over a process mesh: this rank's rows ``(n_local, ...)``
+    of a node-stacked tensor -> every node's ``(N, ...)``, in node order,
+    by one ``torch.distributed.all_gather_into_tensor`` over the mesh's
+    group.  Every rank must make the same calls in the same order."""
+
+    def __init__(self, process_mesh) -> None:
+        self.pm = process_mesh
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        out = x.new_empty((self.pm.n_nodes,) + tuple(x.shape[1:]))
+        self._transfer(out, x)
+        return out
+
+    def _transfer(self, out: torch.Tensor, x: torch.Tensor) -> None:
+        import torch.distributed as dist
+        dist.all_gather_into_tensor(out, x, group=self.pm.group)
+
+
+class DryDistAG(DistAG):
+    """:class:`DistAG`'s allocation without the transfer (a dry run's
+    seam, ``meta`` tensors)."""
+
+    def _transfer(self, out, x) -> None:
+        pass
+
+
 def node_weights(wmat, device) -> torch.Tensor:
     """(1 + hops, T, N) receiver-indexed table -> (N, T, S) f32 weights on
     ``device``, node n's (T, S) being the reference's per-node
     ``wmat.T``."""
     w = torch.as_tensor(wmat, dtype=torch.float32, device=device)
     return w.permute(2, 1, 0).contiguous()
+
+
+def _row_weights(wmat, like: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`node_weights` for the rows of ``like``: a node's weights
+    repeated for each of its rank-rows."""
+    w = node_weights(wmat, like.device)
+    r = like.shape[0] // n
+    return w if r == 1 else w.repeat_interleave(r, 0)
+
+
+def _pp_rows(pp, x: torch.Tensor, pairs, n: int) -> torch.Tensor:
+    """``pp`` of a tensor of rank-rows (``r`` a node): a node's rows move
+    as one, to the same rows of the receiving node."""
+    if x.shape[0] == n:
+        return pp(x, pairs)
+    return pp(x.reshape(n, -1), pairs).view(x.shape)
+
+
+def payload_spec(spec, shape, block: int, model: int):
+    """How a rank-row's own slice of a leaf's QInf payload (codes
+    ``(..., nb, block)``, scales ``(..., nb, 1)``) is cut, as a partition
+    spec over the payload's dims; None where a rank-row moves the whole
+    payload: a replicated leaf, or a sharded last dim whose model
+    boundary cuts a quantization block.  ``spec``: the per-node leaf's,
+    ``shape``: the per-node leaf's."""
+    from repro_torch.models import sharding
+    d = sharding.model_dim(spec)
+    if d is None:
+        return None
+    nd = max(len(shape), 1)
+    lead = tuple(spec)[:nd - 1] + (None,) * max(0, nd - 1 - len(spec))
+    if d < nd - 1:                    # a leading dim: codes split along it
+        return sharding.P(*lead, None, None)
+    if (shape[-1] // model) % block:  # a block crosses the boundary
+        return None
+    return sharding.P(*lead, tuple(spec)[d], None)   # whole blocks a rank
 
 
 class WireExchange:
@@ -254,24 +366,39 @@ class WireExchange:
             layout, wires, w if M == 1 else w.repeat_interleave(M, 0))
 
     # ------------------------------------------------------------ per-leaf
-    def per_leaf(self, diffs, draws: Draws, wmat, hop_pairs, pp=stacked_pp):
-        # same bytes as bucketed (the bucket is a concatenation), but each
-        # leaf ships its own (codes, scales) pair per hop
-        self._record(hop_pairs,
-                     bytes_per_hop=self.layout(
-                         self.local_shapes(diffs),
-                         [d.dtype for d in diffs]).wire_bits // 8,
-                     collectives_per_hop=2 * len(diffs))
-        w = node_weights(wmat, diffs[0].device)
+    def per_leaf(self, diffs, draws: Draws, wmat, hop_pairs, pp=stacked_pp,
+                 tp=None, specs: Sequence = ()):
+        """Every leaf moves its own packed codes and scales.  On a split
+        node (``tp`` of M > 1; ``specs``: every leaf's per-node partition
+        spec) ``diffs`` are rank-rows and each leaf is quantized whole
+        with the node's shared draw, a rank-row moving its own slice of
+        the payload (the module docstring); wq and qself come back as
+        rank-rows."""
+        n = wmat.shape[-1]
+        split = tp is not None and tp.M > 1
+        src = draws.shared() if split else draws
+        w = _row_weights(wmat, diffs[0], n)
         wq: List = []
         qs: List = []
-        bits = self.bits
-        for d in diffs:
-            blk = self.block_for((1,) + tuple(d.shape[1:]))
-            u = draws.uniform(kops.blockwise_shape(d.shape, blk))
-            codes, scales = kops.qinf_quantize_lastdim(d, u, bits=bits,
+        bits, row_bytes = self.bits, 0
+        for j, d in enumerate(diffs):
+            whole = (tp.first_of_node(tp.whole(d, specs[j])).contiguous()
+                     if split else d)                     # node rows
+            blk = self.block_for((1,) + tuple(whole.shape[1:]))
+            u = src.uniform(kops.blockwise_shape(whole.shape, blk))
+            codes, scales = kops.qinf_quantize_lastdim(whole, u, bits=bits,
                                                        block=blk)
             del u
+            shape, own = d.shape, None
+            if split:
+                cut = payload_spec(specs[j], whole.shape[1:], blk, tp.M)
+                if cut is not None:        # this rank-row's own slice
+                    codes, scales = tp.cut([codes, scales], [cut, cut])
+                else:                      # whole: its columns kept later
+                    codes, scales = tp.node_rows(codes), tp.node_rows(scales)
+                    shape, own = (d.shape[0],) + tuple(whole.shape[1:]), \
+                        specs[j]
+            del whole
             if self.scales_bf16:
                 scales = scales.to(torch.bfloat16)
             if self.pack_mode == "lastdim":
@@ -285,19 +412,27 @@ class WireExchange:
                                            like=codes)
             # byte-cast scales: EVERY wire payload is u8
             s_wire = scales.contiguous().view(torch.uint8)
+            row_bytes += (packed.numel() + s_wire.numel()) // packed.shape[0]
 
-            def dq(pk, su8, sdtype=scales.dtype, shape=d.shape,
-                   dtype=d.dtype, b=blk):
-                return kops.qinf_dequantize_lastdim(
-                    unpack(pk), su8.view(sdtype).to(torch.float32), shape,
-                    dtype, block=b)
+            def dq(c, s, shape=shape, dtype=d.dtype, b=blk, own=own):
+                q = kops.qinf_dequantize_lastdim(c, s, shape, dtype, block=b)
+                if own is None:
+                    return q
+                return tp.cut([tp.first_of_node(q)], [own])[0]
 
-            recvs = [dq(pp(packed, pr), pp(s_wire, pr)) for pr in hop_pairs]
-            q_self = kops.qinf_dequantize_lastdim(
-                codes, scales.to(torch.float32), d.shape, d.dtype, block=blk)
+            recvs = [dq(unpack(_pp_rows(pp, packed, pr, n)),
+                        _pp_rows(pp, s_wire, pr, n).view(scales.dtype)
+                        .to(torch.float32)) for pr in hop_pairs]
+            q_self = dq(codes, scales.to(torch.float32))
             qstack = torch.stack([q_self] + recvs)        # (1 + hops, N, ...)
             wq.append(kref.weighted_mix_ref(w, qstack).to(d.dtype))
             qs.append(q_self)
+        # same bytes as bucketed (the bucket is a concatenation), but each
+        # leaf ships its own (codes, scales) pair per hop
+        self._record(hop_pairs, bytes_per_hop=(
+            row_bytes * (diffs[0].shape[0] // n) if split else self.layout(
+                self.local_shapes(diffs), [x.dtype for x in diffs]
+            ).wire_bits // 8), collectives_per_hop=2 * len(diffs))
         return wq, qs
 
     @staticmethod
@@ -308,15 +443,18 @@ class WireExchange:
 
     # ------------------------------------------------------------ identity
     def identity(self, diffs, wmat, hop_pairs, pp=stacked_pp):
-        """C = 0 wire path: raw leaves move, no quantization."""
+        """C = 0 wire path: raw leaves move, no quantization.  Rank-rows
+        (a split node) move as they are: a raw diff is its own slice."""
+        n = wmat.shape[-1]
         self._record(hop_pairs,
                      bytes_per_hop=sum(d[0].numel() * d.element_size()
-                                       for d in diffs),
+                                       for d in diffs)
+                     * (diffs[0].shape[0] // n),
                      collectives_per_hop=len(diffs))
-        w = node_weights(wmat, diffs[0].device)
+        w = _row_weights(wmat, diffs[0], n)
         wq: List = []
         for d in diffs:
-            recvs = [pp(d, pr) for pr in hop_pairs]
+            recvs = [_pp_rows(pp, d, pr, n) for pr in hop_pairs]
             qstack = torch.stack([d] + recvs)
             wq.append(kref.weighted_mix_ref(w, qstack).to(d.dtype))
         return wq, list(diffs)

@@ -19,9 +19,9 @@ one-process run:
   pairs within a rank, across ranks, several to one peer, and a rank that
   receives nothing;
 * the harness: every rank runs in its own process with a deadline; a rank
-  that dies fails the test at once instead of hanging it;
-* the dense backend, which does not split over ranks, is refused with a
-  process mesh when the trainer is built.
+  that dies fails the test at once instead of hanging it (the dense
+  backend over ranks, ``tests/test_torch_dist_dense.py``, runs on this
+  launcher).
 
 Each world is one launch of W worker processes (this file run as a
 script), joined with a deadline; gloo rendezvous through a file in the
@@ -139,16 +139,18 @@ def _worker(argv):
 
 # --- the launcher ------------------------------------------------------------
 
-def launch(world, tmp, mode="trainer", specs=(), deadline=DEADLINE_S):
-    """Run ``world`` ranks of this file; -> their outputs in rank order.
-    Fails (killing every rank) as soon as one rank exits nonzero, or at
-    the deadline."""
+def launch(world, tmp, mode="trainer", specs=(), deadline=DEADLINE_S,
+           script=__file__):
+    """Run ``world`` ranks of ``script`` (default this file, whose
+    ``_worker`` takes the arguments below); -> their outputs in rank
+    order.  Fails (killing every rank) as soon as one rank exits nonzero,
+    or at the deadline."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     tmp = pathlib.Path(tmp)
     logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, __file__, "--rank", str(r), "--world", str(world),
+        [sys.executable, script, "--rank", str(r), "--world", str(world),
          "--dir", str(tmp), "--mode", mode, "--specs", *specs],
         env=env, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
@@ -246,28 +248,6 @@ def test_a_dead_rank_fails_the_launch_at_once(tmp_path):
     with pytest.raises(RuntimeError, match="rank 1 exited 3"):
         launch(2, tmp_path, mode="die", deadline=60)
     assert time.monotonic() - t0 < 60
-
-
-@pytest.mark.parametrize("key", list(SPECS))
-def test_dense_backend_over_ranks_is_refused_at_build(key):
-    """The dense backend mixes all N nodes with one (N, N) DenseMixer in
-    one process: with a process mesh it is refused when the trainer is
-    built (ROADMAP §A item 3 (d)), not at its first step; the neighbor
-    backend over the same mesh builds."""
-    import dataclasses
-
-    from repro_torch import api
-    from repro_torch.launch.mesh import ProcessMesh
-    spec = api.ExperimentSpec.load(SPECS[key])
-    pm = ProcessMesh(api.spec_mesh(spec), rank=0, world=2)
-    dense = dataclasses.replace(spec, execution=dataclasses.replace(
-        spec.execution, backend="dense"))
-    with pytest.raises(ValueError, match=r"ROADMAP §A item 3 \(d\)"):
-        api.build_trainer_runner(dense, device="cpu", process_mesh=pm)
-    run = api.build_trainer_runner(spec, device="cpu", process_mesh=pm)
-    assert run.trainer.n_local == spec.n_nodes // 2
-    assert api.build_trainer_runner(dense, device="cpu").trainer.n_local \
-        == spec.n_nodes
 
 
 if __name__ == "__main__":

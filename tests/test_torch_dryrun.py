@@ -14,8 +14,12 @@ device, against a real CPU step and against the reference's dry run.
   and (4, 2), one node a rank and all in one process: the dry run's
   ``pp`` bytes equal a real CPU step's, call for call, and its ``gossip``
   block equals the runner's exact accounting; the dense backend with the
-  identity compressor (no kernel on either side): FLOPs, ATen bytes and
-  every memory figure equal the real step's, as integers.
+  identity compressor (no kernel on either side), in one process and on
+  rank 0 of 8 (``"ranks"``, the default placement; the real rank's
+  all-gather filled on the host): FLOPs, ATen bytes, the all-gather's and
+  every other collective's bytes, and every memory figure equal the real
+  step's, as integers; placement ``"tp"`` runs the dense backend and the
+  per-leaf wire at one model shard.
 * Against the reference, in one subprocess on 512 placeholder CPU devices
   (the reference's dry-run module sets them; built, never lowered): for
   every arch at ``train_4k`` on (16, 16) and on (2, 16, 16), the
@@ -45,7 +49,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quantize as qk
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.obs.record import LiveBytes, RecordingPP
+from repro_torch.obs.record import (LiveBytes, RecordingAllReduce,
+                                    RecordingPP)
+from repro_torch.optim.wire import DistAG, DryDistPP
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 META = torch.device("meta")
@@ -366,16 +372,84 @@ def test_dense_identity_dry_step_equals_the_real_cpu_step():
 
 
 def test_dense_qinf_dry_step_calls_b1_b2_once_a_leaf():
+    """In one process and on ranks (the default placement); a rank
+    all-gathers every other node's Q of each leaf, in the leaf's dtype."""
     cfg = _small_cfg()
     mesh = mesh_mod.Mesh((8, 1))
     spec = _spec(cfg, mesh, backend="dense")
-    tr, dry, mem, calls = _dry(spec, cfg, mesh, "one process")
-    n_leaves = len(tree.leaves(tr.abstract_state().plead.X))
-    assert calls["qinf_quantize_blocks"] == \
-        calls["qinf_dequantize_blocks"] == n_leaves
-    assert dry.coll == {"collective-permute": 0.0}
-    with pytest.raises(ValueError, match="3 \\(d\\)"):
-        dryrun.meta_trainer(spec, mesh, cfg, "ranks")
+    for placement in dryrun.PLACEMENTS:
+        tr, dry, mem, calls = _dry(spec, cfg, mesh, placement)
+        leaves = tree.leaves(tr.abstract_state().plead.X)
+        assert calls["qinf_quantize_blocks"] == \
+            calls["qinf_dequantize_blocks"] == len(leaves)
+        if placement == "one process":
+            assert dry.coll == {"collective-permute": 0.0}
+            continue
+        assert tr.n_local == 1
+        assert dry.coll["all-gather"] == 7 * sum(
+            x.numel() * x.element_size() for x in leaves) > 0
+    assert dryrun.meta_trainer(spec, mesh, cfg)[1] == "ranks"
+
+
+class _HostFilledAG(DistAG):
+    """A rank's all-gather with no process group: its own rows, the
+    others zero, written through numpy (no ATen op: the step's counts are
+    a dry rank's)."""
+
+    def _transfer(self, out, x):
+        a = out.numpy()
+        a[:] = 0
+        a[self.pm.lo:self.pm.hi] = x.numpy()
+
+
+def test_dense_ranks_dry_step_equals_the_real_cpu_step():
+    """The dense backend on ranks, rank 0 of 8 (identity compression: no
+    kernel on either side): a real CPU step of the rank (its all-gather
+    filled on the host) and the dry one have equal FLOPs, ATen bytes,
+    ``pp``, all-reduce and all-gather bytes, and memory figures."""
+    cfg = _small_cfg()
+    mesh = mesh_mod.Mesh((8, 1))
+    spec = _spec(cfg, mesh, backend="dense", compressor="identity")
+    pm = mesh_mod.ProcessMesh(mesh, rank=0, world=8)
+    runner = tapi.build_trainer_runner(
+        spec, device="cpu", model_cfg=cfg, process_mesh=pm,
+        pp=DryDistPP(pm), ag=_HostFilledAG(pm))
+    tr = runner.trainer
+    tr.all_reduce = RecordingAllReduce()
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (1,) + tuple(s[1:]), generator=g)
+             for k, (s, _) in tshapes.train_input_specs(
+                 cfg, SMALL_SHAPE, spec.n_nodes).items()}
+    real, real_mem, real_calls, _ = dryrun.counted_step(
+        tr, [tr.init_state()], batch, GeneratorDraws(0, "cpu"))
+    _, dry, dry_mem, calls = _dry(spec, cfg, mesh, "ranks")
+    assert (dry.flops, dry.aten_bytes) == (real.flops, real.aten_bytes)
+    assert dry.coll == real.coll and real.coll["all-gather"] > 0
+    assert dry_mem == real_mem
+    assert calls == real_calls == dict.fromkeys(qk.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("execution", [{"backend": "dense"},
+                                       {"wire_mode": "per_leaf"}], ids=str)
+def test_whole_leaf_jobs_dry_run_at_one_model_shard(execution):
+    """Placement "tp" of the dense backend and the per-leaf wire: rank
+    (0, 0) holds one model shard, gathers each sharded leaf's diff over
+    the model ranks ("all-gather" TP bytes) and, on the dense backend,
+    every node's Q of its shard over its node group."""
+    cfg = _small_cfg()
+    mesh = mesh_mod.Mesh((8, 2))
+    spec = dataclasses.replace(_spec(cfg, mesh), execution=dataclasses.replace(
+        _spec(cfg, mesh).execution, **execution))
+    rec = dryrun.dry_train(cfg, SMALL_SHAPE, mesh, placement="tp",
+                           spec=spec)
+    assert rec["placement"] == "tp" and rec["model_shards_per_card"] == 1
+    assert rec["cards"] == 16
+    assert rec["state_bytes_per_rank"] == rec["state_bytes_per_model_shard"]
+    assert rec["tp_breakdown"]["all-gather"] > 0
+    dense = execution.get("backend") == "dense"
+    assert (rec["all_gather_bytes"] > 0) == dense
+    assert (rec["roofline"]["coll_breakdown"]["collective-permute"] > 0) \
+        == (not dense)
 
 
 def test_dry_train_record_at_a_small_size():

@@ -38,9 +38,11 @@ and against the port's whole-node run, on the CPU.
   loss within 1e-6 and the consensus (a replicated leaf counted once)
   within 1e-5 relative; 3 x 459,072 bits a step a node; the contract audit of a
   step: 6 u8 ``pp`` calls, 86,076 B a model shard, no f64, no host read.
-* Refusals at M > 1: the dense backend and the per-leaf wire at build
-  (RWKV-6 and the RG-LRU, and caches, run tensor-parallel:
-  ``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_decode.py``).
+* Refused at build: a tp seam of M model ranks on a mesh of another
+  model axis (RWKV-6 and the RG-LRU, and caches, run tensor-parallel:
+  ``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_decode.py``;
+  the per-leaf wire, identity compression and the dense backend:
+  ``tests/test_torch_tp_whole_leaf.py``).
 * The seam's own operators: ``StackedTP``'s sum, max, gather and the
   gather's backward, ``scatter_last`` (the rank's slice forward, the
   gradient gathered whole on every rank backward, recorded as
@@ -318,12 +320,7 @@ def _spec_for(arch, mesh=(4, 2), **execution):
     return tapi.ExperimentSpec.from_json(json.dumps(d))
 
 
-@pytest.mark.parametrize("execution", [{"backend": "dense"},
-                                       {"wire_mode": "per_leaf"}])
-def test_whole_leaf_mixing_is_refused_under_tp(execution):
-    spec = _spec_for("qwen3-1.7b", **execution)
-    with pytest.raises(ValueError, match="tensor-parallel node"):
-        tapi.build_trainer_runner(spec, device="cpu", tp=StackedTP(2))
+def test_a_tp_seam_off_the_mesh_model_axis_is_refused():
     with pytest.raises(ValueError, match="model ranks on a mesh"):
         tapi.build_trainer_runner(_spec_for("qwen3-1.7b", mesh=(4, 4)),
                                   device="cpu", tp=StackedTP(2))

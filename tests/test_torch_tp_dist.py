@@ -205,16 +205,18 @@ def _worker(argv):
 
 # --- the launcher ------------------------------------------------------------
 
-def launch(world, tmp, case="4x2", mode="trainer", deadline=DEADLINE_S):
-    """Run ``world`` ranks of this file; -> their outputs in rank order.
-    Fails (killing every rank) as soon as one rank exits nonzero, or at
-    the deadline."""
+def launch(world, tmp, case="4x2", mode="trainer", deadline=DEADLINE_S,
+           script=__file__):
+    """Run ``world`` ranks of ``script`` (default this file, whose
+    ``_worker`` takes the arguments below); -> their outputs in rank
+    order.  Fails (killing every rank) as soon as one rank exits nonzero,
+    or at the deadline."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     tmp = pathlib.Path(tmp)
     logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, __file__, "--rank", str(r), "--world", str(world),
+        [sys.executable, script, "--rank", str(r), "--world", str(world),
          "--dir", str(tmp), "--mode", mode, "--case", case],
         env=env, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
