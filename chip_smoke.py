@@ -171,7 +171,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    phase 4's spec x seed 0-7 x bits 2, 4 (16 points, the data shared, f32):
    SWEEP_REPLAY_STEPS stacked steps held against map mode from the same
    stacked state, each point's draws recorded and replayed, at phase 4's
-   tolerance per point; a free-running run of SWEEP_STEPS steps with the
+   tolerance per point, every B1 (at each point's level count) and B2
+   launch of the first stacked step held bit for bit to its plain
+   version; a free-running run of SWEEP_STEPS steps with the
    counters zeroed just before and read just after -- B1 and B2 once a
    step for the whole grid -- in which every point's objective falls; ms a
    step of the stacked grid against the summed ms a step of the 16 points
@@ -191,7 +193,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    each held like (b): SWEEP_REPLAY_STEPS stacked steps teacher-forced
    against map mode (each point's algorithm draws and, on netsim, its
    fault draws recorded in the stacked step and replayed in the map
-   step) at phase 4's tolerance per point, SWEEP_STEPS free-running steps
+   step) at phase 4's tolerance per point with the first stacked step's
+   B1 and B2 launches held as in (b), SWEEP_STEPS free-running steps
    with the counters zeroed just before and read just after, ms a step
    stacked against the summed ms a step of the points run one by one, and
    peak memory.  (f) The netsim grid: phase 4b's scenario x fault_seed
@@ -203,7 +206,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    0.1 (16 points): as (f), and peak memory.  (h) LEAD with RandK (frac
    0.1) x seed 0-7, and Choco with TopK (frac 0.1) x ``gamma_c`` 0.2, 0.1
    x eta 0.05, 0.1: as (g), with no B1/B2 (they compress nothing with
-   QInf) and no profile.
+   QInf) and no profile.  (i) The stacked grid over a tree-valued
+   iterate: phase 4's data and spec with an intercept (``logreg_bias``,
+   registered here: W (8, 784, 10) and b (8, 10)), QInf in blocks of 10
+   along the class axis, x seed 0-7 x bits 2, 4 (16 points, f32), held
+   like (b), over TREE_STEPS free-running steps, with B1 and B2 once a
+   leaf a step for the whole grid (2 each), no profile; then one point's
+   serial dense run and its netsim run under phase 4b's scenario on the
+   card (TREE_SERIAL_STEPS steps each: B1 and B2 once a leaf a step, the
+   objective falls, netsim bits int64 and positive).
 11. Serving (``repro_torch.launch.serve``) at published widths, one model
    at a time, f32, TF32 off, random weights from a seeded generator, batch
    4, prompt 16, 32 generated tokens: mixtral-8x7b (2 of 32 layers),
@@ -439,6 +450,14 @@ SWEEP_STEPS = 300           # its free-running steps with counters on (as STEPS:
 SWEEP_REPLAY_STEPS = 20     # stacked steps held against map mode
 SWEEP_TIMED_STEPS = 50      # steps timed a mode
 SWEEP_PROFILE_STEPS = 20    # stacked steps under torch.profiler
+TREE_STEPS = 600            # the tree grid's free-running steps (10 (i)):
+                            # with an intercept each node's first step fits
+                            # its own classes' bias, mixing undoes it, and
+                            # the objective is back below the first step's
+                            # after ~400 steps (~1.7e-2 lower at 600)
+TREE_SERIAL_STEPS = 1000    # its serial runs' steps: under phase 4b's
+                            # faults the first step gains less, and at 600
+                            # steps the objective is only ~3e-3 lower
 LARGE_ROWS = LARGE[0] * LARGE[1] // 256   # B1/B2's large shape in rows
 B1, B2 = "qinf_quantize_blocks", "qinf_dequantize_blocks"
 
@@ -2276,13 +2295,14 @@ def sweep_grid_spec(api, steps: int, base=None):
 
 
 def _objective(problem, X, lam):
-    """Phase 4's objective f + lam ||x||_1 of one point's X, a 0-d
-    tensor."""
-    return problem.full_loss(X) + lam * X.abs().sum(dim=1).mean()
+    """Phase 4's objective f + lam ||x||_1 of one point's X (a tensor or a
+    tree of them: the l1 term summed over the leaves), a 0-d tensor."""
+    return problem.full_loss(X) + lam * sum(
+        leaf.abs().flatten(1).sum(1).mean() for leaf in _state_leaves(X))
 
 
-def stacked_grid(torch, sweep, draws_mod, qk, spec, objective,
-                 device="cuda", steps: int = SWEEP_STEPS,
+def stacked_grid(torch, sweep, draws_mod, ops, qk, ref, errs, spec,
+                 objective, device="cuda", steps: int = SWEEP_STEPS,
                  replay_steps: int = SWEEP_REPLAY_STEPS,
                  timed_steps: int = SWEEP_TIMED_STEPS,
                  profile: int = SWEEP_PROFILE_STEPS,
@@ -2292,7 +2312,10 @@ def stacked_grid(torch, sweep, draws_mod, qk, spec, objective,
     run: (1) teacher-forced, both modes from the same stacked state for
     ``replay_steps`` steps, each point's algorithm draws and (netsim) its
     fault draws recorded in the stacked step and replayed in the map step,
-    X per point at phase 4's tolerance; (2) netsim: the bits of every
+    X per point (every leaf of a tree) at phase 4's tolerance, every B1
+    and B2 launch of the first stacked step held bit for bit to its plain
+    version (:func:`checked_qinf_kernels`; ``checked_launches``, empty
+    where the grid compresses nothing with QInf); (2) netsim: the bits of every
     round of a ``replay_steps`` run, stacked and map, equal as integers;
     (3) a free-running run of ``steps`` steps, the counters zeroed just
     before and read just after -- B1 and B2 ``b1_per_step`` times a step
@@ -2318,11 +2341,17 @@ def stacked_grid(torch, sweep, draws_mod, qk, spec, objective,
             for r in frec]
     mp.init_state(fault_draws=draws_mod.StackedDraws(frep))
     worst_frac = worst_rel = 0.0
+    checked = []
     for t in range(replay_steps):
         seen = [len(r.record) for r in frec]
         rec = [draws_mod.RecordingDraws(draws_mod.GeneratorDraws(
             1000 * t + i, device)) for i in range(P)]
-        got = vm.step(st, draws_mod.StackedDraws(rec))
+        held = (checked_qinf_kernels(torch, ops, qk, ref, errs,
+                                     f"{spec.name} stacked step")
+                if t == 0 else contextlib.nullcontext([]))
+        with held as calls:
+            got = vm.step(st, draws_mod.StackedDraws(rec))
+        checked += calls
         for r, rp, n in zip(frec, frep, seen):
             rp.pending.extend(r.record[n:])
         replay = [draws_mod.ReplayDraws(r.record, device) for r in rec]
@@ -2330,11 +2359,15 @@ def stacked_grid(torch, sweep, draws_mod, qk, spec, objective,
         require(not any(r.pending for r in replay + frep),
                 f"the map step drew less than the stacked step at {t}")
         for i in range(P):
-            g, w = got.X[i], want.X[i]
-            off = (g - w).abs() > REPLAY_ELEM_TOL * w.abs().max()
-            worst_frac = max(worst_frac, float(off.float().mean()))
-            worst_rel = max(worst_rel, float((g - w).abs().max()
-                                             / w.abs().max()))
+            for gl, wl in zip(_state_leaves(got.X), _state_leaves(want.X)):
+                diff, scale = (gl[i] - wl[i]).abs(), wl[i].abs().max()
+                off = diff > REPLAY_ELEM_TOL * scale
+                worst_frac = max(worst_frac, float(off.float().mean()))
+                # a leaf the l1 prox holds at zero (the tree's intercept)
+                # has no scale: any difference there is off by infinity
+                worst_rel = max(worst_rel, float(diff.max() / scale)
+                                if float(scale) else
+                                (float("inf") if float(diff.max()) else 0.0))
         require(worst_frac <= REPLAY_MAX_OFF,
                 f"{spec.name}: stacked vs map step {t}: {worst_frac:.2e} of "
                 f"a point's X off by more than {REPLAY_ELEM_TOL} x max|X|")
@@ -2374,7 +2407,8 @@ def stacked_grid(torch, sweep, draws_mod, qk, spec, objective,
                             and launches[B2] == want_b1),
             f"{spec.name}: launches {launches}: want B1 and B2 {b1_per_step}"
             f" a step for the whole grid ({steps} steps)")
-    require(bool(torch.isfinite(final.X).all()), "non-finite stacked X")
+    require(all(bool(torch.isfinite(leaf).all())
+                for leaf in _state_leaves(final.X)), "non-finite stacked X")
     require(all(b < a for a, b in zip(obj0, obj1)),
             f"{spec.name}: a point's objective did not fall: "
             f"{list(zip(obj0, obj1))}")
@@ -2420,7 +2454,7 @@ def stacked_grid(torch, sweep, draws_mod, qk, spec, objective,
                 f"launches a step")
     return {"spec": spec.name, "points": P, "steps": steps,
             "engine": vm.engine, "algorithm": vm.base.algorithm.name,
-            "launches": launches,
+            "launches": launches, "checked_launches": checked,
             "replay": {"steps": replay_steps, "elem_tol": REPLAY_ELEM_TOL,
                        "max_off_fraction": REPLAY_MAX_OFF,
                        "worst_off_fraction": worst_frac,
@@ -2436,8 +2470,8 @@ def stacked_grid(torch, sweep, draws_mod, qk, spec, objective,
             "peak_mem_mb": peak_mb, "wall_s": res.wall_s, "profile": prof}
 
 
-def sweep_vmap_grid(torch, api, sweep, draws_mod, qk, device="cuda",
-                    base=None, steps: int = SWEEP_STEPS,
+def sweep_vmap_grid(torch, api, sweep, draws_mod, ops, qk, ref, errs,
+                    device="cuda", base=None, steps: int = SWEEP_STEPS,
                     replay_steps: int = SWEEP_REPLAY_STEPS,
                     timed_steps: int = SWEEP_TIMED_STEPS,
                     profile: int = SWEEP_PROFILE_STEPS):
@@ -2445,7 +2479,7 @@ def sweep_vmap_grid(torch, api, sweep, draws_mod, qk, device="cuda",
     docstring)."""
     spec = sweep_grid_spec(api, steps, base)
     lam = spec.base.prox.params["lam"]
-    return stacked_grid(torch, sweep, draws_mod, qk, spec,
+    return stacked_grid(torch, sweep, draws_mod, ops, qk, ref, errs, spec,
                         lambda problem, X: _objective(problem, X, lam),
                         device=device, steps=steps,
                         replay_steps=replay_steps, timed_steps=timed_steps,
@@ -2511,8 +2545,8 @@ def _smooth_objective(problem, X):
     return problem.full_loss(X)
 
 
-def stacked_grids_beyond_dense(torch, api, sweep, draws_mod, qk,
-                               device="cuda", base=None,
+def stacked_grids_beyond_dense(torch, api, sweep, draws_mod, ops, qk, ref,
+                               errs, device="cuda", base=None,
                                steps: int = SWEEP_STEPS,
                                replay_steps: int = SWEEP_REPLAY_STEPS,
                                timed_steps: int = SWEEP_TIMED_STEPS,
@@ -2522,19 +2556,162 @@ def stacked_grids_beyond_dense(torch, api, sweep, draws_mod, qk,
     lam = (base or mnist_spec(api, steps)).prox.params["lam"]
     kw = dict(device=device, steps=steps, replay_steps=replay_steps,
               timed_steps=timed_steps)
+    held = (ops, qk, ref, errs)
     out = {"netsim": stacked_grid(
-        torch, sweep, draws_mod, qk, netsim_grid_spec(api, steps, base),
+        torch, sweep, draws_mod, *held, netsim_grid_spec(api, steps, base),
         lambda problem, X: _objective(problem, X, lam), profile=profile,
         trace_name="sweep_netsim_trace.json", **kw)}
     out["lessbit_lsvrg"] = stacked_grid(
-        torch, sweep, draws_mod, qk, lessbit_lsvrg_spec(api, steps, base),
+        torch, sweep, draws_mod, *held, lessbit_lsvrg_spec(api, steps, base),
         _smooth_objective, profile=profile,
         trace_name="sweep_lessbit_trace.json", **kw)
     for key, spec in zip(("randk", "topk"),
                          sparsifier_specs(api, steps, base)):
-        out[key] = stacked_grid(torch, sweep, draws_mod, qk, spec,
+        out[key] = stacked_grid(torch, sweep, draws_mod, *held, spec,
                                 _smooth_objective, profile=0,
                                 b1_per_step=0, **kw)
+    return out
+
+
+TREE_PROBLEM = "logreg_bias"
+
+
+def register_logreg_bias(torch) -> None:
+    """Registers ``logreg_bias`` in the port's problem registry: the
+    paper's logistic regression with an intercept on ``make_logreg_data``,
+    a tree-valued iterate ``{"W": (n, p, C), "b": (n, C)}``, its gradient
+    written out (with R = (softmax(A W + b) - Y) / bs: A^T R + 2 lam2 W and
+    the row sum of R + 2 lam2 b).  The port registers no such problem:
+    ``tests/test_torch_sweep_tree.py`` registers this one beside its
+    ``jax.grad`` twin in the JAX package and holds the two together."""
+    from repro_torch import registry
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.synthetic import make_logreg_data
+
+    def logreg_bias(n_nodes: int = 8, n_features: int = 784,
+                    n_classes: int = 10, n_per_node: int = 150,
+                    n_batches: int = 15, lam2: float = 0.005, seed: int = 0,
+                    noniid: bool = True, *, device="cpu",
+                    dtype=torch.float32):
+        A, Y = make_logreg_data(n_nodes=n_nodes, n_per_node=n_per_node,
+                                n_features=n_features, n_classes=n_classes,
+                                n_batches=n_batches, seed=seed,
+                                noniid=noniid)
+        data = {"A": torch.as_tensor(A, dtype=dtype, device=device),
+                "Y": torch.as_tensor(Y, dtype=dtype, device=device)}
+
+        def logits(X, A):               # X (n, ...), A (n, k, bs, p)
+            return A @ X["W"][:, None] + X["b"][:, None, None, :]
+
+        def grad_batches(X, batch):
+            A = batch["A"]
+            R = (torch.softmax(logits(X, A), dim=-1) - batch["Y"]) \
+                / A.shape[-2]
+            return {"W": A.transpose(-1, -2) @ R + 2 * lam2 * X["W"][:, None],
+                    "b": R.sum(-2) + 2 * lam2 * X["b"][:, None]}
+
+        def loss_batches(X, batch):
+            logp = torch.log_softmax(logits(X, batch["A"]), dim=-1)
+            ce = -(batch["Y"] * logp).sum(-1).mean(-1)
+            reg = (X["W"] ** 2).sum((-2, -1)) + (X["b"] ** 2).sum(-1)
+            return ce + lam2 * reg[:, None]
+
+        prob = FiniteSumProblem(grad_batches, data, A.shape[0], A.shape[1],
+                                loss_batches)
+        return prob, {
+            "W": torch.zeros((n_nodes, n_features, n_classes), dtype=dtype,
+                             device=device),
+            "b": torch.zeros((n_nodes, n_classes), dtype=dtype,
+                             device=device)}
+
+    registry.register_problem(TREE_PROBLEM)(logreg_bias)
+
+
+def tree_grid_spec(api, steps: int, base=None):
+    """(i) Phase 4's spec with an intercept (``logreg_bias``: W (8, 784,
+    10) and b (8, 10)) and QInf in blocks of 10, along the class axis as
+    ``logreg2d`` quantizes, x seed 0-7 x bits 2, 4: 16 points."""
+    base = base if base is not None else mnist_spec(api, steps)
+    cell = dataclasses.replace(
+        base, name="quickstart-mnist-bias", steps=steps,
+        compressor=api.CompressorSpec("qinf", {"bits": 2, "block": 10}),
+        oracle=dataclasses.replace(base.oracle, problem=TREE_PROBLEM))
+    return api.SweepSpec("mnist-bias-tree-seed8-x-bits2", cell, (
+        api.AxisSpec("seed", tuple(range(SWEEP_SEEDS))),
+        api.AxisSpec("compressor.bits", SWEEP_BITS)))
+
+
+def tree_serial_runs(torch, api, qk, point, lam, device="cuda",
+                     steps: int = TREE_SERIAL_STEPS):
+    """(i) One point of the tree grid run alone through ``api.build(spec)
+    .run()``, on the dense engine and on the netsim engine under phase
+    4b's scenario, the counters zeroed just before and read just after:
+    B1 and B2 once a leaf a step, every leaf finite, the objective
+    falling; netsim bits int64 and positive every round."""
+    import numpy as np
+    out = {}
+    for engine, spec in (("dense", point),
+                         ("netsim", netsim_spec(api, point, steps, True))):
+        runner = api.build(spec, device=device)
+        require(runner.device.type == device and isinstance(runner.X0, dict),
+                f"tree {engine} runner on {runner.device}")
+
+        def obj(X, problem=runner.problem):
+            return _objective(problem, X, lam)
+
+        qk.reset_launch_counts()
+        t0 = time.perf_counter()
+        if engine == "dense":
+            st, logs = runner.run(num_steps=steps, log_every=steps - 1,
+                                  callback=lambda s, t: obj(s.X))
+            first, last = float(logs[0]), float(logs[-1])
+            bits = None
+        else:
+            st, traj = runner.run(num_steps=steps, objective_fn=obj)
+            first, last = float(traj.objective[0]), float(traj.objective[-1])
+            bits = traj.bits
+            require(bits.dtype == np.int64 and bool((bits > 0).all()),
+                    f"tree netsim bits {bits}")
+        seconds = time.perf_counter() - t0
+        launches = qk.launch_counts()
+        want = 2 * steps if device == "cuda" else 0
+        require(launches[B1] == want and launches[B2] == want,
+                f"tree {engine} serial run: launches {launches}, want B1 "
+                f"and B2 {want} (one a leaf a step)")
+        require(all(bool(torch.isfinite(leaf).all())
+                    for leaf in _state_leaves(st.X)) and last < first,
+                f"tree {engine} serial run: objective {first} -> {last}")
+        out[engine] = {"spec": spec.name, "steps": steps,
+                       "launches": launches, "objective": [first, last],
+                       "seconds": seconds,
+                       "bits_first": None if bits is None
+                       else bits[:4].tolist()}
+    return out
+
+
+def tree_grid(torch, api, sweep, draws_mod, ops, qk, ref, errs,
+              device="cuda", base=None, steps: int = TREE_STEPS,
+              replay_steps: int = SWEEP_REPLAY_STEPS,
+              timed_steps: int = SWEEP_TIMED_STEPS,
+              serial_steps: int = TREE_SERIAL_STEPS):
+    """(i) The stacked grid over a tree-valued iterate (see the module
+    docstring): :func:`stacked_grid` at two B1 and two B2 launches a step
+    (one a leaf), its first stacked step's launches held to the plain
+    versions, then :func:`tree_serial_runs`."""
+    register_logreg_bias(torch)
+    spec = tree_grid_spec(api, steps, base)
+    lam = spec.base.prox.params["lam"]
+    out = stacked_grid(torch, sweep, draws_mod, ops, qk, ref, errs, spec,
+                       lambda problem, X: _objective(problem, X, lam),
+                       device=device, steps=steps,
+                       replay_steps=replay_steps, timed_steps=timed_steps,
+                       profile=0, b1_per_step=2)
+    kinds = sorted(k for k, _ in out["checked_launches"])
+    require(kinds == sorted([B1, B1, B2, B2]),
+            f"the tree grid's first step launched {out['checked_launches']}"
+            f": want one B1 and one B2 a leaf")
+    out["serial"] = tree_serial_runs(torch, api, qk, spec.points()[0], lam,
+                                     device=device, steps=serial_steps)
     return out
 
 
@@ -2669,12 +2846,15 @@ def sweep_phase(torch, api, sweep, metrics, draws_mod, ops, qk, ref, errs):
     """Phase 10 (see the module docstring)."""
     t0 = time.perf_counter()
     res = {"golden_map": sweep_map_golden(torch, api, metrics, qk)}
-    res["vmap_grid"] = sweep_vmap_grid(torch, api, sweep, draws_mod, qk)
-    res["beyond_dense"] = stacked_grids_beyond_dense(torch, api, sweep,
-                                                     draws_mod, qk)
+    res["vmap_grid"] = sweep_vmap_grid(torch, api, sweep, draws_mod, ops, qk,
+                                       ref, errs)
+    res["beyond_dense"] = stacked_grids_beyond_dense(
+        torch, api, sweep, draws_mod, ops, qk, ref, errs)
     res["b1_point_levels"] = b1_point_levels(torch, ops, qk, ref, errs)
     res["checkpoints"] = checkpoint_resume(torch, api, draws_mod)
     res["cli"] = sweep_cli(res["golden_map"])
+    res["tree_grid"] = tree_grid(torch, api, sweep, draws_mod, ops, qk, ref,
+                                 errs)
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -3348,7 +3528,9 @@ def checked_qinf_kernels(torch, ops, qk, ref, errs, what: str):
     plain version on the same operands, bit for bit: B1's leaf (..., D)
     blocked and padded as the plain path pads it, B2's (R, block) codes,
     QINF_CHECK_BLOCKS blocks a time (the plain temporaries stay small
-    beside a full card).  ``calls`` [(kernel, operand shape)].  Restored on exit."""
+    beside a full card); a B1 launch with a level count a point (a
+    stacked grid's bits axis) at each row's level count.  ``calls``
+    [(kernel, operand shape)].  Restored on exit."""
     calls = []
     saved = {k: getattr(qk, k) for k in (B1, B2)}
 
@@ -3356,10 +3538,11 @@ def checked_qinf_kernels(torch, ops, qk, ref, errs, what: str):
         @functools.wraps(fn)
         def inner(x, u, bits, levels=None):
             out = fn(x, u, bits, levels)
-            require(levels is None, f"B1 {what}: a per-point level launch")
             D, block = (x.shape[-1] if x.dim() else 1), u.shape[-1]
             xr, ur = x.reshape(-1, D), u.reshape(-1, block)
             codes, scales = out[0].reshape(-1, block), out[1].reshape(-1, 1)
+            lv = (None if levels is None
+                  else ref.levels_per_row(levels, ur.shape[0]))
             nb = ur.shape[0] // xr.shape[0]
             step = max(1, QINF_CHECK_BLOCKS // nb)
             for lo in range(0, xr.shape[0], step):
@@ -3367,7 +3550,8 @@ def checked_qinf_kernels(torch, ops, qk, ref, errs, what: str):
                 blocks = slice(lo * nb, (lo + step) * nb)
                 xb = ops.blockwise_lastdim(xr[rows], block=block)
                 cp, sp = ref.qinf_quantize_blocks_ref(
-                    xb.reshape(-1, block), ur[blocks], bits)
+                    xb.reshape(-1, block), ur[blocks], bits,
+                    None if lv is None else lv[blocks])
                 ck, sk = codes[blocks], scales[blocks]
                 e = max(float((ck.int() - cp.int()).abs().max()),
                         float((sk - sp).abs().max()))
@@ -4754,7 +4938,9 @@ def main() -> int:
               f"; {gm['bit_equal_points']} points bit-equal to their serial "
               f"runs on the card; {gm['wall_s']:.2f} s", flush=True)
         print(f"[sweep] (b) {vg['spec']}: {vg['points']} points stacked, "
-              f"{vg['steps']} steps: launches {vg['launches']}; stacked vs "
+              f"{vg['steps']} steps: launches {vg['launches']}; first "
+              f"stacked step's launches {vg['checked_launches']} bit-equal "
+              f"to the plain versions; stacked vs "
               f"map, {vg['replay']['steps']} teacher-forced steps: worst off "
               f"fraction {vg['replay']['worst_off_fraction']:.2e}, worst "
               f"|diff|/max {vg['replay']['worst_rel_max']:.2e}; objective "
@@ -4781,7 +4967,9 @@ def main() -> int:
                   f"{rp['steps']} teacher-forced steps vs map "
                   f"({rp['fault_draws_replayed']} fault draws replayed): "
                   f"worst off fraction {rp['worst_off_fraction']:.2e}, "
-                  f"worst |diff|/max {rp['worst_rel_max']:.2e}"
+                  f"worst |diff|/max {rp['worst_rel_max']:.2e}; first "
+                  f"stacked step's launches {g['checked_launches']} "
+                  f"bit-equal to the plain versions"
                   + (f"; bits of every round equal to map mode (first "
                      f"rounds of point 0: {g['bits_first'][0]})"
                      if g["bits_equal_to_map"] else ""), flush=True)
@@ -4817,8 +5005,34 @@ def main() -> int:
               f"equal, the next step bit-equal", flush=True)
         print(f"[sweep] (e) python -m repro_torch.launch.sweep: exit 0, "
               f"{sw['cli']['points']} points equal to (a), "
-              f"{sw['cli']['seconds']:.1f} s; phase {sw['seconds']:.1f} s",
-              flush=True)
+              f"{sw['cli']['seconds']:.1f} s", flush=True)
+        tg = sw["tree_grid"]
+        rp = tg["replay"]
+        print(f"[sweep] (i) {tg['spec']} (tree iterate W, b): "
+              f"{tg['points']} points stacked; first stacked step's "
+              f"launches {tg['checked_launches']} bit-equal to the plain "
+              f"versions; {rp['steps']} teacher-forced steps vs map: worst "
+              f"off fraction {rp['worst_off_fraction']:.2e}, worst "
+              f"|diff|/max {rp['worst_rel_max']:.2e}", flush=True)
+        print(f"[sweep] (i) {tg['steps']} free-running steps: launches "
+              f"{tg['launches']} (B1 and B2 {tg['launches'][B1] / tg['steps']:g}"
+              f" a step); objective {min(tg['objective_first']):.6f}.."
+              f"{max(tg['objective_first']):.6f} -> "
+              f"{min(tg['objective_last']):.6f}.."
+              f"{max(tg['objective_last']):.6f}; peak "
+              f"{tg['peak_mem_mb']:.0f} MiB; ms a step: stacked "
+              f"{tg['stacked_ms_per_step']:.4f} for all {tg['points']} "
+              f"points, map {tg['map_ms_per_step_summed']:.4f} summed over "
+              f"the points | {smi}", flush=True)
+        for engine, r in tg["serial"].items():
+            print(f"[sweep] (i) serial {engine} run of {r['spec']} on the "
+                  f"card: {r['steps']} steps, launches {r['launches']}, "
+                  f"objective {r['objective'][0]:.6f} -> "
+                  f"{r['objective'][1]:.6f}"
+                  + (f", bits of the first rounds {r['bits_first']}"
+                     if r["bits_first"] else "")
+                  + f"; {r['seconds']:.2f} s | {smi}", flush=True)
+        print(f"[sweep] phase {sw['seconds']:.1f} s", flush=True)
 
         # 11. serving at published widths
         t0 = time.perf_counter()

@@ -695,7 +695,7 @@ class DenseRunner(Runner):
 
     @property
     def device(self) -> torch.device:
-        return self.X0.device
+        return tree.leaves(self.X0)[0].device
 
     def init_state(self, draws: Draws):
         return self.algo.init(self.X0, draws)
@@ -815,7 +815,7 @@ class NetsimRunner(Runner):
 
     @property
     def device(self) -> torch.device:
-        return self.X0.device
+        return tree.leaves(self.X0)[0].device
 
     def with_fault_draws(self, fault_draws: Draws):
         """The algorithm over a fresh SimMixer drawing from

@@ -21,9 +21,9 @@ draws for each leaf.  Identity compression is skipped, not called.
 
 Under a stacked grid (``repro_torch.sweep``, ``batch='vmap'``) every
 state leaf carries a leading point axis, (P, n, ...), and ``eta``,
-``gamma_c``, ``theta`` and ``alpha`` may be per-point (P, 1, ..., 1) f64
-operands: each coefficient is formed in f64 and rounded once to the
-leaf's dtype (``core.comm.coef``), as a host float is.  The inits of
+``gamma_c``, ``theta`` and ``alpha`` may be per-point (P,) f64 operands:
+each coefficient is formed in f64 and rounded once to the leaf's dtype at
+the leaf's rank (``core.comm.coef``), as a host float is.  The inits of
 PG-EXTRA and NIDS take a first step and stay serial, point by point.
 """
 from __future__ import annotations

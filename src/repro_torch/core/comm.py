@@ -174,12 +174,18 @@ class RowsMixer(Mixer):
 
 def coef(v, like: torch.Tensor):
     """A step's scalar coefficient as ``like``'s arithmetic takes it: a
-    Python float as it is; a stacked grid's per-point operand, a (P, 1,
-    ..., 1) f64 tensor whose compound arithmetic (``gamma / (2 eta)``,
-    ``1 - alpha``) was done in f64 as the host does it in double, rounded
-    once to ``like``'s dtype -- what a Python float scalar goes through in
-    a product with ``like``."""
-    return v.to(like.dtype) if torch.is_tensor(v) else v
+    Python float as it is; a stacked grid's per-point operand, a (P,) f64
+    tensor whose compound arithmetic (``gamma / (2 eta)``, ``1 - alpha``)
+    was done in f64 as the host does it in double, viewed at ``like``'s
+    rank, (P, 1, ..., 1), and rounded once to ``like``'s dtype -- what a
+    Python float scalar goes through in a product with ``like``.  Each
+    leaf of a tree-valued iterate so takes the operand at its own rank.
+    A 0-d tensor is only rounded."""
+    if not torch.is_tensor(v):
+        return v
+    if v.dim():
+        v = v.reshape((-1,) + (1,) * (like.dim() - 1))
+    return v.to(like.dtype)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -4,8 +4,8 @@ prox_{eta r}(x) = argmin_z  r(z) + ||z - x||^2 / (2 eta).
 
 Elementwise or rowwise closed forms, applied leafwise; ``value`` returns
 r(x) as a 0-dim tensor for objective bookkeeping.  ``eta`` is a float, or
-a stacked grid's per-point (P, 1, ..., 1) f64 operand: each step size
-product is formed in f64 and rounded once to x's dtype (``comm.coef``),
+a stacked grid's per-point (P,) f64 operand: each step size product is
+formed in f64 and rounded once to x's dtype at x's rank (``comm.coef``),
 as a host float is; every closed form is elementwise or reduces the last
 axis alone, so a leading point axis passes through.
 """

@@ -26,7 +26,7 @@ from repro_torch.core.compression import Compressor, Identity, TopK
 from repro_torch.core.draws import Draws
 from repro_torch.core.oracles import Oracle, OracleState
 from repro_torch.core.prox import NoneProx, Prox
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import tree_map
 
 
 class ProxLEADState(NamedTuple):
@@ -81,26 +81,29 @@ class ProxLEAD:
 
     def update(self, state: ProxLEADState, G, draws: Draws) -> ProxLEADState:
         """Lines 6-10 given a gradient estimate G.  ``eta``, ``alpha`` and
-        ``gamma`` may also be a stacked grid's per-point operands ((P, 1,
-        ..., 1) f64 tensors, or callables k -> such a tensor), the state's
-        leaves then carrying a leading point axis (``repro_torch.sweep``):
-        every coefficient is formed in f64 and rounded once to the
-        state's dtype (``comm.coef``), as a host float is."""
+        ``gamma`` may also be a stacked grid's per-point operands ((P,) f64
+        tensors, or callables k -> such a tensor), the state's leaves then
+        carrying a leading point axis (``repro_torch.sweep``): every
+        coefficient is formed in f64 and rounded once to the dtype of the
+        leaf it scales, at that leaf's rank (``comm.coef``), as a host
+        float is."""
         eta = self._at(self.eta, state.k)
         alpha = self._at(self.alpha, state.k)
         gamma = self._at(self.gamma, state.k)
-        like = leaves(state.X)[0]
-        eta_c = coef(eta, like)
-        Z = tree_map(lambda x, g, d: x - eta_c * g - eta_c * d,
-                     state.X, G, state.D)                               # line 6
+
+        def line6(x, g, d):
+            eta_c = coef(eta, x)
+            return x - eta_c * g - eta_c * d
+
+        Z = tree_map(line6, state.X, G, state.D)                        # line 6
         Zhat, Zhat_w, cstate = comm(Z, state.comm, alpha, self.compressor,
                                     draws, self.mixer,
                                     step_idx=state.k)                   # line 7
         diff = tree_map(lambda a, b: a - b, Zhat, Zhat_w)
-        c_d = coef(gamma / (2 * eta), like)
-        D = tree_map(lambda d, df: d + c_d * df, state.D, diff)         # line 8
-        c_v = coef(gamma / 2.0, like)
-        V = tree_map(lambda z, df: z - c_v * df, Z, diff)               # line 9
+        c_d, c_v = gamma / (2 * eta), gamma / 2.0
+        D = tree_map(lambda d, df: d + coef(c_d, d) * df,
+                     state.D, diff)                                     # line 8
+        V = tree_map(lambda z, df: z - coef(c_v, z) * df, Z, diff)      # line 9
         X = self.prox.tree_call(V, eta)                                 # line 10
         return ProxLEADState(X, D, cstate, state.oracle, state.k + 1)
 

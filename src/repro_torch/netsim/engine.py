@@ -52,7 +52,7 @@ from repro_torch.netsim import metrics as metrics_mod
 from repro_torch.netsim.schedule import ScheduledMixer, TopologySchedule
 from repro_torch.obs.meters import current_meters
 from repro_torch.obs.trace import span
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, leaves, tree_map, unflatten
 
 
 class SimMixer(ScheduledMixer):
@@ -241,7 +241,8 @@ def make_step_record(algo, mixer: SimMixer, schedule: TopologySchedule, *,
             return zero
         if not P:
             return objective_fn(X)
-        return torch.stack([objective_fn(X[i]) for i in range(P)])
+        return torch.stack([objective_fn(tree_map(lambda l: l[i], X))
+                            for i in range(P)])
 
     def step(state, draws):
         k = state.k                       # round index the step will use
@@ -286,7 +287,7 @@ def simulate(algo, schedule: TopologySchedule,
     actually carried one that round (straggler sends and dropped links
     excluded -- read from the masks the mixer drew for the round).
     """
-    device = X0.device
+    device = leaves(X0)[0].device
     if draws is None:
         draws = GeneratorDraws(seed, device)
     if fault_draws is None:

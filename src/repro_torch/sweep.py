@@ -34,18 +34,19 @@ leaf by leaf on a leading point axis.
 
 ``batch='vmap'`` is the card's throughput mode (the reference's name; the
 mechanism here is stacking): every state leaf gains a leading point axis
-(P, n, ...), the per-point scalars become (P, 1, ..., 1) f64 operands
-(``eta``, ``alpha``, ``gamma``; a harmonic schedule as ``vt0 / (k + t0)``
-with ``vt0`` the host-double product ``value * t0``; any numeric
+(P, n, ...), the per-point scalars become (P,) f64 operands (``eta``,
+``alpha``, ``gamma``; a harmonic schedule as ``vt0 / (k + t0)`` with
+``vt0`` the host-double product ``value * t0``; any numeric
 ``algorithm.params`` field such as Choco's ``gamma_c`` or LessBit's
-``theta``), each rounded once to the state's dtype where it is used
-(``core.comm.coef``), and one step of the template's algorithm advances
-every point: the mixer contracts the node axis for all points in one
-batched product, the oracle folds the points into one sampled-gradient
-call (``Oracle.over_points``), RandK and TopK compress each point's slice
-(``Compressor.over_points``), and each step launches B1 and B2 once for
-the whole grid -- a ``compressor.bits`` axis through B1's per-point level
-count.  Each point still draws from its own stream
+``theta``), each viewed at the rank of the leaf it scales, (P, 1, ...,
+1), and rounded once to its dtype where it is used (``core.comm.coef``),
+and one step of the template's algorithm advances every point: the
+mixer contracts the node axis for all points in one batched product, the
+oracle folds the points into one sampled-gradient call
+(``Oracle.over_points``), RandK and TopK compress each point's slice
+(``Compressor.over_points``), and each step launches B1 and B2 once a
+leaf for the whole grid -- a ``compressor.bits`` axis through B1's
+per-point level count.  Each point still draws from its own stream
 (``core.draws.StackedDraws``) and starts from its serial init.  On the
 netsim engine one SimMixer serves the grid (``SimMixer.stacked``): the
 schedule is shared, each point's faults draw from its own
@@ -55,7 +56,10 @@ round.  Every registered algorithm, oracle and compressor stacks, and
 every axis of :data:`SUPPORTED_AXES`.  Stacked products may sum in
 another order than a point's own, so this mode is held to a tolerance
 (rtol = atol = 1e-12 in f64 on the CPU), not to bits; netsim bits stay
-exact.  A tree-valued iterate is refused (map mode runs it).
+exact.  Both modes take a tree-valued iterate (a dict of leaves, as
+JAX's pytrees, ``repro_torch.tree``): in vmap mode every leaf gains the
+point axis and takes each operand at its own rank, and the leaves must
+share one dtype.
 """
 from __future__ import annotations
 
@@ -74,6 +78,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.netsim import engine as netsim_engine
 from repro_torch.netsim import metrics as netsim_metrics
 from repro_torch.obs import Meters, build_report, span, using_meters
+from repro_torch.tree import leaves
 
 # ===========================================================================
 # Operand plan: how the points differ
@@ -334,14 +339,15 @@ class SweepRunner:
         # schedule and faults) built once and shared by every point
         self._template = (template if template is not None
                           else api.build(base, device=device, dtype=dtype))
-        X0 = self._template.X0
-        if batch == "vmap" and not torch.is_tensor(X0):
-            raise ValueError("batch='vmap' stacks a single-tensor iterate; "
-                             "a tree of leaves is ROADMAP A item 4 "
-                             "(batch='map' runs it)")
-        if batch == "vmap" and X0.dtype != torch.float64:
+        dtypes = {leaf.dtype for leaf in leaves(self._template.X0)}
+        if batch == "vmap" and len(dtypes) > 1:
+            raise ValueError(
+                f"batch='vmap' over an iterate whose leaves mix dtypes "
+                f"({sorted(map(str, dtypes))}): the stacked products take "
+                f"one dtype; cast the problem's X0 to one")
+        if batch == "vmap" and dtypes != {torch.float64}:
             warnings.warn(
-                f"batch='vmap' in {X0.dtype}: the stacked products (the "
+                f"batch='vmap' in {dtypes.pop()}: the stacked products (the "
                 f"mixer's batched GEMM, the folded gradients) may sum in "
                 f"another order than a point's own, so points agree with "
                 f"their serial runs to a tolerance, not bit for bit (the "
@@ -407,9 +413,10 @@ class SweepRunner:
         return algos
 
     def _ops(self, name: str) -> torch.Tensor:
-        shape = (self.n_points,) + (1,) * self._template.X0.dim()
+        """A per-point operand, (P,) f64 on the run's device; each use
+        views it at the rank of the leaf it scales (``core.comm.coef``)."""
         return torch.as_tensor(self.plan.operands[name], dtype=torch.float64,
-                               device=self.device).reshape(shape)
+                               device=self.device)
 
     def stacked_algo(self):
         """The template's algorithm over the stacked grid (``batch=
