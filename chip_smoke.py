@@ -71,18 +71,24 @@ Phases, in order; any failure exits non-zero before the result lines:
    NETSIM_TIMED_STEPS steps each, one process), and a ``torch.profiler``
    window of NETSIM_PROFILE_STEPS scenario steps (device busy share).
 5. B3/B4 against their plain versions on the card: bits {1,2,3,4,7},
-   blocks 128 and 256, S (senders) in {1, 3, 4}, T (rounds) in {1, 3},
-   f32, bf16 and f64 out, 2 nodes, a ragged row count, a block of zeros
-   (B4's vector variant), and B4's row variant on payload rows that are
-   not whole 16-byte chunks, on a payload off the 16-byte alignment and at
-   S = 5 and 9.  B3 alone on B3_CASES: blocks 4, 8, 16, 20, 32, 64, 512,
-   1024 and 2048 at bits 1-7 and x or u off the 16-byte alignment, each
-   with a zero row; every B3 call must take the variant
-   ``b3_vector_expected`` names (the vector variant for aligned rows of
-   U = B/8 (nibble) or B/4 units, U a power of two up to 32 or a multiple
-   of 32 up to block 1024).  Packed bytes, scales, qself and the mix must
-   be exactly equal (kernel and plain version sum the senders in one
-   order).  The same
+   blocks 128 and 256, S (senders) in {1, 3, 4}, T (rounds) in
+   WIRE_ROUNDS (1, 3 and 9: past the widest round chunk), f32, bf16 and
+   f64 out, 2 nodes, a ragged row count, a block of zeros; S = 5, 6, 9
+   and 17 (past the widest sender chunk) and the MoE routers' blocks 8
+   and 16 on B4's vector variant; and B4's row variant on payload rows no
+   16-byte store serves (block 20 at 2 bits, nibble-packed block 4, block
+   6 at 4 bits) and on payloads off the alignment.  Every B4 call must
+   take the variant ``b4_vector_expected`` names for its output dtype
+   (the vector one when each unit's G = 16 / (bytes an output) codes a
+   half make one 16-byte store: a payload row of whole G-byte words at a
+   G-byte aligned address; any S and T).  B3 alone on B3_CASES: blocks 4,
+   8, 16, 20, 32, 64, 512, 1024 and 2048 at bits 1-7 and x or u off the
+   16-byte alignment, each with a zero row; every B3 call must take the
+   variant ``b3_vector_expected`` names (the vector variant for aligned
+   rows of U = B/8 (nibble) or B/4 units, U a power of two up to 32 or a
+   multiple of 32 up to block 1024).  Packed bytes, scales, qself and the
+   mix must be exactly equal (kernel and plain version sum the senders in
+   one order).  The same
    checks at the shapes the trainer below gives them: its block-256 group
    (8 nodes x 700,456 rows of 256) and its block-128 q_norm/k_norm group
    (8 nodes x 4 rows of 128), 2 bits, ring payloads (S = 3), T = 1; both
@@ -91,7 +97,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    turns.  B4 also at the scheduled
    trainer's shape (6b): the block-256 group with T = 2 rounds and S = 6
    senders (self plus the five hops of the ring/exponential union, the
-   plan's own weights; B4's row variant), checked and timed the same way.
+   plan's own weights), checked and timed the same way on both its
+   variants (the vector one, and the row one on a view of the payload one
+   byte off the alignment), in turns.
    Every B3/B4 bound here and in phase 12 (c) is over the bytes
    ``repro_torch.obs.roofline_gate.kernel_roofline`` prices the launch at
    (its per-node model x the nodes the launch covers); the launch's own
@@ -1231,6 +1239,17 @@ def b3_vector_expected(block: int, bits: int, aligned: bool = True) -> bool:
     return units % 32 == 0 and block <= 1024
 
 
+def b4_vector_expected(width: int, out_dtype, offset: int = 0) -> bool:
+    """The variant B4's launcher must pick (csrc/qinf_wire.cu): the vector
+    one when every unit's G = 16 / (bytes of an ``out_dtype`` value) codes
+    a half make one 16-byte store -- a payload row of ``width`` bytes, a
+    multiple of G, at ``offset`` bytes (a multiple of G) from a 16-byte
+    aligned buffer (mix and qself, allocated by the binding, are aligned)
+    -- at any sender and round count; the row variant otherwise."""
+    G = 16 // out_dtype.itemsize
+    return width % G == 0 and offset % G == 0
+
+
 # B3 alone, (bits, block, x and u storage offsets in f32): the narrow
 # widths of the families and the reduced configs (4, 8, 16, 20, 32, 64),
 # the vector variant's widest rows (512, 1024) and one past them (2048),
@@ -1275,29 +1294,41 @@ def check_b3_variants(torch, qk, ref, errs, rows=8 * 31 + 5,
     return len(B3_CASES), n_vector
 
 
-# (bits, block, S, payload offset in bytes, B4 variant is the vector one):
-# every bits x block at S = 1, 3, 4 (4: exponential-8's self + 3 hops) on
-# the vector variant, then the row variant's shapes -- payload rows that
-# are not whole 16-byte chunks, a payload off the 16-byte alignment, more
-# senders than the vector variant holds (5, one past its 4, and 9; the
-# cases of
-# tests/test_torch_wire_kernels.py's cuda tests)
-WIRE_CASES = ([(bits, block, S, 0, True) for bits in (1, 2, 3, 4, 7)
+# (bits, block, S, payload offset in bytes), the B4 variant of each
+# output dtype by b4_vector_expected: every bits x block at S = 1, 3, 4
+# (4: exponential-8's self + 3 hops) and S = 5, 9 and 17 (past the widest
+# sender chunk, 8), the alternating schedule's S = 6 and the MoE routers'
+# blocks 8 and 16 (W = 4 and 8 at 2 bits: one and two units a row at f32),
+# rows of 20 and 24 bytes and a payload 8 bytes into its buffer on the
+# vector variant; then the row variant's shapes -- payload rows no 16-byte
+# store serves (block 20 at 2 bits, W = 10; nibble-packed block 4, W = 2;
+# W = 6 at 4 bits; the f64 output takes all three on the vector variant)
+# and payloads off the alignment (1 and 3 bytes: every dtype; 2: f32 and
+# bf16; 4: bf16) -- the cases of tests/test_torch_wire_kernels.py's cuda
+# tests
+WIRE_CASES = ([(bits, block, S, 0) for bits in (1, 2, 3, 4, 7)
                for block in (128, 256) for S in (1, 3, 4)]
-              + [(2, 40, 3, 0, False), (4, 24, 3, 0, False),
-                 (2, 256, 3, 8, False), (4, 128, 4, 4, False),
-                 (2, 256, 5, 0, False), (2, 128, 9, 0, False)])
+              + [(2, 256, 5, 0), (2, 128, 9, 0), (2, 128, 17, 0),
+                 (2, 256, 6, 0), (2, 8, 3, 0), (2, 16, 6, 0), (4, 8, 5, 0),
+                 (2, 40, 3, 0), (4, 24, 3, 0), (2, 256, 3, 8)]
+              + [(2, 20, 3, 0), (2, 4, 3, 0), (4, 6, 3, 0), (2, 256, 3, 1),
+                 (4, 128, 4, 3), (2, 256, 6, 2), (4, 128, 4, 4)])
+# rounds T of every WIRE_CASES case: 3 and 9 are past the widest round
+# chunk (2 rounds)
+WIRE_ROUNDS = (1, 3, 9)
 
 
 def check_wire_kernels(torch, qk, ref, errs, n_nodes=2, rows=8 * 31 + 5,
                        device="cuda"):
     """B3/B4 vs their plain versions on every case of :data:`WIRE_CASES`,
-    T (rounds) 1 and 3, f32/bf16/f64 out, a ragged row count, a block of
-    zeros; records the largest difference per kernel in ``errs``.  Returns
-    (B4 cases, of which on the vector variant)."""
+    T (rounds) in :data:`WIRE_ROUNDS`, f32/bf16/f64 out, a ragged row
+    count, a block of zeros; each B4 call on the variant
+    :func:`b4_vector_expected` names; records the largest difference per
+    kernel in ``errs``.  Returns (B4 cases, of which on the vector
+    variant)."""
     g = torch.Generator(device=device).manual_seed(2)
     n_checked = n_vector = 0
-    for bits, block, S, offset, vector in WIRE_CASES:
+    for bits, block, S, offset in WIRE_CASES:
         what = f"at bits={bits} block={block} S={S} offset={offset}"
         x = torch.randn((n_nodes * S * rows, block), generator=g,
                         device=device) * 3
@@ -1316,15 +1347,15 @@ def check_wire_kernels(torch, qk, ref, errs, n_nodes=2, rows=8 * 31 + 5,
         P = buf[offset:].view(n_nodes, S, rows, -1)
         P.copy_(pk.view(n_nodes, S, rows, -1))
         Sc = sk.reshape(n_nodes, S, rows, 1)
-        for T in (1, 3):
+        for T in WIRE_ROUNDS:
             w = torch.randn((n_nodes, T, S), generator=g, device=device)
             for out in (torch.float32, torch.bfloat16, torch.float64):
                 got = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, bits, out)
+                vector = b4_vector_expected(P.shape[-1], out, offset)
                 require(device != "cuda" or qk.uses_vector_variant(
-                    "qinf_unpack_dequant_mix_blocks", P.data_ptr(),
-                    got[0].data_ptr(), got[1].data_ptr(), P.shape[-1], S)
-                        is vector, f"B4 {what} must take the "
-                        f"{'vector' if vector else 'row'} variant")
+                    "qinf_unpack_dequant_mix_blocks", P, *got) is vector,
+                    f"B4 {what} {out} must take the "
+                    f"{'vector' if vector else 'row'} variant")
                 check_b4(torch, ref, P, Sc, w, bits, out, got, errs,
                          f"{what} T={T} {out}")
                 n_checked += 1
@@ -1406,15 +1437,14 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
         del packed, scales
         mix, qself = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, 2)
         require(device != "cuda" or qk.uses_vector_variant(
-            "qinf_unpack_dequant_mix_blocks", P.data_ptr(), mix.data_ptr(),
-            qself.data_ptr(), P.shape[-1], 3),
+            "qinf_unpack_dequant_mix_blocks", P, mix, qself),
             f"B4 {what} must take the vector variant")
         check_b4(torch, ref, P, Sc, w, 2, torch.float32, (mix, qself), errs,
                  what)
         checked.append({"block": block, "rows": [n_nodes, 3, rows_, block],
                         "mix_bit_equal": True})
         if block == 256:
-            b4 = {"rows": [n_nodes, 3, rows_, 256],
+            b4 = {"rows": [n_nodes, 3, rows_, 256], "variant": "vector",
                   "ms": cuda_ms(torch, lambda: qk.qinf_unpack_dequant_mix_blocks(
                       P, Sc, w, 2)),
                   "plain_ms": cuda_ms(
@@ -1432,16 +1462,15 @@ def wire_kernels_at_slice_shape(torch, qk, ref, errs,
             "qinf_unpack_dequant_mix_blocks": b4}, checked
 
 
-def b4_at_alternating_schedule(torch, qk, ref, errs,
-                               group_rows=SLICE_GROUP_ROWS, n_nodes=8,
-                               plain_iters=3, device="cuda"):
-    """B4 at the scheduled trainer's block-256 group: T = 2 rounds and
-    S = 6 senders -- self and the five hops of the ring/exponential union,
-    each hop's payload the circulant shift of every node's, the plan's
-    receiver weights (``optim.wire.node_weights``) -- 2 bits, f32 out.
-    More senders than the vector variant holds: the row variant.  Mix and
-    qself must equal the plain version's; timed with CUDA events.  The
-    bound: payload, scales, weights, mix and qself moved once."""
+def alternating_payloads(torch, qk, group_rows=SLICE_GROUP_ROWS, n_nodes=8,
+                         device="cuda"):
+    """What B4 gets at the scheduled trainer's block-256 group, 2 bits:
+    T = 2 rounds and S = 6 senders -- self and the five hops of the
+    ring/exponential union, each hop's payload the circulant shift of
+    every node's (B3's on random rows), the plan's receiver weights
+    (``optim.wire.node_weights``).  Returns (P, Po, Sc, w): the payload P
+    (n_nodes, S, group_rows, 128) and Po of the same shape one byte
+    further into P's buffer (off the alignment), scales, weights."""
     import numpy as np
     from repro_torch.core import topology as topo_mod
     from repro_torch.netsim import make_schedule
@@ -1451,8 +1480,8 @@ def b4_at_alternating_schedule(torch, qk, ref, errs,
     wmat = np.concatenate([plan.self_weights(np.float32)[None]]
                           + [h.weights[None] for h in plan.hops], 0)
     w = node_weights(wmat.astype(np.float32), device)
-    T, S = w.shape[1], w.shape[2]
-    require((T, S) == (2, SCHEDULED_HOPS + 1), f"(T, S) = {(T, S)}")
+    require(tuple(w.shape[1:]) == (2, SCHEDULED_HOPS + 1),
+            f"(T, S) = {tuple(w.shape[1:])}")
     g = torch.Generator(device=device).manual_seed(4)
     R = n_nodes * group_rows
     x = torch.randn((R, 256), generator=g, device=device)
@@ -1461,34 +1490,57 @@ def b4_at_alternating_schedule(torch, qk, ref, errs,
     del x, u
     p = packed.reshape(n_nodes, group_rows, -1)
     s = scales.reshape(n_nodes, group_rows, 1)
-    P = torch.stack([p] + [p.roll(h.shift, 0) for h in plan.hops],
-                    1).contiguous()
+    shape = (n_nodes, len(plan.hops) + 1, group_rows, p.shape[-1])
+    buf = torch.empty(math.prod(shape) + 1, dtype=torch.uint8, device=device)
+    P, Po = buf[:-1].view(shape), buf[1:].view(shape)
+    P.copy_(torch.stack([p] + [p.roll(h.shift, 0) for h in plan.hops], 1))
     Sc = torch.stack([s] + [s.roll(h.shift, 0) for h in plan.hops],
                      1).contiguous()
-    del packed, scales, p, s
+    return P, Po, Sc, w
+
+
+def b4_at_alternating_schedule(torch, qk, ref, errs,
+                               group_rows=SLICE_GROUP_ROWS, n_nodes=8,
+                               plain_iters=3, device="cuda"):
+    """B4 at the scheduled trainer's block-256 group
+    (:func:`alternating_payloads`: T = 2, S = 6), 2 bits, f32 out, on both
+    its variants: the vector one on the payload as allocated, the row one
+    on the view one byte further on, each held to the plain version (mix
+    and qself equal) and timed with CUDA events in turns (vector, row,
+    row, vector; each variant's mean).  The bound: payload, scales,
+    weights, mix and qself moved once."""
+    P, Po, Sc, w = alternating_payloads(torch, qk, group_rows, n_nodes,
+                                        device)
+    T, S = w.shape[1], w.shape[2]
     what = f"at T={T} S={S} ({n_nodes} x {group_rows} rows of 256)"
-    mix, qself = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, 2)
-    vector = device == "cuda" and qk.uses_vector_variant(
-        "qinf_unpack_dequant_mix_blocks", P.data_ptr(), mix.data_ptr(),
-        qself.data_ptr(), P.shape[-1], S)
-    require(not vector, f"B4 {what} must take the row variant")
-    check_b4(torch, ref, P, Sc, w, 2, torch.float32, (mix, qself), errs,
-             what)
+    runs = {"vector": P, "row": Po}
+    for v, Pv in runs.items():
+        mix, qself = qk.qinf_unpack_dequant_mix_blocks(Pv, Sc, w, 2)
+        require(device != "cuda" or qk.uses_vector_variant(
+            "qinf_unpack_dequant_mix_blocks", Pv, mix, qself) is (
+                v == "vector"), f"B4 {what}, payload offset "
+            f"{Pv.data_ptr() - P.data_ptr()} B, must take the {v} variant")
+        check_b4(torch, ref, Pv, Sc, w, 2, torch.float32, (mix, qself), errs,
+                 f"{what} ({v} variant)")
     out = {"rows": [n_nodes, S, group_rows, 256], "T": T, "S": S,
-           "variant": "row"}
+           "variant": "vector"}
     out["bound_ms"], out["bound_by"] = wire_bound(
         torch, "B4", 256, group_rows, n_nodes, nbytes(P, Sc, w, mix, qself),
         nbytes(w), hops=S - 1, receivers=T,
         ops=b4_ops_per_element(S, T) * qself.numel())
     out["bound_gb"] = nbytes(P, Sc, w, mix, qself) / 1e9
     del mix, qself
-    out["ms"] = cuda_ms(torch, lambda: qk.qinf_unpack_dequant_mix_blocks(
-        P, Sc, w, 2))
+    ms = {"vector": [], "row": []}
+    for v in ("vector", "row", "row", "vector"):
+        ms[v].append(cuda_ms(torch, lambda: qk.qinf_unpack_dequant_mix_blocks(
+            runs[v], Sc, w, 2)))
+    out["ms"], out["row_variant_ms"] = (sum(ms["vector"]) / 2,
+                                        sum(ms["row"]) / 2)
     out["plain_ms"] = cuda_ms(
         torch, lambda: ref.qinf_unpack_dequant_mix_blocks_ref(P, Sc, w, 2),
         iters=plain_iters, warmup=1)
     out["library_ms"] = None
-    del P, Sc
+    del P, Po, Sc, runs
     if device == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -4180,9 +4232,10 @@ def wire_case(torch, qk, ref, errs, block: int, rows: int, n_nodes: int = 8,
     del packed, scales
     w = torch.full((n_nodes * shards, 1, 3), 1.0 / 3.0, device=device)
     mix, qself = qk.qinf_unpack_dequant_mix_blocks(P, Sc, w, 2)
-    vector = device == "cuda" and qk.uses_vector_variant(
-        "qinf_unpack_dequant_mix_blocks", P.data_ptr(), mix.data_ptr(),
-        qself.data_ptr(), P.shape[-1], 3)
+    vector = b4_vector_expected(P.shape[-1], torch.float32)
+    require(device != "cuda" or qk.uses_vector_variant(
+        "qinf_unpack_dequant_mix_blocks", P, mix, qself) is vector,
+        f"B4 {what} must take the {'vector' if vector else 'row'} variant")
     check_b4(torch, ref, P, Sc, w, 2, torch.float32, (mix, qself), errs,
              what)
     b4 = {"variant": "vector" if vector else "row", "library_ms": None}
@@ -4797,7 +4850,9 @@ def main() -> int:
         b4t2 = b4_at_alternating_schedule(torch, qk, ref, errs)
         print(f"[wire] qinf_unpack_dequant_mix_blocks @ {b4t2['rows']} T="
               f"{b4t2['T']} ({b4t2['variant']} variant): mix and qself "
-              f"bit-equal; {b4t2['ms']:.4f} ms (plain "
+              f"bit-equal on both variants; {b4t2['ms']:.4f} ms "
+              f"({100 * b4t2['bound_ms'] / b4t2['ms']:.1f} % of the bound, "
+              f"row variant {b4t2['row_variant_ms']:.4f} ms; plain "
               f"{b4t2['plain_ms']:.4f}, bound {b4t2['bound_ms']:.4f} by "
               f"{b4t2['bound_by']}, {b4t2['bound_gb']:.2f} GB, library "
               f"none) | {smi}", flush=True)

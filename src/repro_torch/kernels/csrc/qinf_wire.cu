@@ -53,32 +53,54 @@
 // B4 design.  B4 takes a leading node dim: packed (N, S, R, W), scales
 // (N, S, R), weights (N, T, S); each node applies its own receiver-indexed
 // weights, so per node the function is exactly the TPU kernel's, and all N
-// nodes of one bucket group take one launch.  Its cost is the 8 B an
-// element it writes (mix and qself at T = 1, f32), so the vector variant
-// is built around wide, contiguous stores and few registers.  A thread
+// nodes of one bucket group take one launch.  It is bound by bytes, and
+// most of them are the T + 1 outputs it writes: at T = 2, S = 6, nibble
+// packing and f32 out it reads 3 B and writes 12 B an element against
+// ~6 S + 2 T S f32 operations.  So the vector variant is built around wide,
+// contiguous stores, few registers and few instructions a byte.  A thread
 // owns G = 16 B / sizeof(out) payload bytes k0..k0+G-1 of one (node, row)
-// for every sender (4 for f32, 8 for bf16, 2 for f64).  It issues the S
-// payload loads (G bytes each, every byte read once) and the S scale loads
-// together before any arithmetic and holds them in registers (at most
-// kMaxSenders).  Per output half (low nibbles: elements k0..; high
-// nibbles: B/2+k0..; byte packing has one half) it decodes each Q_s once,
-// writes qself, and for each round t loads the node's S weights of t and
-// writes mix[t], one 16-byte store per output.  Neighbouring lanes own
-// neighbouring bytes, so every warp load is one contiguous run and every
-// warp store one contiguous 512 B run.  Stores are streaming (evict-first):
-// the outputs of a bucket group far exceed the 50 MB L2.  A thread block
-// holds whole rows and blockIdx.x counts (node, row group), so there is no
-// 64-bit division.  Why not 16 payload bytes a thread: each warp store's
-// 16-byte pieces would land 64 B apart, half-filling every sector they
-// touch, and holding all 32 decoded elements of every sender lets the
-// compiler hoist the decode out of the round loop at over 250 registers;
-// on an H100 that stays under half the bytes bound.  __launch_bounds__
-// caps it at 64 registers (32 resident warps an SM).  The vector variant
-// needs a payload row of whole 16-byte chunks (W % 16 == 0), a 16-byte
-// aligned payload and outputs and S <= kMaxSenders = 4 (a ring's self + 2
-// hops, exponential-8's self + 3); every other shape takes the row
-// variant, one warp per (node, row), one element a lane.  The launcher picks the variant from
-// the shape and the alignment (qinf_unpack_dequant_mix_blocks_vector).
+// for every sender (4 for f32, 8 for bf16, 2 for f64).  Per chunk of kT
+// rounds it streams the senders in order, kSenders at a time: the chunk's
+// payload words and scales are all loaded before any arithmetic, once for
+// both output halves (low nibbles: elements k0..; high nibbles:
+// B/2+k0..; byte packing has one half); then per half each Q_s is decoded
+// and rounded once, written as qself at s = 0, and folded into the half's
+// accumulators acc[t][G] (acc = w0 q0, then acc += ws qs); after the last
+// sender every round's G outputs of a half leave as one 16-byte store.  A
+// count above its chunk loops over further chunks (a further round chunk
+// decodes the senders again), so any S and T take this variant.  The
+// weights are read through the read-only cache, one uniform load per round
+// and sender: a thread block holds one node's rows, so its lanes all read
+// one word.  Holding every sender's decoded half-row instead, to reuse it
+// across rounds, costs S x G registers and capped an earlier design at 4
+// senders; streaming them costs 2 x kT x G accumulators.  Those bound the
+// chunks (MixChunk): under the 64-register cap of __launch_bounds__ (32
+// resident warps an SM) a one-round chunk holds 4 senders, a two-round one
+// 8 at f32 and 6 at f64, without spills (ptxas -v); at bf16 two rounds
+// spill, so bf16 accumulates one round at a time.  The launcher takes the
+// one-round instance at T = 1, which holds half the accumulators: at the
+// ring trainer's T = 1, S = 3 group (8 x 700,456 rows of 256, f32) it
+// takes 4.6936 and 4.6853 ms against 4.6835 and 4.6817 for the earlier
+// design, which held every sender's half-row (wire_ab.py, the two trees in
+// turns in one call, NVIDIA H100 80GB HBM3 at 700 W), so one kernel
+// serves every S and T.
+// Neighbouring lanes own neighbouring words, so every warp load is one
+// contiguous run and, on rows of 32 units or more, every warp store one
+// contiguous 512 B run.  Stores are streaming (evict-first): the outputs
+// of a bucket group far exceed the 50 MB L2.  A thread block holds whole
+// rows (256 / upr rows of upr = W / G units: block 8 at 2 bits and f32 is
+// one unit a row, 256 rows a block) and blockIdx.x counts (node, row
+// group), so there is no 64-bit division.  Why not 16 payload bytes a
+// thread: each warp store's 16-byte pieces would land 64 B apart,
+// half-filling every sector they touch.  The vector variant needs every
+// unit's G codes a half to make one 16-byte store: W a multiple of G, the
+// payload G-byte aligned, mix and qself 16-byte aligned.  No 16-byte store
+// serves any other shape -- a payload row of W % G != 0 bytes (block 20 at
+// 2 bits, W = 10, and nibble-packed block 4, W = 2, for f32 and bf16;
+// block 8 at 2 bits for bf16) or a view off those alignments -- so it
+// takes the row variant, one warp per (node, row), one element a lane.
+// The launcher picks the variant from the shape, the output dtype and the
+// alignment (qinf_unpack_dequant_mix_blocks_vector).
 //
 // Exactness.  B3's codes must equal the reference bit for bit: the code
 // argument is __fmul_rn(levels, |x|), then __fdiv_rn(., safe), then
@@ -105,7 +127,6 @@ using qinf::kThreads;
 using qinf::kWarpsPerBlock;
 using qinf::from_f32;
 
-constexpr int kMaxSenders = 4;  // senders the B4 vector variant holds
 constexpr int kPackVecMaxBlock = 1024;  // widest row B3's vector variant holds
 constexpr bool kStreamStores = true;  // B4's outputs far exceed the L2
 
@@ -278,13 +299,51 @@ __device__ __forceinline__ float round_through<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// B4, vector variant: packed (N, S, R, W) u8 with W % 16 == 0, scales
-// (N, S, R) f32, w (N, T, S) f32 -> mix (N, T, R, B), qself (N, R, B) of
-// TOut.  A thread owns G = Vec16<TOut>::kN payload bytes of one (node, row)
-// for every sender (S <= kMaxSenders); ``upr`` = W / G units a row,
-// ``groups`` row groups a node along blockIdx.x.  The register cap (64)
-// keeps 32 warps an SM resident.
+// B4's vector variant: the senders a chunk holds in registers when it
+// accumulates kRounds rounds at once, by output dtype (G = 4 f32, 8 bf16,
+// 2 f64 outputs a thread and half), under the 64-register cap without
+// spills (ptxas -v).  One round: 4 senders (wider chunks fit too, at more
+// registers, and read no faster at T = 1: b4_chunks.py).  Two rounds: the
+// widest that fits, 8 at f32 and 6 at f64; at bf16 two rounds of 2 x 8
+// accumulators a half spill.  A call with T == 1 takes the one-round
+// chunk, any other the widest round chunk of its dtype (kMaxRounds).
+template <typename TOut, int kRounds>
+struct MixChunk;
+template <>
+struct MixChunk<float, 1> {
+  static constexpr int kSenders = 4;
+};
+template <>
+struct MixChunk<float, 2> {
+  static constexpr int kSenders = 8;
+};
+template <>
+struct MixChunk<double, 1> {
+  static constexpr int kSenders = 4;
+};
+template <>
+struct MixChunk<double, 2> {
+  static constexpr int kSenders = 6;
+};
+template <>
+struct MixChunk<__nv_bfloat16, 1> {
+  static constexpr int kSenders = 4;
+};
 template <typename TOut>
+constexpr int kMaxRounds = 2;
+template <>
+constexpr int kMaxRounds<__nv_bfloat16> = 1;
+
+// B4, vector variant: packed (N, S, R, W) u8 with W % G == 0, scales
+// (N, S, R) f32, w (N, T, S) f32 -> mix (N, T, R, B), qself (N, R, B) of
+// TOut, any S and T.  A thread owns G = Vec16<TOut>::kN payload bytes of
+// one (node, row) for every sender; ``upr`` = W / G units a row,
+// ``groups`` row groups a node along blockIdx.x.  Per chunk of kT rounds
+// it streams the senders in chunks, each chunk's words loaded once for
+// both halves, each Q_s decoded once a half and folded into the rounds'
+// accumulators of its half in sender order.  The register cap (64) keeps
+// 32 warps an SM resident.
+template <typename TOut, int kT>
 __global__ void __launch_bounds__(kThreads, 4)
 qinf_unpack_dequant_mix_vec_kernel(const uint8_t* __restrict__ packed,
                                    const float* __restrict__ scales,
@@ -295,6 +354,7 @@ qinf_unpack_dequant_mix_vec_kernel(const uint8_t* __restrict__ packed,
                                    int nibble, int upr, int rpb,
                                    unsigned groups) {
   constexpr int G = qinf::Vec16<TOut>::kN;
+  constexpr int kS = MixChunk<TOut, kT>::kSenders;
   using Word = typename qinf::Bytes<G>::type;
   const unsigned n = blockIdx.x / groups;
   long long r;
@@ -302,56 +362,70 @@ qinf_unpack_dequant_mix_vec_kernel(const uint8_t* __restrict__ packed,
   if (!qinf::row_unit(upr, rpb, R, blockIdx.x - n * groups, &r, &unit))
     return;
   const long long srow0 = (long long)n * S * R + r;  // sender 0's row
-
-  // every sender's payload word and scale, all loads issued together
-  Word p[kMaxSenders];
-  float sc[kMaxSenders];
-#pragma unroll
-  for (int s = 0; s < kMaxSenders; ++s) {
-    if (s < S) {
-      const long long row = srow0 + s * R;
-      p[s] = __ldg(reinterpret_cast<const Word*>(packed + row * W) + unit);
-      sc[s] = __ldg(scales + row);
-    }
-  }
-
+  const Word* pw = reinterpret_cast<const Word*>(packed + srow0 * W) + unit;
+  const long long pstride = R * (long long)(W / G);  // words a sender
+  const float* sc0 = scales + srow0;
   const float* wn = w + (long long)n * T * S;
   TOut* qdst = qself + ((long long)n * R + r) * block + unit * G;
   TOut* mdst = mix + ((long long)n * T * R + r) * block + unit * G;
+  const long long tstride = R * (long long)block;  // mix rows of a round
+  const int hoff = block >> 1;  // a high nibble's element offset
+
+  for (int t0 = 0; t0 < T; t0 += kT) {
+    float acc[2][kT][G];  // [half][round][element]
+    for (int s0 = 0; s0 < S; s0 += kS) {
+      // the chunk's payload words and scales, all loads issued together
+      Word p[kS];
+      float sc[kS];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {  // low nibbles, then high (nibble packing)
-    if (h == 1 && !nibble) break;
-    const int off = h * (block >> 1);
-    // Q_s of this half, each decoded and rounded once
-    float q[kMaxSenders][G];
-#pragma unroll
-    for (int s = 0; s < kMaxSenders; ++s) {
-      if (s < S) {
-#pragma unroll
-        for (int j = 0; j < G; ++j) {
-          const uint32_t byte = qinf::byte_of(p[s], j);
-          const int code =
-              (int)(nibble ? (h ? byte >> 4 : byte & 0x0Fu) : byte) - offset;
-          q[s][j] = round_through<TOut>(__fmul_rn((float)code, sc[s]));
+      for (int i = 0; i < kS; ++i) {
+        if (s0 + i < S) {
+          p[i] = __ldg(pw + (s0 + i) * pstride);
+          sc[i] = __ldg(sc0 + (s0 + i) * R);
         }
       }
-    }
-    qinf::store_vec16<kStreamStores>(qdst + off, q[0]);
-    for (int t = 0; t < T; ++t) {
-      float acc[G];
 #pragma unroll
-      for (int s = 0; s < kMaxSenders; ++s) {
-        if (s < S) {
-          const float ws = __ldg(wn + t * S + s);  // round t's weights
+      for (int h = 0; h < 2; ++h) {  // low nibbles, then high
+        if (h == 1 && !nibble) break;
 #pragma unroll
-          for (int j = 0; j < G; ++j) {
-            const float term = __fmul_rn(ws, q[s][j]);
-            acc[j] = s == 0 ? term : __fadd_rn(acc[j], term);
+        for (int i = 0; i < kS; ++i) {
+          const int s = s0 + i;
+          if (s < S) {
+            float q[G];  // Q_s of this half, decoded and rounded once
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+              const uint32_t byte = qinf::byte_of(p[i], j);
+              const int code =
+                  (int)(nibble ? (h ? byte >> 4 : byte & 0x0Fu) : byte) -
+                  offset;
+              q[j] = round_through<TOut>(__fmul_rn((float)code, sc[i]));
+            }
+            if (s == 0 && t0 == 0)
+              qinf::store_vec16<kStreamStores>(qdst + h * hoff, q);
+#pragma unroll
+            for (int k = 0; k < kT; ++k) {
+              if (t0 + k < T) {
+                const float ws = __ldg(wn + (t0 + k) * S + s);
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                  const float term = __fmul_rn(ws, q[j]);
+                  acc[h][k][j] =
+                      s == 0 ? term : __fadd_rn(acc[h][k][j], term);
+                }
+              }
+            }
           }
         }
       }
-      qinf::store_vec16<kStreamStores>(mdst + (long long)t * R * block + off,
-                                       acc);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !nibble) break;
+#pragma unroll
+      for (int k = 0; k < kT; ++k)
+        if (t0 + k < T)
+          qinf::store_vec16<kStreamStores>(
+              mdst + (t0 + k) * tstride + h * hoff, acc[h][k]);
     }
   }
 }
@@ -370,7 +444,7 @@ __device__ __forceinline__ float dequant(const uint8_t* __restrict__ prow,
   return __fmul_rn((float)code, scale);
 }
 
-// B4, row variant (any width, alignment and S): one warp per (node, row),
+// B4, row variant (any width and alignment): one warp per (node, row),
 // one element a lane.
 template <typename TOut>
 __global__ void __launch_bounds__(kThreads)
@@ -420,9 +494,15 @@ void launch_mix(const uint8_t* packed, const float* scales, const float* w,
     const int rpb = qinf::rows_per_block(upr);
     const unsigned groups = (unsigned)qinf::row_groups(upr, R);
     const dim3 grid = qinf::row_unit_grid(upr, R, nodes);
-    qinf_unpack_dequant_mix_vec_kernel<TOut><<<grid, kThreads, 0, st>>>(
-        packed, scales, w, mix, qself, R, S, T, block, W, offset, nibble, upr,
-        rpb, groups);
+    if (T == 1 || kMaxRounds<TOut> == 1)
+      qinf_unpack_dequant_mix_vec_kernel<TOut, 1><<<grid, kThreads, 0, st>>>(
+          packed, scales, w, mix, qself, R, S, T, block, W, offset, nibble,
+          upr, rpb, groups);
+    else
+      qinf_unpack_dequant_mix_vec_kernel<TOut, kMaxRounds<TOut>>
+          <<<grid, kThreads, 0, st>>>(packed, scales, w, mix, qself, R, S, T,
+                                      block, W, offset, nibble, upr, rpb,
+                                      groups);
   } else {
     const long long warps = nodes * R;
     const dim3 grid((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
@@ -484,15 +564,18 @@ int qinf_quantize_pack_blocks_launch(const float* x, const float* u,
   return (int)cudaGetLastError();
 }
 
-// Whether B4 takes its vector variant: payload rows of whole 16-byte
-// chunks (width W), at most kMaxSenders senders, 16-byte aligned payload,
-// mix and qself.
+// Whether B4 takes its vector variant for an output of ``out_bytes`` a
+// value: every unit's G = 16 / out_bytes codes a half make one 16-byte
+// store -- payload rows of whole G-byte words (width W % G == 0), a G-byte
+// aligned payload, 16-byte aligned mix and qself.  Any S and T.
 int qinf_unpack_dequant_mix_blocks_vector(const void* packed, const void* mix,
                                           const void* qself, int width,
-                                          int senders) {
-  return width % kVecBytes == 0 && senders <= kMaxSenders &&
-         qinf::aligned16(packed) && qinf::aligned16(mix) &&
-         qinf::aligned16(qself);
+                                          int out_bytes) {
+  if (out_bytes <= 0 || kVecBytes % out_bytes != 0) return 0;
+  const int G = kVecBytes / out_bytes;
+  return width > 0 && width % G == 0 &&
+         reinterpret_cast<uintptr_t>(packed) % G == 0 &&
+         qinf::aligned16(mix) && qinf::aligned16(qself);
 }
 
 int qinf_unpack_dequant_mix_blocks_launch(const uint8_t* packed,
@@ -506,8 +589,9 @@ int qinf_unpack_dequant_mix_blocks_launch(const uint8_t* packed,
   const int nibble = bits + 1 <= 4 ? 1 : 0;
   const int W = nibble ? block / 2 : block;
   const int offset = 1 << (bits - 1);
-  const int vec = qinf_unpack_dequant_mix_blocks_vector(packed, mix, qself, W,
-                                                        S);
+  const int out_bytes = out_dtype == kF64 ? 8 : out_dtype == kBF16 ? 2 : 4;
+  const int vec =
+      qinf_unpack_dequant_mix_blocks_vector(packed, mix, qself, W, out_bytes);
   qinf::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
   cudaStream_t st = (cudaStream_t)stream;

@@ -43,8 +43,8 @@ launcher switches device only if the tensors live on another one than the
 current and returns ``cudaGetLastError()``; the binding raises on any
 error, and :func:`_launch` counts the launch in :data:`LAUNCHES`.  Each
 kernel has a vector and a row variant; its C launcher picks one from the
-shape and the 16-byte alignment of inputs and outputs
-(:func:`uses_vector_variant` asks it).
+shape and the alignment of inputs and outputs, B4's also from its output
+dtype (:func:`uses_vector_variant` asks it).
 """
 from __future__ import annotations
 
@@ -257,9 +257,10 @@ def _launch(entry: str, *args):
 def uses_vector_variant(kernel: str, *args) -> bool:
     """Whether the C launcher of B1 (``args``: the leaf x and its noise u,
     tensors), B2 (codes and output pointers, block), B3 (x and u, tensors,
-    and the bits) or B4 (payload, mix and qself pointers, payload width,
-    senders) takes its vector variant: the choice the launcher makes at
-    every launch, asked by the tests and ``chip_smoke.py``."""
+    and the bits) or B4 (the payload, mix and qself, tensors: the rule
+    reads the payload width, the output dtype and the alignments) takes
+    its vector variant: the choice the launcher makes at every launch,
+    asked by the tests and ``chip_smoke.py``."""
     libs = _libs()
     if kernel == "qinf_quantize_blocks":
         x, u = args
@@ -276,7 +277,10 @@ def uses_vector_variant(kernel: str, *args) -> bool:
         x, u, bits = args
         return bool(libs["qinf_wire"].qinf_quantize_pack_blocks_vector(
             x.data_ptr(), u.data_ptr(), x.shape[-1], bits))
-    return bool(libs["qinf_wire"].qinf_unpack_dequant_mix_blocks_vector(*args))
+    packed, mix, qself = args
+    return bool(libs["qinf_wire"].qinf_unpack_dequant_mix_blocks_vector(
+        packed.data_ptr(), mix.data_ptr(), qself.data_ptr(), packed.shape[-1],
+        mix.element_size()))
 
 
 def _leaf_rows(x: torch.Tensor):

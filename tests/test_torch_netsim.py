@@ -24,7 +24,7 @@
 * The port's static, fault-free netsim engine equals its dense engine bit
   for bit; ``NeighborMixer.mix_stacked`` equals the reference's.
 * A ``cuda`` test holds B4 at T = 2, S = 6 (the trainer's alternating
-  ring/exponential schedule: five hops plus self, B4's row variant) to its
+  ring/exponential schedule: five hops plus self, B4's vector variant) to its
   plain version.  A machine with a card but without JAX runs just that:
 
     python -m pytest --noconftest -m cuda tests/test_torch_netsim.py
@@ -561,8 +561,8 @@ def test_cuda_neighbor_mixer_moves_nothing_from_the_host():
 @pytest.mark.parametrize("bits", [2, 4])
 def test_cuda_b4_two_rounds_six_senders_matches_plain(bits):
     """B4 with T = 2 rounds and S = 6 senders (self plus the five hops of
-    the ring/exponential union on 8 nodes): more senders than the vector
-    variant holds, so the row variant; mix and qself equal the plain
+    the ring/exponential union on 8 nodes): the vector variant, which
+    streams any number of senders; mix and qself equal the plain
     version's, one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -575,9 +575,8 @@ def test_cuda_b4_two_rounds_six_senders_matches_plain(bits):
     w = torch.rand((N, T, S), generator=g, device="cuda")
     before = tq.launch_counts()["qinf_unpack_dequant_mix_blocks"]
     mk, qk_ = tq.qinf_unpack_dequant_mix_blocks(P, Sc, w, bits)
-    assert not tq.uses_vector_variant(
-        "qinf_unpack_dequant_mix_blocks", P.data_ptr(), mk.data_ptr(),
-        qk_.data_ptr(), P.shape[-1], S)
+    assert tq.uses_vector_variant("qinf_unpack_dequant_mix_blocks", P, mk,
+                                  qk_)
     assert tq.launch_counts()["qinf_unpack_dequant_mix_blocks"] == before + 1
     mr, qr = tref.qinf_unpack_dequant_mix_blocks_ref(P, Sc, w, bits)
     assert mk.shape == (N, T, R, B)

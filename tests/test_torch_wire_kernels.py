@@ -32,6 +32,7 @@ try:
 except ImportError:        # no JAX: only the cuda tests can run
     jax = None
 
+from chip_smoke import b3_vector_expected, b4_vector_expected
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import ref as tref
@@ -107,13 +108,20 @@ def test_quantize_pack_matches_reference(bits, rows, block):
         tref.unpack_codes_halves_ref(pt, bits).numpy(), ct.numpy())
 
 
-# every bits x block x out at S = T = 3 (rows 8, 16 or 64 by bits), and
-# the other (S, T) corners at bits 2, block 256
+# every bits x block x out at S = T = 3 (rows 8, 16 or 64 by bits), the
+# other (S, T) corners at bits 2, block 256, and the shapes the card's
+# vector variant takes beyond four senders and at narrow rows: the
+# alternating schedule's T = 2, S = 6 at blocks 256 and 16, nine senders,
+# the MoE routers' block 8 (W = 4 at 2 bits, W = 8 at 4 bits)
 _MIX_CASES = (
     [(bits, block, 3, 3, out, (8, 16, 64)[bits % 3])
      for bits in range(1, 8) for block in (128, 256)
      for out in ("f32", "bf16")]
     + [(2, 256, S, T, out, 16) for S, T in ((1, 1), (3, 1), (1, 3))
+       for out in ("f32", "bf16")]
+    + [(bits, block, S, T, out, 16)
+       for bits, block, S, T in ((2, 256, 6, 2), (2, 128, 9, 1),
+                                 (2, 8, 3, 1), (2, 16, 6, 2), (4, 8, 5, 3))
        for out in ("f32", "bf16")])
 
 
@@ -236,20 +244,6 @@ def test_cuda_wire_kernels_match_plain(bits, block):
         before["qinf_unpack_dequant_mix_blocks"] + 6
 
 
-def _b3_vector(block: int, bits: int,
-                            aligned: bool = True) -> bool:
-    """The variant rule of B3's C launcher (csrc/qinf_wire.cu): 16-byte
-    aligned x and u, U = block / 8 (nibble packing) or block / 4 units a
-    row, a power of two up to 32 or a multiple of 32 up to block 1024."""
-    per_unit = 8 if bits <= 3 else 4
-    if not aligned or block % per_unit:
-        return False
-    units = block // per_unit
-    if units <= 32:
-        return units & (units - 1) == 0
-    return units % 32 == 0 and block <= 1024
-
-
 def _check_b3_on_card(x, u, bits, vector):
     """B3 on the card against its plain version on the same x and u: bytes
     and scales equal, one launch, the variant the rule names."""
@@ -280,8 +274,7 @@ def test_cuda_b3_variants_match_plain(bits, block):
     x = torch.randn((R, block), generator=g, device="cuda") * 3
     x[5] = 0
     u = torch.rand((R, block), generator=g, device="cuda")
-    pk, sk = _check_b3_on_card(x, u, bits,
-                               _b3_vector(block, bits))
+    pk, sk = _check_b3_on_card(x, u, bits, b3_vector_expected(block, bits))
     L = 2 ** (bits - 1)
     zero_byte = L | L << 4 if bits <= 3 else L
     assert float(sk[5]) == 0.0 and bool((pk[5] == zero_byte).all())
@@ -303,7 +296,7 @@ def test_cuda_b3_off_alignment_takes_row_variant(bits, block, x_off, u_off):
     x = (torch.randn(n + x_off, generator=g, device="cuda") * 3)[x_off:]
     u = torch.rand(n + u_off, generator=g, device="cuda")[u_off:]
     x, u = x.view(R, block), u.view(R, block)
-    assert _b3_vector(block, bits)
+    assert b3_vector_expected(block, bits)
     _check_b3_on_card(x, u, bits, vector=False)
 
 
@@ -381,54 +374,81 @@ def _cuda_payloads(N, S, R, block, bits, g, offset_bytes=0):
     return P, sk.reshape(N, S, R, 1)
 
 
-def _cuda_mix_cases(P, Sc, bits, g, vector):
-    """B4 on the card against its plain version at T 1 and 3, f32, bf16
-    and f64 out: qself and mix exactly equal, one launch each."""
-    N, S = P.shape[:2]
-    for T in (1, 3):
+def _cuda_mix_cases(P, Sc, bits, g, offset_bytes=0, rounds=(1, 3)):
+    """B4 on the card against its plain version at each T of ``rounds``,
+    f32, bf16 and f64 out: qself and mix exactly equal, one launch each,
+    each on the variant :func:`chip_smoke.b4_vector_expected` names for
+    the payload's width, the output dtype and the payload's offset in
+    bytes from an aligned buffer.  Returns {out dtype: vector variant}."""
+    N, S, _, W = P.shape
+    vector = {}
+    for T in rounds:
         w = torch.randn((N, T, S), generator=g, device="cuda")
         for out in (torch.float32, torch.bfloat16, torch.float64):
             before = tq.launch_counts()["qinf_unpack_dequant_mix_blocks"]
             mk, qk_ = tq.qinf_unpack_dequant_mix_blocks(P, Sc, w, bits, out)
+            vector[out] = b4_vector_expected(W, out, offset_bytes)
             assert tq.uses_vector_variant(
-                "qinf_unpack_dequant_mix_blocks", P.data_ptr(),
-                mk.data_ptr(), qk_.data_ptr(), P.shape[-1], S) is vector
+                "qinf_unpack_dequant_mix_blocks", P, mk, qk_) is vector[out]
             mr, qr = tref.qinf_unpack_dequant_mix_blocks_ref(P, Sc, w, bits,
                                                              out)
             assert torch.equal(qk_, qr) and torch.equal(mk, mr), (T, out)
             assert tq.launch_counts()["qinf_unpack_dequant_mix_blocks"] == \
                 before + 1
+    return vector
+
+
+# (bits, block, S, rounds, payload offset in bytes): the trainers' widths
+# at S = 1, 3, 4 (4: exponential-8's self + 3 hops); S = 5, 6 and 9, past
+# four senders (6 at the alternating schedule's T = 2); the MoE routers'
+# blocks 8 and 16; S = 17 past the widest sender chunk (8) and T = 9 past
+# the widest round chunk (2) of csrc/qinf_wire.cu's MixChunk; payload rows
+# of 20 and 24 bytes (blocks 40 at 2 bits and 24 at 4 bits) and a payload
+# 8 bytes into its buffer, not whole 16-byte chunks
+_B4_VECTOR_CASES = (
+    [(bits, block, S, (1, 3), 0) for bits in (2, 4) for block in (128, 256)
+     for S in (1, 3, 4)]
+    + [(2, 256, 5, (1, 3), 0), (2, 128, 9, (1, 3), 0), (2, 256, 6, (2,), 0),
+       (2, 8, 3, (1, 3), 0), (2, 16, 6, (2,), 0), (4, 8, 5, (1, 3), 0),
+       (2, 16, 3, (1,), 0), (2, 128, 17, (1, 3), 0), (2, 64, 3, (9,), 0),
+       (4, 16, 17, (9,), 0), (2, 40, 3, (1, 3), 0), (4, 24, 3, (1, 3), 0),
+       (2, 256, 3, (1, 3), 8)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [2, 4])
-@pytest.mark.parametrize("block", [128, 256])
-@pytest.mark.parametrize("S", [1, 3, 4])
-def test_cuda_b4_vector_variant_matches_plain(bits, block, S):
+@pytest.mark.parametrize("bits,block,S,rounds,offset_bytes", _B4_VECTOR_CASES)
+def test_cuda_b4_vector_variant_matches_plain(bits, block, S, rounds,
+                                              offset_bytes):
     """B4's vector variant (nibble packing at 2 bits, bytes at 4) at the
-    trainer's two widths, S = 1, 3 and 4 (exponential-8's self + 3 hops),
-    3 nodes of 37 rows (the last thread block is not full)."""
+    trainers' widths and the routers' narrow rows, any S and T, 3 nodes of
+    37 rows (the last thread block is not full): f32 out takes it at every
+    case (bf16 at W = 4 or 20 does not: eight codes a store need W % 8 ==
+    0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(bits * 100 + block + S)
-    P, Sc = _cuda_payloads(3, S, 37, block, bits, g)
-    _cuda_mix_cases(P, Sc, bits, g, vector=True)
+    P, Sc = _cuda_payloads(3, S, 37, block, bits, g, offset_bytes)
+    assert _cuda_mix_cases(P, Sc, bits, g, offset_bytes,
+                           rounds)[torch.float32]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,block,S,offset_bytes", [
-    (2, 40, 3, 0), (4, 24, 3, 0), (2, 256, 3, 8), (4, 128, 4, 4),
-    (2, 256, 5, 0), (2, 128, 9, 0)])
+    (2, 20, 3, 0), (2, 4, 3, 0), (2, 10, 6, 0), (4, 6, 3, 0),
+    (2, 256, 3, 1), (4, 128, 4, 3), (2, 256, 6, 2), (2, 8, 3, 4),
+    (4, 128, 4, 4)])
 def test_cuda_b4_row_variant_matches_plain(bits, block, S, offset_bytes):
-    """B4's row variant: payload rows that are not whole 16-byte chunks
-    (blocks 40 at 2 bits, 24 at 4), payloads a contiguous view off the
-    16-byte alignment, and more senders than the vector variant holds
-    (S = 5, one past its four, and 9)."""
+    """B4's row variant: payload rows no 16-byte store serves (block 20 at
+    2 bits, W = 10; nibble-packed block 4, W = 2; W = 6 at 4 bits: f32 and
+    bf16; W = 5: every output dtype) and payloads a contiguous view off the
+    G-byte alignment (1 and 3 bytes: every dtype; 2: f32 and bf16; 4:
+    bf16), S up to 6; each case takes the row variant for at least one
+    output dtype."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(block + S + offset_bytes)
     P, Sc = _cuda_payloads(2, S, 37, block, bits, g, offset_bytes)
-    _cuda_mix_cases(P, Sc, bits, g, vector=False)
+    assert not all(_cuda_mix_cases(P, Sc, bits, g, offset_bytes).values())
 
 
 @pytest.mark.cuda
