@@ -117,9 +117,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``bits_per_step`` must equal 2 hops x 739,683,712 bits.  Peak memory,
    step time and a short ``torch.profiler`` window (device busy share,
    time by kernel, and the wire's share: the device ops launched inside
-   ``pack_to_wire``, ``mix_from_wire`` and the rest of the exchange (the
-   noise draws, the hops' copies), each a ``record_function`` range) are
-   reported.  Then ``[contracts]``: one more step audited by
+   each of the program's ``wire/`` phases, the noise draws, the pack
+   (B3), the hops' copies, the payload stacks and the mix (B4), each a
+   ``record_function`` range while the profiler runs) are reported.
+   Then ``[contracts]``: one more step audited by
    ``repro_torch.check.contracts`` (the second of two) under
    ``torch.cuda.set_sync_debug_mode("error")``: 2 x 2 u8 ``pp`` calls,
    each hop's pair 92,460,464 B a node, no f64 op, no host read; and
@@ -780,8 +781,7 @@ def profiled(torch):
     if its time, converted to the host's clock, falls inside the window,
     and on the card that conversion has read up to 4.6 ms behind the host:
     without the guard, 4 of 150 windows of 50 LEAD (2bit) steps lost their
-    first 2-62 device events, with the guard none of 150
-    (``profile_edges.py``)."""
+    first 2-62 device events, with the guard none of 150."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1584,43 +1584,14 @@ def slice_spec(api, steps: int, *, full: bool = True, n_layers: int = 2,
                                     params=params or {}))
 
 
-@contextlib.contextmanager
-def wire_spans(torch):
-    """``torch.profiler.record_function`` ranges around the bucketed
-    exchange (``wire/exchange``), ``bucket.pack_to_wire`` (B3 and the
-    torch.cat of the wire buffers) and ``bucket.mix_from_wire`` (the
-    payload stacks, B4 and ``rows_to_leaf``): three ranges a step.
-    Restored on exit."""
-    from repro_torch.core import bucket
-    from repro_torch.optim import wire
-
-    def spanned(name, fn):
-        @functools.wraps(fn)
-        def inner(*a, **k):
-            with torch.profiler.record_function(name):
-                return fn(*a, **k)
-        return inner
-
-    saved = [(wire.WireExchange, "bucketed", "wire/exchange"),
-             (bucket, "pack_to_wire", "wire/pack_to_wire"),
-             (bucket, "mix_from_wire", "wire/mix_from_wire")]
-    saved = [(o, a, getattr(o, a), name) for o, a, name in saved]
-    for o, a, fn, name in saved:
-        setattr(o, a, spanned(name, fn))
-    try:
-        yield
-    finally:
-        for o, a, fn, _ in saved:
-            setattr(o, a, fn)
-
-
 def wire_breakdown(events, steps: int):
-    """Device ms a step of each part of the exchange (:func:`wire_spans`):
-    a device op belongs to the innermost ``wire/`` range around its launch
-    on the host (the ``cuda_runtime`` event of the same correlation id).
-    Parts: pack_to_wire, mix_from_wire, and in the rest of the exchange
-    the noise draws (its uniform kernels) and the hops' copies (the
-    one-card ``pp``), each with its ops by name."""
+    """Device ms a step of each part of the exchange: a device op belongs
+    to the innermost of the program's ``wire/`` phases around its launch
+    on the host (the ``cuda_runtime`` event of the same correlation id;
+    the phases are ``record_function`` ranges while a profiler runs,
+    ``repro_torch.obs.trace.phase``).  Parts: noise, pack, hops, stack
+    and mix, each with its ops by name (an op launched in the exchange
+    outside them is its own part, exchange)."""
     spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                    if e.get("cat") == "user_annotation"
                    and e["name"].startswith("wire/"))
@@ -1637,9 +1608,6 @@ def wire_breakdown(events, steps: int):
         if not inside:
             continue
         part = min(inside, key=lambda sp: sp[1] - sp[0])[2][len("wire/"):]
-        if part == "exchange":
-            part = ("noise" if "distribution_elementwise" in e["name"]
-                    else "other (hop copies)")
         by_name = parts.setdefault(part, {})
         ms, n = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
@@ -1656,7 +1624,7 @@ def profile_trainer(torch, runner, st, data, draws, steps: int,
     device time by kernel and the wire's share (:func:`wire_breakdown`;
     the trace written to OUT_DIR / ``trace_name``)."""
     t_first = int(st.step)
-    with wire_spans(torch), profiled(torch) as prof:
+    with profiled(torch) as prof:
         t0 = time.perf_counter()
         for t in range(t_first, t_first + steps):
             st, _ = runner.step(st, data.batch_at(t), draws)

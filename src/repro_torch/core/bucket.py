@@ -259,20 +259,25 @@ def mix_from_wire(layout: BucketLayout,
     group covers all N nodes.  Returns (wq leaves [(N, T, *shape)],
     qself leaves [(N, *shape)]) in leaf order (``shape`` without the
     per-node leading 1), where wq[:, t] = sum_s w[:, t, s] Q_s; both are
-    views into the per-group outputs."""
+    views into the per-group outputs.  Each group's payload stacks are a
+    ``wire/stack`` phase (:func:`repro_torch.obs.trace.phase`)."""
+    from repro_torch.obs.trace import phase   # repro_torch.obs imports us
     n, T = wires[0][0].shape[0], w.shape[1]
     sdtype = _scales_dtype(layout)
     wq: list = [None] * len(layout.slots)
     qs: list = [None] * len(layout.slots)
     for g in layout.groups:
         pw, sb = g.packed_width, layout.scale_bytes
-        pstack = torch.stack([
-            c[:, g.codes_offset: g.codes_offset + g.rows * pw].reshape(
-                n, g.rows, pw) for c, _ in wires], 1)
-        sstack = torch.stack([
-            s[:, g.scales_offset: g.scales_offset + g.rows * sb].reshape(
-                n, g.rows, sb).contiguous().view(sdtype).to(torch.float32)
-            for _, s in wires], 1)
+        # the stacks read every payload and write it again, scales as f32
+        with phase("wire/stack", w.device,
+                   bytes=len(wires) * n * g.rows * (2 * pw + sb + 4)):
+            pstack = torch.stack([
+                c[:, g.codes_offset: g.codes_offset + g.rows * pw].reshape(
+                    n, g.rows, pw) for c, _ in wires], 1)
+            sstack = torch.stack([
+                s[:, g.scales_offset: g.scales_offset + g.rows * sb].reshape(
+                    n, g.rows, sb).contiguous().view(sdtype).to(torch.float32)
+                for _, s in wires], 1)
         mix, qself = kops.qinf_unpack_dequant_mix(
             pstack, sstack, w, bits=layout.bits, block=g.block,
             out_dtype=g.dtype)

@@ -51,7 +51,6 @@ from repro_torch.netsim import faults as faults_mod
 from repro_torch.netsim import metrics as metrics_mod
 from repro_torch.netsim.schedule import ScheduledMixer, TopologySchedule
 from repro_torch.obs.meters import current_meters
-from repro_torch.obs.trace import span
 from repro_torch.tree import flatten, leaves, tree_map, unflatten
 
 
@@ -305,16 +304,15 @@ def simulate(algo, schedule: TopologySchedule,
         m.set("netsim/bits_per_edge_per_round", bits_per_edge)
         m.set("netsim/steps", steps)
         m.set("netsim/n_nodes", schedule.n)
-    with span("netsim_loop", device):
-        state = algo.init(X0, draws)
-        recs = []
-        for _ in range(steps):
-            state, rec = step(state, draws)
-            recs.append(rec)
-        if recs:                          # one copy to the host, at the end
-            cons, obj, bits = (torch.stack(c).cpu() for c in zip(*recs))
-        else:
-            cons = obj = bits = torch.zeros(0, dtype=torch.float64)
+    state = algo.init(X0, draws)
+    recs = []
+    for _ in range(steps):
+        state, rec = step(state, draws)
+        recs.append(rec)
+    if recs:                              # one copy to the host, at the end
+        cons, obj, bits = (torch.stack(c).cpu() for c in zip(*recs))
+    else:
+        cons = obj = bits = torch.zeros(0, dtype=torch.float64)
     traj = metrics_mod.Trajectory(
         consensus=cons.to(torch.float64).numpy(),
         objective=obj.to(torch.float64).numpy(),

@@ -126,6 +126,7 @@ from repro_torch.models import sharding
 from repro_torch.models import tp as tp_mod
 from repro_torch.models import transformer as TR
 from repro_torch.netsim import SimMixer, make_schedule
+from repro_torch.obs.trace import phase
 from repro_torch.optim.wire import (WIRE_MODES, DistAG, DistPP,
                                     WireExchange, stacked_ag, stacked_pp)
 
@@ -533,25 +534,36 @@ class DecentralizedTrainer:
         ``uniform`` per leaf, in leaf order; :mod:`repro_torch.optim.wire`
         for the model-sharded draw rule).  Consumes ``state`` on the
         neighbor backend (D, H and Hw are updated in place).  ``batch``
-        holds every node's rows or this process's."""
-        ce, G = self.loss_and_grad(state.plead.X, self.local_batch(batch))
-        precond = state.precond
-        if self.tcfg.precondition == "adam":
-            G, precond = self._adam_precondition(G, precond, state.step)
-        if self.sharded:
-            G = tree.leaves(G)
-            plead = self._sharded_update(state.plead, G, draws)
-        else:
-            plead = self.alg.update(state.plead, G, draws)
-        del G
-        if self.process_mesh is None and self.tp.M == 1:
-            consensus = sum(((leaf - leaf.mean(0, keepdim=True)) ** 2).sum()
-                            for leaf in tree.leaves(plead.X))
-        elif self.process_mesh is None:     # StackedTP: (n, M) rank-rows
-            consensus = sum(self._stacked_deviation(leaf, sp) for leaf, sp
-                            in zip(tree.leaves(plead.X), self.leaf_specs))
-        else:
-            ce, consensus = self._reduced_metrics(ce, tree.leaves(plead.X))
+        holds every node's rows or this process's.  Its phases
+        (:func:`repro_torch.obs.trace.phase`, on only under a profiler):
+        ``train/step``, ``train/model``, ``train/update`` (with
+        ``train/prox`` and the wire's inside) and ``train/consensus``."""
+        dev = self.device
+        with phase("train/step", dev):
+            with phase("train/model", dev):
+                ce, G = self.loss_and_grad(state.plead.X,
+                                           self.local_batch(batch))
+            precond = state.precond
+            if self.tcfg.precondition == "adam":
+                G, precond = self._adam_precondition(G, precond, state.step)
+            with phase("train/update", dev):
+                if self.sharded:
+                    G = tree.leaves(G)
+                    plead = self._sharded_update(state.plead, G, draws)
+                else:
+                    plead = self.alg.update(state.plead, G, draws)
+            del G
+            with phase("train/consensus", dev):
+                X = tree.leaves(plead.X)
+                if self.process_mesh is None and self.tp.M == 1:
+                    consensus = sum(
+                        ((leaf - leaf.mean(0, keepdim=True)) ** 2).sum()
+                        for leaf in X)
+                elif self.process_mesh is None:   # StackedTP: rank-rows
+                    consensus = sum(self._stacked_deviation(leaf, sp)
+                                    for leaf, sp in zip(X, self.leaf_specs))
+                else:
+                    ce, consensus = self._reduced_metrics(ce, X)
         metrics = {"loss": ce, "consensus": consensus, "step": state.step}
         return TrainState(plead, state.step + 1, precond), metrics
 
@@ -752,7 +764,8 @@ class DecentralizedTrainer:
             e = zhat.sub_(zhat_w)                         # zhat - zhat_w
             dv.add_(gamma / (2 * eta) * e)
             zv.sub_(gamma / 2.0 * e)
-            nX.append(self.prox(z, eta))
+            with phase("train/prox", z.device, bytes=2 * z.nbytes):
+                nX.append(self.prox(z, eta))
             zs[j] = qs[j] = wq[j] = None
             del zv, dv, hv, hwv, q, w, zhat, zhat_w, e
         unf = lambda ls: tree.unflatten(treedef, ls)    # noqa: E731

@@ -125,6 +125,7 @@ from repro_torch.core.draws import Draws
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.obs.meters import current_meters
+from repro_torch.obs.trace import phase
 
 WIRE_MODES = ("bucketed", "per_leaf")
 
@@ -325,7 +326,10 @@ class WireExchange:
         exchange consumes the tables once packed.  With M model shards a
         node (``rows.n`` = N x M, N from ``wmat``), ``sharded`` says per
         leaf whether the model axis shards it (the draw rule of the module
-        docstring); wq and qself come back at N x M rows."""
+        docstring); wq and qself come back at N x M rows.  Its phases
+        (:func:`repro_torch.obs.trace.phase`, on only under a profiler):
+        ``wire/exchange`` around ``wire/noise``, ``wire/pack``,
+        ``wire/hops`` and ``wire/mix``."""
         layout = rows.layout
         n = wmat.shape[-1]
         M = rows.n // n
@@ -334,36 +338,48 @@ class WireExchange:
                              f"every leaf, got {len(sharded)}")
         self._record(hop_pairs, bytes_per_hop=M * layout.wire_bits // 8,
                      collectives_per_hop=2)
-        # noise of the per-leaf quantizer's shape, drawn straight into the
-        # group tables; the blocked views cover the padding, as the
-        # reference's draw does
-        noise = bucket.RowTables(layout, rows.n, rows.tables[0].device,
-                                 zero_pad=False)
-        for j in range(len(layout.slots)):
-            view = noise.block_view(j)
-            # a model-replicated leaf draws from the node's shared source
-            src = draws.shared() if sharded and not sharded[j] else draws
-            if M == 1:
-                src.uniform(tuple(view.shape), out=view)
-                continue
-            view = view.unflatten(0, (n, M))
-            if sharded[j]:
-                draws.uniform(tuple(view.shape), out=view)
-            else:                     # one draw, the same on every shard
-                view.copy_(src.uniform(
-                    (n,) + tuple(view.shape[2:])).unsqueeze(1))
-        cw, sw = bucket.pack_to_wire(layout, rows.tables, noise.tables)
-        rows.free()
-        noise.free()
-        # the ONLY communication: 2 buffers x hops, leaf-count independent;
-        # a node's row holds its M shard payloads
-        cw, sw = cw.view(n, -1), sw.view(n, -1)
-        wires = [(cw, sw)] + [(pp(cw, pr), pp(sw, pr)) for pr in hop_pairs]
-        del cw, sw
-        wires = [(c.view(n * M, -1), s.view(n * M, -1)) for c, s in wires]
-        w = node_weights(wmat, wires[0][0].device)
-        return bucket.mix_from_wire(
-            layout, wires, w if M == 1 else w.repeat_interleave(M, 0))
+        dev = rows.tables[0].device
+        with phase("wire/exchange", dev):
+            # noise of the per-leaf quantizer's shape, drawn straight into
+            # the group tables; the blocked views cover the padding, as the
+            # reference's draw does
+            noise = bucket.RowTables(layout, rows.n, dev, zero_pad=False)
+            with phase("wire/noise", dev,
+                       bytes=sum(t.nbytes for t in noise.tables)):
+                for j in range(len(layout.slots)):
+                    view = noise.block_view(j)
+                    # a model-replicated leaf draws from the node's shared
+                    # source
+                    src = (draws.shared() if sharded and not sharded[j]
+                           else draws)
+                    if M == 1:
+                        src.uniform(tuple(view.shape), out=view)
+                        continue
+                    view = view.unflatten(0, (n, M))
+                    if sharded[j]:
+                        draws.uniform(tuple(view.shape), out=view)
+                    else:                 # one draw, the same on every shard
+                        view.copy_(src.uniform(
+                            (n,) + tuple(view.shape[2:])).unsqueeze(1))
+            with phase("wire/pack", dev):
+                cw, sw = bucket.pack_to_wire(layout, rows.tables,
+                                             noise.tables)
+            rows.free()
+            noise.free()
+            # the ONLY communication: 2 buffers x hops, leaf-count
+            # independent; a node's row holds its M shard payloads
+            cw, sw = cw.view(n, -1), sw.view(n, -1)
+            with phase("wire/hops", dev,
+                       bytes=2 * len(hop_pairs) * (cw.nbytes + sw.nbytes)):
+                wires = [(cw, sw)] + [(pp(cw, pr), pp(sw, pr))
+                                      for pr in hop_pairs]
+            del cw, sw
+            wires = [(c.view(n * M, -1), s.view(n * M, -1))
+                     for c, s in wires]
+            w = node_weights(wmat, dev)
+            with phase("wire/mix", dev):
+                return bucket.mix_from_wire(
+                    layout, wires, w if M == 1 else w.repeat_interleave(M, 0))
 
     # ------------------------------------------------------------ per-leaf
     def per_leaf(self, diffs, draws: Draws, wmat, hop_pairs, pp=stacked_pp,

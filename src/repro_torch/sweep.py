@@ -622,10 +622,9 @@ class SweepRunner:
             algo, algo.mixer, t.schedule, device=self.device,
             objective_fn=objective_fn, bits_per_edge=bpe)
         recs = []
-        with span("netsim_loop", self.device):
-            for _ in range(num_steps):
-                state, rec = step(state, draws)
-                recs.append(rec)
+        for _ in range(num_steps):
+            state, rec = step(state, draws)
+            recs.append(rec)
         if recs:                          # one copy to the host, at the end
             cons, obj, bits = (torch.stack(c, dim=1).cpu()
                                for c in zip(*recs))

@@ -23,7 +23,10 @@ host-timed step moves between calls.  It measures:
    slice under ``schedule='alternating'`` (``chip_smoke.trainer_path``,
    30 steps and 3 profiled ones, no audit): median and least step ms,
    the peak allocation, bits a step a node, the loss of every step, and
-   the wire's device ms a step with its parts (``chip_smoke.wire_spans``).
+   the wire's device ms a step with its parts (``chip_smoke.
+   wire_breakdown`` over the tree's own ``wire/`` phases; a tree older
+   than the phases has none, and its trainer part stops at the check
+   that the profile saw the wire).
 
 Prints the card's line from ``nvidia-smi`` and one JSON object, also
 written to ``chiprun_out/wire_ab_<label>.json``.  Exits non-zero without a
