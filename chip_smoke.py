@@ -393,6 +393,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    WHOLE_LEAF_STEPS timed steps of the split and of the whole node (B1
    once a leaf a step; B2 once a leaf, 1 + hops times on the per-leaf
    wire), the median step and the peak.  The phase's seconds.
+20. (Run after phase 19, before the result lines.)  B5/B6, the neighbor
+   trainer's Prox-LEAD update (``kernels/csrc/proxlead_update.cu``):
+   (a) against the eager update on the card, the same operands (the diff
+   rows, q and W Q views into bucket-group tables laid out as the cells'
+   wire lays them), at the qwen3 cells' largest leaf and at (8, 1280,
+   128, 3) (an odd last axis, its rows padded: the scalar variant):
+   T = 1 and 2 at every slot, alpha 0.5 and 0.3, the cells' l1 prox, and
+   at T = 1 every other elementwise prox; the diff rows, D, H, every Hw slot and X bit for bit, else counted and held
+   to C4's bar (PROXLEAD_BAR).  (b) ms a call (CUDA events) of B5, B6 and
+   the eager chain at the largest leaf and summed over every leaf of the
+   state, T = 1 and 2, beside B5's and B6's bytes bounds.  Phase 6 (and
+   6b) also require one B5 and one B6 launch a leaf a step.
 13. Result lines: ``{"kernels": [...]}`` (B1-B4; B3's entry also names
    its variant at each shape and the row variant's ms at the trainer's
    shape; B3's and B4's the (8, 2) groups and launches, and their
@@ -469,6 +481,9 @@ TREE_SERIAL_STEPS = 1000    # its serial runs' steps: under phase 4b's
                             # steps the objective is only ~3e-3 lower
 LARGE_ROWS = LARGE[0] * LARGE[1] // 256   # B1/B2's large shape in rows
 B1, B2 = "qinf_quantize_blocks", "qinf_dequantize_blocks"
+PROXLEAD_ITERS = 10         # B5/B6 calls timed back to back at the largest leaf
+PROXLEAD_STATE_ITERS = 3    # ... and at each leaf of the whole state
+PROXLEAD_BAR = (1e-5, 1e-3)  # C4's bar: within 1e-5 x max, all but 0.1 %
 
 
 # kernel B1 in a profile, and the fill and copy kernels of a pad (F.pad's
@@ -562,7 +577,8 @@ def ptxas_report(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"(qinf_[a-z_]+_kernel)(I.*)?", m[1])
+            name = re.search(r"((?:qinf|proxlead)_[a-z_]+_kernel)(I.*)?",
+                             m[1])
             args = [_PTX_TYPES.get(a, a[2:-1]) for a in re.findall(
                 r"13__nv_bfloat16|L[ib]\d+E|(?<=[IE_])[fd](?=[EL])",
                 name[2] or "")]
@@ -1815,6 +1831,16 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
             == steps * layout_groups or device != "cuda",
             f"launch counts {launches} != one B3 and one B4 per bucket group "
             f"({layout_groups}) per step for {steps} steps")
+    # B5 and B6 once an f32 leaf a step where the update's views are the
+    # leaves
+    from repro_torch import tree as tree_mod
+    tr = runner.trainer
+    fused = steps * sum(x.dtype == torch.float32
+                        for x in tree_mod.leaves(state.plead.X)) \
+        if tr._fused_prox(tr.tcfg.eta) is not None else 0
+    require(device != "cuda" or launches["proxlead_head"]
+            == launches["proxlead_tail"] == fused,
+            f"launch counts {launches}: want {fused} of B5 and of B6")
     require(all(math.isfinite(p["loss"]) and math.isfinite(p["consensus"])
                 for p in trace), "non-finite loss/consensus")
     # one step's loss moves by a few 1e-2 with its batch, and the first
@@ -4646,6 +4672,190 @@ def dense_phase(torch, api, configs, draws_mod, tree, qk, ref, errs, smi,
     return p19
 
 
+# --- phase 20 ------------------------------------------------------------------
+
+def proxlead_shapes(api, TR, tree):
+    """The qwen3 cells' node-stacked leaf shapes (8, ...): ``slice_spec``'s
+    model, 2 layers at published widths, the vocabulary's first eighth."""
+    cfg = slice_spec(api, 1).model.build()
+    return [(8,) + tuple(p.shape)
+            for p in tree.leaves(TR.abstract_params(cfg))]
+
+
+def proxlead_operands(torch, shape, slots: int, seed: int, device="cuda"):
+    """x, g, d, h, hw (slots), q, w (slots) and the diff rows of one leaf:
+    the state contiguous; the diff rows, q and w views into bucket-group
+    tables as the cells' bucketed wire lays them out (``RowTables`` and
+    B4's qself and mix outputs, 256-blocks): the leaf second in its group,
+    after a leaf of 7 rows, so each node's rows lie a group apart and a
+    row's block padding, where it has one, is skipped."""
+    from repro_torch.core import bucket
+    g = torch.Generator(device=device).manual_seed(seed)
+    N, slotted = shape[0], (shape[0], slots) + tuple(shape[1:])
+
+    def mk(s):
+        return torch.randn(s, generator=g, device=device) * 1e-3
+
+    layout = bucket.compute_layout(
+        [(1, 7, shape[-1]), (1,) + tuple(shape[1:])], [torch.float32] * 2,
+        bits=2)
+    assert len(layout.groups) == 1
+    grp, sl = layout.groups[0], layout.slots[1]
+    r0, r1 = sl.row_offset, sl.row_offset + sl.rows
+    qself = mk((N, grp.rows, grp.block))
+    mix = mk((N, slots, grp.rows, grp.block))
+    q = bucket.rows_to_leaf(sl, qself[:, r0:r1], lead=(N,)).squeeze(1)
+    w = bucket.rows_to_leaf(sl, mix[:, :, r0:r1], lead=(N, slots)).squeeze(2)
+    rows = bucket.RowTables(layout, N, device).leaf_view(1)
+    assert q._base is not None and w._base is not None
+    return [mk(shape), mk(shape), mk(shape), mk(shape), mk(slotted), q, w,
+            rows]
+
+
+def proxlead_eager(kupd, ops, t: int, *, prox, **k):
+    """The eager update on a leaf: the twins, which are its ops, then the
+    prox."""
+    x, gr, d, h, hw, q, w, rows = ops
+    z, diff = kupd.head_plain(x, gr, d, h, k["eta"])
+    rows.copy_(diff)
+    return prox(kupd.tail_plain(z, d, h, hw, q, w, t, **k))
+
+
+def proxlead_fused(kupd, ops, t: int, **k):
+    x, gr, d, h, hw, q, w, rows = ops
+    z, _ = kupd.head(x, gr, d, h, k["eta"], out=rows)
+    return kupd.tail(z, d, h, hw, q, w, t, **k)
+
+
+def restrided(a):
+    """A copy of view ``a`` with its strides and storage offset."""
+    buf = a.new_empty(a.untyped_storage().nbytes() // a.element_size())
+    return buf.as_strided(a.shape, a.stride(), a.storage_offset()).copy_(a)
+
+
+def proxlead_compare(torch, got, want, what: str) -> dict:
+    """Bits of ``got`` against ``want``: the elements that differ and, if
+    any, the largest gap over want's largest entry (C4's bar)."""
+    diff = got.view(torch.int32) != want.view(torch.int32)
+    n = int(diff.sum())
+    out = {"differ": n, "of": want.numel()}
+    if n:
+        gap = float((got - want).abs().max() / want.abs().max().clamp_min(
+            1e-30))
+        far = int(((got - want).abs() > PROXLEAD_BAR[0]
+                   * want.abs().max()).sum())
+        out.update(rel_gap=gap, beyond_bar=far)
+        require(far <= PROXLEAD_BAR[1] * want.numel(),
+                f"{what}: {far} of {want.numel()} elements beyond "
+                f"{PROXLEAD_BAR[0]} x max (C4)")
+    return out
+
+
+def proxlead_check(torch, kupd, prox_mod, shape, device="cuda") -> list:
+    """(a) B5/B6 against the eager update on the card, the same operands:
+    T = 1 and 2 at every slot, alpha 0.5 (the cells') and 0.3 (whose
+    products round), the cells' l1 prox; at T = 1 every elementwise prox.
+    Each array bit for bit, else at C4's bar with the differing count."""
+    cases = [(T, t, a, "l1") for T in (1, 2) for t in range(T)
+             for a in (0.5, 0.3)]
+    cases += [(1, 0, 0.3, p) for p in ("none", "l2sq", "elastic_net",
+                                        "nonneg")]
+    proxes = {"none": prox_mod.NoneProx(), "l1": prox_mod.L1(lam=1e-4),
+              "l2sq": prox_mod.L2Sq(lam=1e-2),
+              "elastic_net": prox_mod.ElasticNet(lam1=1e-4, lam2=1e-2),
+              "nonneg": prox_mod.NonNeg()}
+    rows = []
+    for i, (T, t, alpha, name) in enumerate(cases):
+        k = dict(eta=0.05, alpha=alpha, gamma=1.0,
+                 prox=proxes[name].elementwise(0.05))
+        ops = proxlead_operands(torch, shape, T, seed=100 + i, device=device)
+        # a third of the entries at or under the l1 threshold (5e-6)
+        ops[0].view(-1)[::3] *= 1e-3
+        plain = [a.clone() for a in ops[:5]] + [restrided(a)
+                                                for a in ops[5:]]
+        X = proxlead_fused(kupd, ops, t, **k)
+        PX = proxlead_eager(kupd, plain, t, **k)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res = {"slots": T, "t": t, "alpha": alpha, "prox": name}
+        for what, a, b in (("diff", ops[7], plain[7]), ("D", ops[2], plain[2]),
+                           ("H", ops[3], plain[3]), ("Hw", ops[4], plain[4]),
+                           ("X", X, PX)):
+            res[what] = proxlead_compare(torch, a, b, f"{res} {what}")
+        rows.append(res)
+        del ops, plain, X, PX
+    return rows
+
+
+def proxlead_time(torch, kupd, prox_mod, shape, slots: int,
+                  iters: int) -> dict:
+    """B5, B6 and the eager chain on one leaf, the cells' l1 prox: ms a
+    call (CUDA events), and B5's and B6's bounds (bytes over 3.35 TB/s)."""
+    k = dict(eta=0.05, alpha=0.5, gamma=1.0,
+             prox=prox_mod.L1(lam=1e-4).elementwise(0.05))
+    ops = proxlead_operands(torch, shape, slots, seed=7)
+    x, gr, d, h, hw, q, w, rows = ops
+    z, _ = kupd.head(x, gr, d, h, k["eta"], out=rows)
+    n = x.numel()
+    head_ms = cuda_ms(torch, lambda: kupd.head(x, gr, d, h, k["eta"],
+                                                out=rows), iters, warmup=2)
+    tail_ms = cuda_ms(torch, lambda: kupd.tail(z, d, h, hw, q, w, 0, **k),
+                      iters, warmup=2)
+    eager_ms = cuda_ms(torch, lambda: proxlead_eager(kupd, ops, 0, **k),
+                       iters, warmup=2)
+    head_bound = bound_ms(kupd.head_bytes(x), 5 * n)[0]
+    tail_bound = bound_ms(kupd.tail_bytes(z, slots), (16 + 2 * slots) * n)[0]
+    return {"shape": list(shape), "slots": slots, "elements": n,
+            "b5_ms": head_ms, "b5_bound_ms": head_bound,
+            "b6_ms": tail_ms, "b6_bound_ms": tail_bound,
+            "eager_ms": eager_ms}
+
+
+def proxlead_phase(torch, api, TR, tree, qk, smi: str) -> dict:
+    """20. B5/B6 at the qwen3 cells' shapes: (a) against the eager update
+    on the card (``proxlead_check``) at the largest leaf, and on an odd
+    last axis (the scalar variant); (b) times at the largest leaf and
+    summed over every leaf of the state, T = 1 and T = 2, each beside its
+    bound and the eager chain's time."""
+    from repro_torch.core import prox as prox_mod
+    from repro_torch.kernels import proxlead as kupd
+    shapes = proxlead_shapes(api, TR, tree)
+    big = max(shapes, key=lambda s: math.prod(s))
+    t0 = time.perf_counter()
+    checks = proxlead_check(torch, kupd, prox_mod, big)
+    odd = proxlead_check(torch, kupd, prox_mod, (8, 1280, 128, 3))
+    torch.cuda.empty_cache()
+    differ = sum(r[a]["differ"] for r in checks + odd
+                 for a in ("diff", "D", "H", "Hw", "X"))
+    print(f"[proxlead] B5/B6 against the eager update at {big} and "
+          f"(8, 1280, 128, 3), {len(checks) + len(odd)} cases: {differ} "
+          f"elements differ in {time.perf_counter() - t0:.1f} s", flush=True)
+    times = {}
+    for slots in (1, 2):
+        one = proxlead_time(torch, kupd, prox_mod, big, slots,
+                            PROXLEAD_ITERS)
+        torch.cuda.empty_cache()
+        whole = {"b5_ms": 0.0, "b5_bound_ms": 0.0, "b6_ms": 0.0,
+                 "b6_bound_ms": 0.0, "eager_ms": 0.0, "elements": 0}
+        for shape in shapes:
+            r = proxlead_time(torch, kupd, prox_mod, shape, slots,
+                              PROXLEAD_STATE_ITERS)
+            for key in whole:
+                whole[key] += r[key]
+            torch.cuda.empty_cache()
+        times[f"T{slots}"] = {"largest_leaf": one, "whole_state": whole}
+        for where, r in (("largest leaf", one), ("whole state", whole)):
+            print(f"[proxlead] T = {slots} {where} ({r['elements']:,} "
+                  f"elements): B5 {r['b5_ms']:.4f} ms, bound "
+                  f"{r['b5_bound_ms']:.4f} "
+                  f"({100 * r['b5_bound_ms'] / r['b5_ms']:.1f} %); B6 "
+                  f"{r['b6_ms']:.4f} ms, bound {r['b6_bound_ms']:.4f} "
+                  f"({100 * r['b6_bound_ms'] / r['b6_ms']:.1f} %); eager "
+                  f"chain {r['eager_ms']:.4f} ms | {smi}", flush=True)
+    return {"leaves": [list(s) for s in shapes], "largest": list(big),
+            "checks": checks, "odd_axis_checks": odd, "times": times}
+
+
 def main() -> int:
     # the trainer's state arrays are GB-sized and freed in another order
     # than they were allocated: let the allocator grow segments instead of
@@ -5277,6 +5487,10 @@ def main() -> int:
         p19 = dense_phase(torch, api, configs, draws_mod, tree, qk, ref,
                           errs, smi, dense19)
         result["dense"] = p19
+
+        # 20. B5/B6 against the eager update, timed at the cells' shapes
+        torch.cuda.empty_cache()
+        result["proxlead"] = proxlead_phase(torch, api, TR, tree, qk, smi)
 
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -8,6 +8,12 @@ a stacked grid's per-point (P,) f64 operand: each step size product is
 formed in f64 and rounded once to x's dtype at x's rank (``comm.coef``),
 as a host float is; every closed form is elementwise or reduces the last
 axis alone, so a leading point axis passes through.
+
+``elementwise(eta)`` gives the prox at a Python-float step size as an
+:class:`Elementwise` form -- what the fused Prox-LEAD update
+(:mod:`repro_torch.kernels.proxlead`, kernel B6) applies in its pass --
+or None: for a stacked grid's per-point ``eta`` and for a prox that
+reduces (``group_lasso``).
 """
 from __future__ import annotations
 
@@ -21,11 +27,37 @@ from repro_torch.core.comm import coef
 from repro_torch.tree import leaves, tree_map
 
 
+@dataclasses.dataclass(frozen=True)
+class Elementwise:
+    """prox_{eta r} as an elementwise map with its scalar constants:
+    soft-threshold at ``thresh`` (when set), clamp at 0 (``nonneg``), then
+    divide by ``div`` (when set).  The constants are Python floats formed
+    as the eager prox forms them, so they round to f32 as its scalar
+    operands do; calling the form runs those eager ops."""
+    thresh: Optional[float] = None
+    nonneg: bool = False
+    div: Optional[float] = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.thresh is not None:
+            x = _soft(x, self.thresh)
+        if self.nonneg:
+            x = torch.clamp(x, min=0.0)
+        if self.div is not None:
+            x = x / self.div
+        return x
+
+
 class Prox:
     name: str = "none"
 
     def __call__(self, x: torch.Tensor, eta) -> torch.Tensor:
         raise NotImplementedError
+
+    def elementwise(self, eta) -> Optional[Elementwise]:
+        """The prox at step size ``eta`` as an :class:`Elementwise` form,
+        equal to ``self(x, eta)`` bit for bit; None where it has none."""
+        return None
 
     def value(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -54,6 +86,9 @@ class NoneProx(Prox):
     def __call__(self, x, eta):
         return x
 
+    def elementwise(self, eta):
+        return None if torch.is_tensor(eta) else Elementwise()
+
     def value(self, x):
         return _zero(x)
 
@@ -68,6 +103,10 @@ class L1(Prox):
     def __call__(self, x, eta):
         return _soft(x, coef(eta * self.lam, x))
 
+    def elementwise(self, eta):
+        return None if torch.is_tensor(eta) else Elementwise(
+            thresh=eta * self.lam)
+
     def value(self, x):
         return self.lam * x.abs().sum()
 
@@ -81,6 +120,10 @@ class L2Sq(Prox):
 
     def __call__(self, x, eta):
         return x / coef(1.0 + eta * self.lam, x)
+
+    def elementwise(self, eta):
+        return None if torch.is_tensor(eta) else Elementwise(
+            div=1.0 + eta * self.lam)
 
     def value(self, x):
         return 0.5 * self.lam * (x ** 2).sum()
@@ -97,6 +140,10 @@ class ElasticNet(Prox):
     def __call__(self, x, eta):
         return (_soft(x, coef(eta * self.lam1, x))
                 / coef(1.0 + eta * self.lam2, x))
+
+    def elementwise(self, eta):
+        return None if torch.is_tensor(eta) else Elementwise(
+            thresh=eta * self.lam1, div=1.0 + eta * self.lam2)
 
     def value(self, x):
         return self.lam1 * x.abs().sum() + 0.5 * self.lam2 * (x ** 2).sum()
@@ -126,6 +173,9 @@ class NonNeg(Prox):
 
     def __call__(self, x, eta):
         return torch.clamp(x, min=0.0)
+
+    def elementwise(self, eta):
+        return None if torch.is_tensor(eta) else Elementwise(nonneg=True)
 
     def value(self, x):
         return _zero(x)

@@ -1,13 +1,15 @@
-// CPython binding of the four QInf kernels' launchers (module _qinf_binding).
+// CPython binding of the launchers of the four QInf kernels and of the two
+// Prox-LEAD update kernels (module _qinf_binding).
 //
 // Each function checks that its inputs are what the kernel takes and
 // raises the fault it finds (TypeError for a dtype, ValueError for a shape,
 // the bits, an odd block under nibble packing, or tensors that are not
 // contiguous on one CUDA device -- B1's x need only have rows of unit
-// stride, see leaf_rows), allocates the kernel's outputs with
-// at::empty on the inputs' device (PyTorch's caching allocator, on the C++
-// side), calls the kernel's C launcher from csrc/qinf.cu or
-// csrc/qinf_wire.cu with raw pointers, the device index and that device's
+// stride, see leaf_rows, and B5/B6 take views, see node_rows), allocates
+// the kernel's outputs with at::empty on the inputs' device (PyTorch's
+// caching allocator, on the C++ side), calls the kernel's C launcher from
+// csrc/qinf.cu, csrc/qinf_wire.cu or csrc/proxlead_update.cu with raw
+// pointers, the device index and that device's
 // current PyTorch stream, and returns the outputs; a non-zero CUDA error
 // raises RuntimeError, and a C++ exception (an allocation that fails)
 // becomes PyTorch's Python exception for it (HANDLE_TH_ERRORS).  These are
@@ -46,12 +48,18 @@ using PackFn = int (*)(const void*, const void*, void*, void*, long long, int,
 using MixFn = int (*)(const void*, const void*, const void*, void*, void*,
                       int, long long, int, int, long long, int, int, int,
                       void*);
+using HeadFn = int (*)(void* const*, const long long*, long long, long long,
+                      long long, float, int, void*);
+using TailFn = int (*)(void* const*, const long long*, long long, long long,
+                      long long, int, int, const float*, int, int, void*);
 using ErrorFn = const char* (*)(int);
 
 QuantizeFn g_quantize = nullptr;
 DequantizeFn g_dequantize = nullptr;
 PackFn g_pack = nullptr;
 MixFn g_mix = nullptr;
+HeadFn g_head = nullptr;
+TailFn g_tail = nullptr;
 ErrorFn g_error = nullptr;
 
 // output dtypes by tag (quantize.py::_DTYPE_TAG, csrc/common.cuh)
@@ -430,14 +438,178 @@ PyObject* unpack_dequant_mix_blocks(PyObject*, PyObject* const* args,
   END_HANDLE_TH_ERRORS
 }
 
-// (quantize, dequantize, pack, mix, error_string) launcher addresses
+// A node-stacked operand (N, [T,] *shape) of B5/B6 as N (x T) blocks of L
+// rows of D elements: ``s`` gets its node, slot (0 without slots) and row
+// strides.  True when the last axis has unit stride and the leaf's leading
+// axes collapse to one row stride -- a contiguous leaf, or a view into a
+// bucket group's rows (the wire's diff rows, B4's qself and mix), whose
+// rows skip the block padding and whose nodes lie a group apart.
+bool node_rows(const at::Tensor& t, int lead, int64_t s[3], int64_t* L,
+               int64_t* D) {
+  const int64_t d = t.dim();
+  if (d < lead) return false;
+  s[0] = t.stride(0);
+  s[1] = lead == 2 ? t.stride(1) : 0;
+  *L = 1;
+  *D = d > lead ? t.size(d - 1) : 1;
+  s[2] = *D;
+  if (d == lead) return true;
+  if (*D > 1 && t.stride(d - 1) != 1) return false;
+  bool first = true;
+  int64_t span = 0;  // elements spanned by the axes below axis i
+  for (int64_t i = d - 2; i >= lead; --i) {
+    *L *= t.size(i);
+    if (t.size(i) == 1) continue;
+    if (first) {
+      s[2] = t.stride(i);
+      first = false;
+    } else if (t.stride(i) != span) {
+      return false;
+    }
+    span = t.stride(i) * t.size(i);
+  }
+  return true;
+}
+
+// The six operands of a B5/B6 call: f32, on one CUDA device, with node
+// rows (node_rows; ``lead[k]`` 2 for an operand with a slot axis), in
+// the shape of ``like``'s leaf ((N, *shape), slots (N, T, *shape) with
+// one T).  Fills the pointers and the (node, slot, row) strides, L, D and
+// T; raises and returns false otherwise.
+bool update_operands(const char* name, const at::Tensor* const* ts,
+                     const int* lead, void* p[6], long long s[18],
+                     int64_t* L, int64_t* D, int64_t* T, int* device) {
+  const at::Tensor& like = *ts[0];
+  *T = 1;
+  for (int k = 0; k < 6; ++k) {
+    const at::Tensor& t = *ts[k];
+    if (t.scalar_type() != at::kFloat) {
+      raise(PyExc_TypeError, "%s takes f32 leaves, got %s for operand %d",
+            name, dtype(t), k);
+      return false;
+    }
+  }
+  for (int k = 0; k < 6; ++k) {
+    const at::Tensor& t = *ts[k];
+    bool same = t.dim() == like.dim() + lead[k] - 1 && like.dim() >= 1 &&
+                t.size(0) == like.size(0);
+    for (int64_t i = 1; same && i < like.dim(); ++i)
+      same = t.size(i + lead[k] - 1) == like.size(i);
+    if (same && lead[k] == 2) {
+      if (*T == 1 && k == 3) *T = t.size(1);
+      same = t.size(1) == *T && *T >= 1;
+    }
+    if (!same) {
+      raise(PyExc_ValueError, "%s: operand %d %s does not match the leaf "
+            "%s", name, k, Shape(t).text, Shape(like).text);
+      return false;
+    }
+  }
+  *device = like.is_cuda() ? like.get_device() : -1;
+  for (int k = 0; k < 6; ++k) {
+    const at::Tensor& t = *ts[k];
+    int64_t st[3], l, d;
+    if (*device < 0 || !t.is_cuda() || t.get_device() != *device ||
+        !node_rows(t, lead[k], st, &l, &d)) {
+      raise(PyExc_ValueError, "%s: the operands must lie on one CUDA "
+            "device, each with rows of unit stride (operand %d)", name, k);
+      return false;
+    }
+    *L = l;
+    *D = d;
+    p[k] = t.data_ptr();
+    for (int j = 0; j < 3; ++j) s[k * 3 + j] = st[j];
+  }
+  if (like.size(0) > 65535) {
+    raise(PyExc_ValueError, "%s: %lld nodes, at most 65535", name,
+          (long long)like.size(0));
+    return false;
+  }
+  return true;
+}
+
+// B5: (x, g, d, h, diff, eta) -> z, each a node-stacked f32 leaf (N,
+// *shape); z = (x - eta g) - eta d is allocated here, diff (written with
+// z - h) is the caller's: the bucketed wire's rows or a fresh tensor.
+PyObject* proxlead_head(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  HANDLE_TH_ERRORS
+  if (!parse(args, n, 6, 5, "proxlead_head")) return nullptr;
+  const double eta = PyFloat_AsDouble(args[5]);
+  if (PyErr_Occurred()) return nullptr;
+  const at::Tensor& x = tensor(args[0]);
+  at::Tensor z;
+  if (x.scalar_type() == at::kFloat && x.is_cuda())
+    z = at::empty(x.sizes(), x.options());
+  else
+    z = x;  // refused below, before any launch
+  const at::Tensor* ts[6] = {&x, &tensor(args[1]), &tensor(args[2]),
+                             &tensor(args[3]), &z, &tensor(args[4])};
+  const int lead[6] = {1, 1, 1, 1, 1, 1};
+  void* p[6];
+  long long s[18];
+  int64_t L, D, T;
+  int device;
+  if (!update_operands("proxlead_head", ts, lead, p, s, &L, &D, &T,
+                       &device))
+    return nullptr;
+  const int err = g_head(p, s, x.size(0), L, D, (float)eta, device,
+                         stream_of(device));
+  return launched("proxlead_head", err, THPVariable_Wrap(z));
+  END_HANDLE_TH_ERRORS
+}
+
+// B6: (z, d, h, hw, q, w, t, one_minus_alpha, alpha, d_coef, z_coef,
+// prox_flags, thresh, div) -> None.  z, d, h, q (N, *shape); hw and w
+// (N, T, *shape), slot t read.  d, h, hw are updated in place and the
+// prox of the corrected z is written over z.  The Python floats are
+// rounded to f32 as ATen rounds a scalar operand; a division by ``div``
+// is, as on the card's eager path, a product with 1.0f / f32(div).
+PyObject* proxlead_tail(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  HANDLE_TH_ERRORS
+  if (!parse(args, n, 14, 6, "proxlead_tail")) return nullptr;
+  const long t = as_long(args[6]);
+  float k[6];
+  for (int i = 0; i < 4; ++i) k[i] = (float)PyFloat_AsDouble(args[7 + i]);
+  const long prox = as_long(args[11]);
+  k[4] = (float)PyFloat_AsDouble(args[12]);
+  const float div = (float)PyFloat_AsDouble(args[13]);
+  if (PyErr_Occurred()) return nullptr;
+  k[5] = 1.0f / div;
+  const at::Tensor* ts[6] = {&tensor(args[0]), &tensor(args[1]),
+                             &tensor(args[2]), &tensor(args[3]),
+                             &tensor(args[4]), &tensor(args[5])};
+  const int lead[6] = {1, 1, 1, 2, 1, 2};
+  void* p[6];
+  long long s[18];
+  int64_t L, D, T;
+  int device;
+  if (!update_operands("proxlead_tail", ts, lead, p, s, &L, &D, &T,
+                       &device))
+    return nullptr;
+  if (t < 0 || t >= T)
+    return raise(PyExc_ValueError, "proxlead_tail: slot %ld of %lld", t,
+                 (long long)T);
+  if (prox < 0 || prox > 7)
+    return raise(PyExc_ValueError, "proxlead_tail: prox flags %ld", prox);
+  const int err = g_tail(p, s, ts[0]->size(0), L, D, (int)T, (int)t, k,
+                         (int)prox, device, stream_of(device));
+  Py_INCREF(Py_None);
+  return launched("proxlead_tail", err, Py_None);
+  END_HANDLE_TH_ERRORS
+}
+
+// (quantize, dequantize, pack, mix, head, tail, error_string) launcher
+// addresses
 PyObject* set_launchers(PyObject*, PyObject* args) {
-  PyObject *q, *d, *p, *m, *e;
-  if (!PyArg_ParseTuple(args, "OOOOO", &q, &d, &p, &m, &e)) return nullptr;
+  PyObject *q, *d, *p, *m, *h, *t, *e;
+  if (!PyArg_ParseTuple(args, "OOOOOOO", &q, &d, &p, &m, &h, &t, &e))
+    return nullptr;
   g_quantize = reinterpret_cast<QuantizeFn>(PyLong_AsVoidPtr(q));
   g_dequantize = reinterpret_cast<DequantizeFn>(PyLong_AsVoidPtr(d));
   g_pack = reinterpret_cast<PackFn>(PyLong_AsVoidPtr(p));
   g_mix = reinterpret_cast<MixFn>(PyLong_AsVoidPtr(m));
+  g_head = reinterpret_cast<HeadFn>(PyLong_AsVoidPtr(h));
+  g_tail = reinterpret_cast<TailFn>(PyLong_AsVoidPtr(t));
   g_error = reinterpret_cast<ErrorFn>(PyLong_AsVoidPtr(e));
   if (PyErr_Occurred()) return nullptr;
   Py_RETURN_NONE;
@@ -457,6 +629,10 @@ PyMethodDef kMethods[] = {
     {"qinf_unpack_dequant_mix_blocks",
      (PyCFunction)(void (*)(void))unpack_dequant_mix_blocks, METH_FASTCALL,
      nullptr},
+    {"proxlead_head", (PyCFunction)(void (*)(void))proxlead_head,
+     METH_FASTCALL, nullptr},
+    {"proxlead_tail", (PyCFunction)(void (*)(void))proxlead_tail,
+     METH_FASTCALL, nullptr},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "_qinf_binding", nullptr, -1,

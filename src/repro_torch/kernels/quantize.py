@@ -1,14 +1,16 @@
-"""Builds, loads and launches the hand-written CUDA quantization kernels.
+"""Builds, loads and launches the hand-written CUDA kernels.
 
 ``csrc/qinf.cu`` holds B1 (quantize) and B2 (dequantize), ``csrc/
 qinf_wire.cu`` B3 (quantize + wire pack) and B4 (unpack + dequantize +
 mix): the Hopper versions of the Pallas kernels in
-``repro.kernels.quantize``.  Both include ``csrc/common.cuh`` and have a
-plain C interface.  ``csrc/binding.cpp`` is a small CPython module (no
-device code) through which every launch goes: it checks the inputs,
-allocates a kernel's outputs with ``at::empty`` and calls the kernel's C
-launcher.  :func:`build`
-compiles the two kernel sources with ``nvcc`` for ``sm_90a`` and the
+``repro.kernels.quantize``.  ``csrc/proxlead_update.cu`` holds B5 and B6,
+the neighbor trainer's Prox-LEAD update (their wrappers are
+:mod:`repro_torch.kernels.proxlead`).  All include ``csrc/common.cuh``
+and have a plain C interface.  ``csrc/binding.cpp`` is a small CPython
+module (no device code) through which every launch goes: it checks the
+inputs, allocates a kernel's outputs with ``at::empty`` and calls the
+kernel's C launcher.  :func:`build` compiles the kernel sources with
+``nvcc`` for ``sm_90a`` and the
 binding with the host C++ compiler against PyTorch's headers, one compiler
 process per source, all started together, into ``_build/`` next to this
 file (keyed by a hash of the sources, flags and PyTorch version, so an
@@ -31,7 +33,7 @@ dispatch mode on the card -- in the binding's order.  It computes and
 launches nothing, so it is no fallback: nothing runs on ``meta``.  Its
 calls count in :data:`META_CALLS`, never in :data:`LAUNCHES`.
 
-One launch path, :func:`_launch`, serves all four kernels and keeps the
+One launch path, :func:`_launch`, serves every kernel and keeps the
 host's share of a call small (the main path's B1/B2 calls do a few
 microseconds of device work): for a CUDA tensor the wrapper hands its
 arguments straight to the binding -- a CPython ``METH_FASTCALL`` function
@@ -69,6 +71,7 @@ _HERE = pathlib.Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 #: the kernel libraries (nvcc) and the binding that launches them (C++)
 SOURCES = {"qinf": _CSRC / "qinf.cu", "qinf_wire": _CSRC / "qinf_wire.cu",
+           "proxlead_update": _CSRC / "proxlead_update.cu",
            "binding": _CSRC / "binding.cpp"}
 HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = _HERE / "_build"
@@ -84,7 +87,8 @@ _DTYPE_TAG = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 LAUNCHES: Dict[str, int] = {"qinf_quantize_blocks": 0,
                             "qinf_dequantize_blocks": 0,
                             "qinf_quantize_pack_blocks": 0,
-                            "qinf_unpack_dequant_mix_blocks": 0}
+                            "qinf_unpack_dequant_mix_blocks": 0,
+                            "proxlead_head": 0, "proxlead_tail": 0}
 
 
 #: calls of each kernel's wrapper on ``meta`` tensors since the last
@@ -209,7 +213,8 @@ def _libs() -> Dict[str, object]:
     """Builds what is missing, loads the kernel libraries and the binding,
     and hands the binding the kernels' C launchers."""
     paths = build()
-    q, w = (ctypes.CDLL(str(paths[n])) for n in ("qinf", "qinf_wire"))
+    q, w, u = (ctypes.CDLL(str(paths[n]))
+               for n in ("qinf", "qinf_wire", "proxlead_update"))
     spec = importlib.util.spec_from_file_location("_qinf_binding",
                                                   paths["binding"])
     binding = importlib.util.module_from_spec(spec)
@@ -222,15 +227,19 @@ def _libs() -> Dict[str, object]:
                           addr(q.qinf_dequantize_blocks_launch),
                           addr(w.qinf_quantize_pack_blocks_launch),
                           addr(w.qinf_unpack_dequant_mix_blocks_launch),
+                          addr(u.proxlead_head_launch),
+                          addr(u.proxlead_tail_launch),
                           addr(q.qinf_error_string))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     q.qinf_quantize_blocks_vector.argtypes = [vp, i32, i64, i64, vp, i32]
     q.qinf_dequantize_blocks_vector.argtypes = [vp, vp, i32]
     w.qinf_quantize_pack_blocks_vector.argtypes = [vp, vp, i32, i32]
     w.qinf_unpack_dequant_mix_blocks_vector.argtypes = [vp, vp, vp, i32, i32]
+    u.proxlead_vector.argtypes = [vp, vp, i64]
     for entry in (*LAUNCHES, *_ENTRIES):
         _LAUNCHERS[entry] = getattr(binding, entry)
-    return {"qinf": q, "qinf_wire": w, "binding": binding}
+    return {"qinf": q, "qinf_wire": w, "proxlead_update": u,
+            "binding": binding}
 
 
 #: binding call -> its binding function, filled by the first :func:`_libs`
@@ -260,7 +269,8 @@ def uses_vector_variant(kernel: str, *args) -> bool:
     and the bits) or B4 (the payload, mix and qself, tensors: the rule
     reads the payload width, the output dtype and the alignments) takes
     its vector variant: the choice the launcher makes at every launch,
-    asked by the tests and ``chip_smoke.py``."""
+    asked by the tests and ``chip_smoke.py`` (B5/B6's:
+    :func:`repro_torch.kernels.proxlead.uses_vector_variant`)."""
     libs = _libs()
     if kernel == "qinf_quantize_blocks":
         x, u = args

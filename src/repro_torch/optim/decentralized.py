@@ -122,6 +122,7 @@ from repro_torch.core.draws import Draws, draws_on
 from repro_torch.core.oracles import OracleState
 from repro_torch.core.prox import Prox
 from repro_torch.core.prox_lead import ProxLEADState
+from repro_torch.kernels import proxlead as kupd
 from repro_torch.models import sharding
 from repro_torch.models import tp as tp_mod
 from repro_torch.models import transformer as TR
@@ -689,6 +690,17 @@ class DecentralizedTrainer:
             blk = max(evens) if evens else 2
         return blk
 
+    def _fused_prox(self, eta):
+        """The prox's :class:`repro_torch.core.prox.Elementwise` form at
+        ``eta`` where the update may run as kernels B5/B6: the wire does
+        not cut a node's leaves into model shards and no ``tp`` seam
+        splits them (so the update's views are the leaves), and
+        ``self.prox`` has such a form.  Else None: the eager update."""
+        if self.wire_shards != 1 or self.tp.M != 1:
+            return None
+        elementwise = getattr(self.prox, "elementwise", None)
+        return None if elementwise is None else elementwise(eta)
+
     def _sharded_update(self, plead: ProxLEADState, G, draws: Draws
                         ) -> ProxLEADState:
         """Lines 6-10 with the COMM exchange moving packed payloads once
@@ -698,7 +710,14 @@ class DecentralizedTrainer:
         plan the exchange mixes every round t' of the cycle, each Hw slot
         takes its round's W_t' Q, and round k % T is read.  The update runs
         on each leaf's model shards (:func:`sharding.shard_view`, views of
-        the state), a replicated leaf on its shard 0."""
+        the state), a replicated leaf on its shard 0.
+
+        Where the update's views are the node-stacked leaves themselves
+        and the prox has an elementwise form (:meth:`_fused_prox`), an f32
+        leaf takes kernels B5 and B6 (:mod:`repro_torch.kernels.proxlead`:
+        two passes, the prox inside the second, X written over z); every
+        other leaf their plain twins, the eager ops, on its shard views,
+        then ``self.prox``."""
         tcfg = self.tcfg
         T = self.plan.T
         t = plead.k % T
@@ -722,15 +741,27 @@ class DecentralizedTrainer:
         rows = None
         if use_q and tcfg.wire_mode == "bucketed":
             rows = bucket.RowTables(self.wire_layout(), n * M, self.device)
+        form = self._fused_prox(eta)
+        fused = [form is not None and x.dtype == torch.float32
+                 for x in leaves_X]
         zs, diffs = [], []
         for j, (x, d, h) in enumerate(zip(leaves_X, D, H)):
-            z = x - eta * G[j] - eta * d
+            if fused[j]:              # B5; the diff into its group's rows
+                out = None if rows is None else rows.leaf_view(j)
+                z, diff = kupd.head(x, G[j], d, h, eta, out=out)
+                if rows is None:
+                    diffs.append(diff)
+                # a view of the rows keeps its whole group table alive
+                del out, diff
+            else:
+                z, diff = kupd.head_plain(x, G[j], d, h, eta)
+                if rows is None:
+                    diffs.append(diff)
+                else:                 # the diff lands in its group's rows
+                    rows.leaf_view(j).unflatten(0, (n, M)).copy_(
+                        view(diff, specs[j]))
+                del diff
             G[j] = None
-            if rows is None:
-                diffs.append(z - h)
-            else:                     # the diff lands in its group's rows
-                rows.leaf_view(j).unflatten(0, (n, M)).copy_(
-                    view(z - h, specs[j]))
             zs.append(z)
         # COMM: per leaf, the dequantized self payload and W Q
         if not use_q:
@@ -744,30 +775,29 @@ class DecentralizedTrainer:
         del rows, diffs
         nX = []
         for j, (z, d, h, hw) in enumerate(zip(zs, D, H, Hw)):
+            if fused[j]:              # B6, the prox inside
+                hws = hw if T > 1 else hw.unsqueeze(1)
+                with phase("train/prox", z.device,
+                           bytes=kupd.tail_bytes(z, T)):
+                    nX.append(kupd.tail(z, d, h, hws, qs[j], wq[j], t,
+                                        eta=eta, alpha=alpha, gamma=gamma,
+                                        prox=form))
+                zs[j] = qs[j] = wq[j] = None
+                continue
             sp = specs[j]
             # (n, Mj, ...): the M shards, or one for a replicated leaf
             zv, dv, hv = (view(a, sp) for a in (z, d, h))
             mj = hv.shape[1]
             q = qs[j].unflatten(0, (n, M))[:, :mj]
             w = wq[j].unflatten(0, (n, M))[:, :mj]        # (n, Mj, T, ...)
-            zhat = q.add_(hv)                             # h + Q_self
-            if T == 1:
-                hwv = view(hw, sp)
-                zhat_w = w[:, :, 0].add_(hwv)             # Hw + (W Q)
-                hwv.mul_(1 - alpha).add_(alpha * zhat_w)
-            else:
-                hwv = view(hw, sp, lead=2)
-                zhat_w = hwv[:, :, t] + w[:, :, t]        # slot k % T
-                # Hw[t'] tracks W_t' H: H += alpha Q => += alpha W_t' Q
-                hwv.add_(w, alpha=alpha)
-            hv.mul_(1 - alpha).add_(alpha * zhat)
-            e = zhat.sub_(zhat_w)                         # zhat - zhat_w
-            dv.add_(gamma / (2 * eta) * e)
-            zv.sub_(gamma / 2.0 * e)
+            hwv = view(hw, sp, lead=2) if T > 1 else \
+                view(hw, sp).unsqueeze(2)                 # (n, Mj, T, ...)
+            kupd.tail_plain(zv, dv, hv, hwv, q, w, t, eta=eta, alpha=alpha,
+                            gamma=gamma, slot=2)
             with phase("train/prox", z.device, bytes=2 * z.nbytes):
                 nX.append(self.prox(z, eta))
             zs[j] = qs[j] = wq[j] = None
-            del zv, dv, hv, hwv, q, w, zhat, zhat_w, e
+            del zv, dv, hv, hwv, q, w
         unf = lambda ls: tree.unflatten(treedef, ls)    # noqa: E731
         return ProxLEADState(unf(nX), plead.D,
                              CommState(plead.comm.H, plead.comm.Hw),

@@ -4,8 +4,9 @@ device, against a real CPU step and against the reference's dry run.
 * The kernels' ``meta`` route: each wrapper's outputs have the shapes and
   dtypes of the plain version's at (R, block) and of the binding's on the
   card (B1's leaf form: codes in the noise's shape, scales with its last
-  axis 1); the inputs the binding refuses raise the binding's error
-  types; ``LAUNCHES`` does not move and ``META_CALLS`` counts each call.
+  axis 1; B5's z and B6's X in the leaf's shape); the inputs the binding
+  refuses raise the binding's error types; ``LAUNCHES`` does not move and
+  ``META_CALLS`` counts each call.
 * ``MetaDraws`` makes the ATen ops ``GeneratorDraws`` makes.
 * ``LiveBytes`` on CPU tensors: peak, argument, output and alias bytes of
   a block whose storages are known.
@@ -45,7 +46,9 @@ from repro_torch import configs as tconfigs
 from repro_torch import tree
 from repro_torch.configs import shapes as tshapes
 from repro_torch.core.draws import GeneratorDraws, MetaDraws, draws_on
+from repro_torch.core.prox import L1
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import proxlead as kupd
 from repro_torch.kernels import quantize as qk
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_mod
@@ -102,6 +105,19 @@ def _plain_and_meta(kernel, dtype, bits, S=3, T=2, R=7, block=8):
         x = torch.randn(R, block, generator=g)
         u = torch.rand(R, block, generator=g)
         return (lambda a, b: qk.qinf_quantize_pack_blocks(a, b, bits)), (x, u)
+    if kernel == kupd.HEAD:           # ``bits``: the leaf's rank
+        ops = [torch.randn((2,) + (3,) * (bits - 1) + (block,), generator=g)
+               for _ in range(5)]
+        return (lambda *a: kupd.head(*a[:4], 0.1, out=a[4])[0]), ops
+    if kernel == kupd.TAIL:           # ``bits``: the Hw slots
+        shape = (2, R, block)
+        ops = [torch.randn(shape, generator=g) for _ in range(3)]
+        ops[3:3] = [torch.randn((2, bits) + shape[1:], generator=g)]
+        ops += [torch.randn(shape, generator=g),
+                torch.randn((2, bits) + shape[1:], generator=g)]
+        return (lambda *a: kupd.tail(*a, bits - 1, eta=0.1, alpha=0.5,
+                                     gamma=1.0, prox=L1(0.1).elementwise(
+                                         0.1))), ops
     W = qk.packed_width(block, bits)
     p = torch.randint(0, 255, (2, S, R, W), dtype=torch.uint8, generator=g)
     s = torch.rand(2, S, R, 1, generator=g)
@@ -110,10 +126,13 @@ def _plain_and_meta(kernel, dtype, bits, S=3, T=2, R=7, block=8):
         a, b, c, bits, dtype)), (p, s, w)
 
 
-META_CASES = [(k, dt, b) for k in qk.LAUNCHES
+META_CASES = [(k, dt, b) for k in qk.LAUNCHES if k.startswith("qinf_")
               for dt in (torch.float32, torch.bfloat16, torch.float64)
               for b in (1, 2, 4, 7)
               if not (k == "qinf_quantize_pack_blocks" and dt != torch.float32)]
+# B5 at leaves of rank 1-3, B6 at 1-3 Hw slots (f32 alone)
+META_CASES += [(k, torch.float32, b) for k in (kupd.HEAD, kupd.TAIL)
+               for b in (1, 2, 3)]
 
 
 @pytest.mark.parametrize("kernel,dtype,bits", META_CASES, ids=str)
@@ -207,6 +226,22 @@ REFUSED = [
     ("B4 rank", lambda: qk.qinf_unpack_dequant_mix_blocks(
         _m((3, 4, 8), torch.uint8), _m((3, 4, 1)), _m((1, 1, 3)), 4),
      ValueError),
+    ("B5 f64 leaf", lambda: kupd.head(
+        _m((2, 8)), _m((2, 8), torch.float64), _m((2, 8)), _m((2, 8)), 0.1),
+     TypeError),
+    ("B5 shapes", lambda: kupd.head(
+        _m((2, 8)), _m((2, 8)), _m((2, 9)), _m((2, 8)), 0.1), ValueError),
+    ("B5 diff rows", lambda: kupd.head(
+        _m((2, 8)), _m((2, 8)), _m((2, 8)), _m((2, 8)), 0.1,
+        out=_m((2, 16))[:, ::2]), ValueError),
+    ("B6 slots", lambda: kupd.tail(
+        _m((2, 8)), _m((2, 8)), _m((2, 8)), _m((2, 2, 8)), _m((2, 8)),
+        _m((2, 3, 8)), 0, eta=0.1, alpha=0.5, gamma=1.0,
+        prox=L1(0.1).elementwise(0.1)), ValueError),
+    ("B6 slot index", lambda: kupd.tail(
+        _m((2, 8)), _m((2, 8)), _m((2, 8)), _m((2, 2, 8)), _m((2, 8)),
+        _m((2, 2, 8)), 2, eta=0.1, alpha=0.5, gamma=1.0,
+        prox=L1(0.1).elementwise(0.1)), ValueError),
 ]
 
 

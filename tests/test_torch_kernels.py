@@ -115,7 +115,8 @@ def test_cpu_path_launches_nothing():
     assert tq.launch_counts() == {"qinf_quantize_blocks": 0,
                                   "qinf_dequantize_blocks": 0,
                                   "qinf_quantize_pack_blocks": 0,
-                                  "qinf_unpack_dequant_mix_blocks": 0}
+                                  "qinf_unpack_dequant_mix_blocks": 0,
+                                  "proxlead_head": 0, "proxlead_tail": 0}
 
 
 @pytest.mark.parametrize("shape,bits,block", [
@@ -231,8 +232,8 @@ def test_c_constants_match_the_wrapper():
     import re
     csrc = tq.SOURCES["qinf"].parent
     common = (csrc / "common.cuh").read_text()
-    wire = (csrc / "qinf_wire.cu").read_text()
-    kernels = tq.SOURCES["qinf"].read_text() + wire
+    kernels = "".join(src.read_text() for name, src in tq.SOURCES.items()
+                      if name != "binding")
     binding = tq.SOURCES["binding"].read_text()
 
     def const(text, name):
@@ -243,7 +244,7 @@ def test_c_constants_match_the_wrapper():
             torch.bfloat16: const(common, "kBF16")} == tq._DTYPE_TAG
     assert "tag == 1 ? at::kDouble : tag == 2 ? at::kBFloat16 : at::kFloat" \
         in binding
-    assert set(re.findall(r'\{"(qinf_\w+)"', binding)) == \
+    assert set(re.findall(r'\{"((?:qinf|proxlead)_\w+)"', binding)) == \
         set(tq.LAUNCHES) | set(tq._ENTRIES)
     assert set(tq._ENTRIES.values()) <= set(tq.LAUNCHES)
     for kernel in tq.LAUNCHES:
@@ -254,18 +255,21 @@ def test_c_constants_match_the_wrapper():
 
 def test_vector_queries_match_the_sources():
     """Every variant query the wrapper loads (``<kernel>_vector``, one a
-    kernel) is a C function of the kernel sources, and each launcher
-    takes the variant its query names."""
+    QInf kernel; ``proxlead_vector``, the one rule of B5 and B6) is a C
+    function of the kernel sources, and each launcher takes the variant
+    its query names."""
     import inspect
     import re
-    kernels = tq.SOURCES["qinf"].read_text() + \
-        tq.SOURCES["qinf_wire"].read_text()
-    loaded = set(re.findall(r"\.(qinf_\w+_vector)\.argtypes",
+    kernels = "".join(src.read_text() for name, src in tq.SOURCES.items()
+                      if name != "binding")
+    loaded = set(re.findall(r"\.((?:qinf|proxlead)\w*_vector)\.argtypes",
                             inspect.getsource(tq._libs)))
-    assert loaded == {f"{k}_vector" for k in tq.LAUNCHES}
-    for query in loaded:
+    query_of = {k: "proxlead_vector" if k.startswith("proxlead_")
+                else f"{k}_vector" for k in tq.LAUNCHES}
+    assert loaded == set(query_of.values())
+    for kernel, query in query_of.items():
         assert f"int {query}(" in kernels
-        launcher = kernels[kernels.index(f"int {query[:-7]}_launch("):]
+        launcher = kernels[kernels.index(f"int {kernel}_launch("):]
         assert f"{query}(" in launcher[:launcher.index("\n}\n")]
 
 
