@@ -247,18 +247,23 @@ Phases, in order; any failure exits non-zero before the result lines:
    SSM_REPLAY_ELEM_TOL), and B3/B4 once per bucket group a step (counters
    zeroed before the first step, read after the last).  (b) whisper-large-v3 at its published widths, 1 encoder + 1
    decoder layer, full vocabulary, seq_len 448, and deepseek-moe-16b at its
-   published widths, 1 of 28 layers, vocab/8 (12,800), 16 of its 64 routed
-   experts, seq_len 512; 8 nodes on a ring, bucketed wire, 2-bit QInf in
+   published widths, 1 of its 27 expert layers, vocab/8 (12,800), the
+   64-wide router with experts 0-7 held (the dropless expert-share layer,
+   gates as the softmax gives them, the sequence-wise balance loss at
+   0.001), seq_len 512; 8 nodes on a ring, bucketed wire, 2-bit QInf in
    256-blocks, f32, SLICE_STEPS steps as phase 6: B3 and B4 once per bucket
-   group a step, the loss falling and finite, ``bits_per_step`` equal to 2
+   group a step (and the deepseek layer's M3, M4, M1 and M2 3, 2, 6 and 3
+   times a step), the loss falling and finite, ``bits_per_step`` equal to 2
    hops x a host recount from the parameter shapes, peak memory below
    FAMILY_PEAK_GB, step time and a ``torch.profiler`` window; each
    trainer's ``[contracts]`` and ``[roofline]`` lines, as phase 6's.  (c) B3/B4
    against their plain versions, bit-equal, at every block width below 256
    of the six families' published widths and depth (8, 20, 64, 128) and at
-   each bucket group of (b)'s trainers (16 and 256), ring payloads (S =
+   each bucket group of (b)'s trainers (64 and 256), ring payloads (S =
    3), each timed beside its bound, B3 on the variant it must take (the
-   row one at block 20 only).
+   row one at block 20 only).  (d) the expert-share layer's kernels M1-M4
+   against their plain twins at the deepseek-moe-16b.ring4 cell's shapes,
+   under even and skewed routing, timed beside their bounds and cuBLAS.
 14. (Run after phase 12, before the result lines.)  The contract audit
    over every golden spec on the card (``repro_torch.check.contracts.
    audit_spec_dir``): each spec's second step recorded under
@@ -577,7 +582,7 @@ def ptxas_report(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"((?:qinf|proxlead)_[a-z_]+_kernel)(I.*)?",
+            name = re.search(r"((?:qinf|proxlead|moe)_[a-z_]+_kernel)(I.*)?",
                              m[1])
             args = [_PTX_TYPES.get(a, a[2:-1]) for a in re.findall(
                 r"13__nv_bfloat16|L[ib]\d+E|(?<=[IE_])[fd](?=[EL])",
@@ -1819,10 +1824,13 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     setup_s = time.perf_counter() - t0
+    from repro_torch.kernels import moe as kmoe
     qk.reset_launch_counts()
+    kmoe.LAUNCHES.update(dict.fromkeys(kmoe.LAUNCHES, 0))
     state, _ = runner.run(num_steps=steps, data=data, draws=draws,
                           state=init.pop(), callback=record, log_every=1)
     launches = qk.launch_counts()
+    moe_launches = kmoe.launch_counts()
     report = runner.last_report
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30
             if device == "cuda" else 0.0)
@@ -1841,6 +1849,17 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
     require(device != "cuda" or launches["proxlead_head"]
             == launches["proxlead_tail"] == fused,
             f"launch counts {launches}: want {fused} of B5 and of B6")
+    # the expert-share layer, a call: forward M3 once, M1 three times, M4
+    # once; backward M3 twice, M1 three times (one accumulating), M2 three
+    # times, M4 once
+    moe_layers = (cfg.n_layers - cfg.first_k_dense
+                  if cfg.family == "moe" and cfg.moe_dropless else 0)
+    want = {k: steps * moe_layers * n for k, n in
+            (("moe_gather", 3), ("moe_combine", 2), ("moe_rows_mm", 6),
+             ("moe_wgrad", 3))}
+    require(device != "cuda" or moe_launches == want,
+            f"MoE launch counts {moe_launches}: want {want} ({moe_layers} "
+            f"expert-share layers, {steps} steps)")
     require(all(math.isfinite(p["loss"]) and math.isfinite(p["consensus"])
                 for p in trace), "non-finite loss/consensus")
     # one step's loss moves by a few 1e-2 with its batch, and the first
@@ -1875,6 +1894,7 @@ def trainer_path(torch, api, draws_mod, qk, steps: int = SLICE_STEPS,
                        "local_batch": spec.model.local_batch,
                        "seq_len": spec.model.seq_len},
             "bucket_groups": layout_groups, "launches": launches,
+            "moe_launches": moe_launches,
             "hops": hops, "hw_slots": tr.hw_slots or 1,
             "trace": trace, "run_report": report.to_dict(),
             "setup_s": setup_s,
@@ -4129,8 +4149,9 @@ SSM_REPLAY_ELEM_TOL = 3e-4
 FAMILY_TRAINERS = (
     ("whisper-large-v3", "whisper-large-v3-1+1L-ring8-qinf2",
      {"n_layers": 1, "n_enc_layers": 1}, 448),
-    ("deepseek-moe-16b", "deepseek-moe-16b-1L-16x-vocab8-ring8-qinf2",
-     {"n_layers": 1, "vocab": 12800, "n_experts": 16}, 512))
+    ("deepseek-moe-16b", "deepseek-moe-16b-1L-8of64-vocab8-ring8-qinf2",
+     {"n_layers": 1, "vocab": 12800, "n_experts_held": 8,
+      "moe_dropless": True, "aux_weight": 0.001}, 512))
 
 
 def family_spec(api, arch: str, steps: int, *, name: str, full: bool,
@@ -4292,6 +4313,106 @@ def family_phase(torch, api, convert, draws_mod, tree, TR, qk, ref, errs,
             case["where"] = where
             out["wire"].append(case)
     return out
+
+
+def moe_kernels(torch, device: str = "cuda", seed: int = 0,
+                iters: int = 20, routing: str = "even") -> list:
+    """Phase 12 (d): the expert-share layer's kernels (M1, M2 in CUDA, M3,
+    M4 in Triton; ``repro_torch.kernels.moe``) at the
+    ``deepseek-moe-16b.ring4`` cell's shapes -- 4 nodes x 2 x 1,024 tokens
+    routed top 6 of 64 by a random router, experts 0-7 held, D 2,048, F
+    1,408 -- each against its plain twin (products within 1e-5 of their
+    scale, permutes exact) and timed beside its bound, the plain twin and
+    cuBLAS: one ``torch.mm`` a (node, held expert) on the rows the host
+    read, and one ``torch.bmm`` over the groups padded to the largest
+    (``library_ms``: both need the routing on the host, which the step
+    may not read).  ``routing`` ``skewed``: no token picks expert 3 and
+    every token picks expert 5, so a group is empty and one holds a row of
+    every token of its node."""
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.models import moe
+    g = torch.Generator(device=device).manual_seed(seed)
+    N, M, D, F, E, k, held = 4, 2 * 1024, 2048, 1408, 64, 6, 8
+    x = torch.randn((N, 2, 1024, D), generator=g, device=device)
+    rw = torch.randn((N, D, E), generator=g, device=device) / D ** 0.5
+    if routing == "skewed":
+        # dim 0 of every token is 4; a router row of -3 / +3 there moves
+        # expert 3's logit by -12 and expert 5's by +12
+        x[..., 0] = 4.0
+        rw[:, 0] = 0.0
+        rw[:, 0, 3], rw[:, 0, 5] = -3.0, 3.0
+    vals, idx = moe.top_k_lower_index(
+        torch.softmax(torch.einsum("nbtd,nde->nbte", x, rw), -1), k)
+    x, vals = x.reshape(N * M, D), vals.reshape(N * M, k).contiguous()
+    p = kmoe.plan(idx, 0, held)
+    off = p.offsets.tolist()
+    R, G = off[-1], p.groups
+    cap = max(b - a for a, b in zip(off, off[1:]))
+    W = torch.randn((N, held, D, F), generator=g, device=device) / D ** 0.5
+    Wf = W.reshape(G, D, F)
+    xs = kmoe.gather(x, p.tok, p)
+    h = torch.randn((p.rows, F), generator=g, device=device)
+    pad_x = torch.zeros((G, cap, D), device=device)
+    pad_h = torch.zeros((G, cap, F), device=device)
+    for i in range(G):
+        pad_x[i, :off[i + 1] - off[i]] = xs[off[i]:off[i + 1]]
+        pad_h[i, :off[i + 1] - off[i]] = h[off[i]:off[i + 1]]
+
+    def per_group(fn):
+        return lambda: [fn(i, off[i], off[i + 1]) for i in range(G)
+                        if off[i + 1] > off[i]]
+
+    def close(a, b, tol):
+        err = float((a - b).abs().max() / b.abs().max())
+        require(err <= tol, f"moe kernel off its plain twin by {err:.2e}")
+        return err
+
+    cases = []
+    ops = 2 * R * D * F
+    for name, run, plain, lib, nb, fl, tol in (
+            ("gather", lambda: kmoe.gather(x, p.tok, p),
+             lambda: kmoe.gather_plain(x, p.tok, p),
+             lambda: x.index_select(0, p.tok[:R]), 8 * R * D + 8 * R, 0, 0.0),
+            ("combine", lambda: kmoe.combine(xs, p.pos, vals),
+             lambda: kmoe.combine_plain(xs, p.pos, vals), None,
+             4 * R * D + 12 * N * M * k + 4 * N * M * D, 0, 1e-6),
+            ("rows_mm", lambda: kmoe.rows_mm(xs, W, p),
+             lambda: kmoe.rows_mm_plain(xs, W, p),
+             (per_group(lambda i, a, b: torch.mm(xs[a:b], Wf[i])),
+              lambda: torch.bmm(pad_x, Wf)),
+             4 * (R * D + G * D * F + R * F), ops, 1e-5),
+            ("rows_mm_t", lambda: kmoe.rows_mm(h, W, p, transpose=True),
+             lambda: kmoe.rows_mm_plain(h, W, p, transpose=True),
+             (per_group(lambda i, a, b: torch.mm(h[a:b], Wf[i].t())),
+              lambda: torch.bmm(pad_h, Wf.transpose(1, 2))),
+             4 * (R * F + G * D * F + R * D), ops, 1e-5),
+            ("wgrad", lambda: kmoe.wgrad(xs, h, p),
+             lambda: kmoe.wgrad_plain(xs, h, p),
+             (per_group(lambda i, a, b: torch.mm(xs[a:b].t(), h[a:b])),
+              lambda: torch.bmm(pad_x.transpose(1, 2), pad_h)),
+             4 * (R * D + R * F + G * D * F), ops, 1e-5)):
+        got, want = run(), plain()
+        live = slice(None) if name in ("combine", "wgrad") else slice(0, R)
+        err = close(got[live], want[live], tol) if tol else float(
+            not torch.equal(got[live], want[live]))
+        require(err <= tol, f"moe {name} differs from its plain twin")
+        row = {"kernel": name, "routing": routing, "rows": R, "groups": G,
+               "largest": cap, "smallest": min(b - a for a, b in
+                                               zip(off, off[1:])),
+               "err": err, "ms": cuda_ms(torch, run, iters=iters),
+               "plain_ms": cuda_ms(torch, plain, iters=3, warmup=1)}
+        row["bound_ms"], row["bound_by"] = bound_ms(nb, fl)
+        if lib is None:
+            row["library_ms"] = None
+        elif isinstance(lib, tuple):
+            row["library_ms"] = {"mm_per_group": cuda_ms(torch, lib[0],
+                                                         iters=iters),
+                                 "bmm_padded": cuda_ms(torch, lib[1],
+                                                       iters=iters)}
+        else:
+            row["library_ms"] = cuda_ms(torch, lib, iters=iters)
+        cases.append(row)
+    return cases
 
 
 # --- phase 19 ------------------------------------------------------------------
@@ -5313,6 +5434,16 @@ def main() -> int:
                   f"{cc['worst_off_fraction']:.2e}, worst |diff|/max "
                   f"{cc['worst_rel_max']:.2e}; launches {cc['launches']} "
                   f"({cc['bucket_groups']} bucket groups)", flush=True)
+        fp["moe_kernels"] = (moe_kernels(torch)
+                             + moe_kernels(torch, routing="skewed", iters=5))
+        for mk in fp["moe_kernels"]:
+            print(f"[family] moe {mk['kernel']} {mk['routing']} "
+                  f"({mk['rows']} rows in {mk['groups']} groups, "
+                  f"{mk['smallest']} to {mk['largest']}): "
+                  f"{mk['ms']:.4f} ms, bound {mk['bound_ms']:.4f} "
+                  f"({mk['bound_by']}), plain {mk['plain_ms']:.4f}, "
+                  f"library {mk['library_ms']}; off {mk['err']:.1e}",
+                  flush=True)
         for ft in fp["trainers"]:
             print(f"[family] {ft['spec']}: {ft['config']}", flush=True)
             print(f"[family] {ft['steps']} steps, loss (mean of "

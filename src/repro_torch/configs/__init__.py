@@ -71,8 +71,13 @@ _OTHER = {
         max_source_positions=1500, max_target_positions=448,
         citation="arXiv:2212.04356"),
     # 28L d_model=2048 16H (kv=16) per-expert d_ff=1408 vocab=102400;
-    # fine-grained MoE: 2 shared + 64 routed top-6 (every layer MoE, as the
-    # reference: the real model's first layer is a dense FF).
+    # fine-grained MoE: 2 shared + 64 routed top-6.  As listed every layer
+    # is MoE on the capacity path, as the reference; the published layout
+    # (a first dense FF layer of width 10944, softmax gates not
+    # renormalised, the sequence-wise balance loss) is first_k_dense=1,
+    # dense_d_ff=10944, moe_dropless=True, with n_experts_held /
+    # expert_offset for one chip's share of the 64, and the trainer's
+    # aux_weight at the published 0.001.
     # [arXiv:2401.06066]
     "deepseek-moe-16b": dict(
         name="deepseek-moe-16b", family="moe",

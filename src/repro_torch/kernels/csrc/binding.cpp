@@ -1,5 +1,6 @@
-// CPython binding of the launchers of the four QInf kernels and of the two
-// Prox-LEAD update kernels (module _qinf_binding).
+// CPython binding of the launchers of the four QInf kernels, of the two
+// Prox-LEAD update kernels and of the MoE layer's two grouped products
+// (module _qinf_binding).
 //
 // Each function checks that its inputs are what the kernel takes and
 // raises the fault it finds (TypeError for a dtype, ValueError for a shape,
@@ -8,7 +9,8 @@
 // stride, see leaf_rows, and B5/B6 take views, see node_rows), allocates
 // the kernel's outputs with at::empty on the inputs' device (PyTorch's
 // caching allocator, on the C++ side), calls the kernel's C launcher from
-// csrc/qinf.cu, csrc/qinf_wire.cu or csrc/proxlead_update.cu with raw
+// csrc/qinf.cu, csrc/qinf_wire.cu, csrc/proxlead_update.cu or
+// csrc/moe_gemm.cu with raw
 // pointers, the device index and that device's
 // current PyTorch stream, and returns the outputs; a non-zero CUDA error
 // raises RuntimeError, and a C++ exception (an allocation that fails)
@@ -25,6 +27,7 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstdio>
 #include <initializer_list>
 #include <vector>
@@ -52,6 +55,13 @@ using HeadFn = int (*)(void* const*, const long long*, long long, long long,
                       long long, float, int, void*);
 using TailFn = int (*)(void* const*, const long long*, long long, long long,
                       long long, int, int, const float*, int, int, void*);
+using RowsMmFn = int (*)(const float*, long long, const float*, long long,
+                        long long, long long, long long, float*, long long,
+                        const int*, const int*, long long, const int*, int,
+                        int, int, int, int, int, int, void*);
+using WgradFn = int (*)(const float*, long long, const float*, long long,
+                        float*, long long, long long, long long, const int*,
+                        int, int, int, int, int, void*);
 using ErrorFn = const char* (*)(int);
 
 QuantizeFn g_quantize = nullptr;
@@ -60,6 +70,8 @@ PackFn g_pack = nullptr;
 MixFn g_mix = nullptr;
 HeadFn g_head = nullptr;
 TailFn g_tail = nullptr;
+RowsMmFn g_rows_mm = nullptr;
+WgradFn g_wgrad = nullptr;
 ErrorFn g_error = nullptr;
 
 // output dtypes by tag (quantize.py::_DTYPE_TAG, csrc/common.cuh)
@@ -249,7 +261,7 @@ bool point_levels_ok(const at::Tensor& lv, const at::Tensor& x, int64_t L) {
       c.numel == P && c.device == lv.get_device())
     return true;
   const at::Tensor host = lv.to(at::kCPU);
-  const float* v = host.data_ptr<float>();
+  const float* v = static_cast<float*>(host.data_ptr());
   for (int64_t i = 0; i < P; ++i) {
     const float f = v[i];
     int e = 0;
@@ -598,11 +610,146 @@ PyObject* proxlead_tail(PyObject*, PyObject* const* args, Py_ssize_t n) {
   END_HANDLE_TH_ERRORS
 }
 
-// (quantize, dequantize, pack, mix, head, tail, error_string) launcher
-// addresses
+// An f32 (rows, width) operand of M1/M2 with rows of unit stride on
+// ``device``.
+bool moe_rows(const at::Tensor& t, const char* name, const char* what,
+              int device) {
+  if (t.scalar_type() != at::kFloat) {
+    raise(PyExc_TypeError, "%s takes f32 operands, got %s for %s", name,
+          dtype(t), what);
+    return false;
+  }
+  if (t.dim() != 2 || t.stride(1) != 1 || !t.is_cuda() ||
+      t.get_device() != device) {
+    raise(PyExc_ValueError, "%s: %s %s must be (rows, width) with rows of "
+          "unit stride on the first operand's CUDA device", name, what,
+          Shape(t).text);
+    return false;
+  }
+  return true;
+}
+
+// A contiguous int32 index vector of ``n`` entries on ``device``.
+bool moe_index(const at::Tensor& t, int64_t n, const char* name,
+               const char* what, int device) {
+  if (t.scalar_type() != at::kInt || t.dim() != 1 || t.size(0) != n ||
+      !t.is_contiguous() || !t.is_cuda() || t.get_device() != device) {
+    raise(PyExc_ValueError, "%s: %s must be a contiguous int32 vector of "
+          "%lld on the operands' device, got %s %s", name, what,
+          (long long)n, dtype(t), Shape(t).text);
+    return false;
+  }
+  return true;
+}
+
+// M1: (a, w, tile_group, tile_row0, offsets, transpose, accumulate, bm,
+// out) -> out.  a (rows, K) f32; w (N, held, K, n) f32, or (N, held, n, K)
+// under ``transpose``, with one of its two last axes of unit stride; the
+// tile table (int32, one entry a bm-row tile) and the group offsets
+// (int32, N held + 1) as kernels/moe.py::Plan makes them; ``out`` (rows,
+// n) f32, or None for a fresh one.  Each group's live rows of ``out`` get
+// (or, under ``accumulate``, gain) their product; other rows are left.
+PyObject* moe_rows_mm(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  HANDLE_TH_ERRORS
+  if (!parse(args, n, 9, 5, "moe_rows_mm")) return nullptr;
+  const long transpose = as_long(args[5]), accumulate = as_long(args[6]),
+             bm = as_long(args[7]);
+  if (PyErr_Occurred()) return nullptr;
+  const at::Tensor& a = tensor(args[0]);
+  const at::Tensor& w = tensor(args[1]);
+  const int device = a.is_cuda() ? a.get_device() : -1;
+  if (device < 0)
+    return raise(PyExc_ValueError, "moe_rows_mm: a must lie on a CUDA "
+                 "device");
+  if (!moe_rows(a, "moe_rows_mm", "a", device)) return nullptr;
+  if (w.scalar_type() != at::kFloat)
+    return raise(PyExc_TypeError, "moe_rows_mm takes f32 weights, got %s",
+                 dtype(w));
+  if (w.dim() != 4 || !w.is_cuda() || w.get_device() != device)
+    return raise(PyExc_ValueError, "moe_rows_mm: w %s must be (nodes, held, "
+                 "in, out) on a's device", Shape(w).text);
+  const int64_t K = w.size(transpose ? 3 : 2), NC = w.size(transpose ? 2 : 3);
+  const int64_t sk = w.stride(transpose ? 3 : 2),
+                sc = w.stride(transpose ? 2 : 3);
+  if (a.size(1) != K || (sk != 1 && sc != 1))
+    return raise(PyExc_ValueError, "moe_rows_mm: rows of width %lld against "
+                 "w %s (transpose %ld), whose rows or columns must have unit "
+                 "stride", (long long)a.size(1), Shape(w).text, transpose);
+  const int64_t G = w.size(0) * w.size(1);
+  const at::Tensor& group = tensor(args[2]);
+  const at::Tensor& row0 = tensor(args[3]);
+  const at::Tensor& off = tensor(args[4]);
+  if (!moe_index(group, group.numel(), "moe_rows_mm", "tile_group", device) ||
+      !moe_index(row0, group.numel(), "moe_rows_mm", "tile_row0", device) ||
+      !moe_index(off, G + 1, "moe_rows_mm", "offsets", device))
+    return nullptr;
+  at::Tensor out;
+  if (args[8] == Py_None) {
+    out = at::empty({a.size(0), NC}, a.options());
+  } else {
+    if (!THPVariable_Check(args[8]))
+      return raise(PyExc_TypeError, "moe_rows_mm: out is not a tensor");
+    out = tensor(args[8]);
+    if (!moe_rows(out, "moe_rows_mm", "out", device)) return nullptr;
+    if (out.size(0) != a.size(0) || out.size(1) != NC)
+      return raise(PyExc_ValueError, "moe_rows_mm: out %s, want [%lld, "
+                   "%lld]", Shape(out).text, (long long)a.size(0),
+                   (long long)NC);
+  }
+  if (K > INT32_MAX || NC > INT32_MAX || G > INT32_MAX)
+    return raise(PyExc_ValueError, "moe_rows_mm: widths past int32");
+  const int err = g_rows_mm(
+      static_cast<float*>(a.data_ptr()), a.stride(0), static_cast<float*>(w.data_ptr()), w.stride(0),
+      w.stride(1), sk, sc, static_cast<float*>(out.data_ptr()), out.stride(0),
+      static_cast<int*>(group.data_ptr()), static_cast<int*>(row0.data_ptr()), group.numel(),
+      static_cast<int*>(off.data_ptr()), (int)K, (int)NC, (int)G, (int)w.size(1),
+      (int)(accumulate != 0), (int)bm, device, stream_of(device));
+  return launched("moe_rows_mm", err, THPVariable_Wrap(out));
+  END_HANDLE_TH_ERRORS
+}
+
+// M2: (a, b, offsets, held) -> out (G / held, held, m1, m2), group g's
+// a_g^T b_g over its rows; a (rows, m1), b (rows, m2) f32, offsets int32
+// (G + 1).
+PyObject* moe_wgrad(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  HANDLE_TH_ERRORS
+  if (!parse(args, n, 4, 3, "moe_wgrad")) return nullptr;
+  const long held = as_long(args[3]);
+  if (PyErr_Occurred()) return nullptr;
+  const at::Tensor& a = tensor(args[0]);
+  const at::Tensor& b = tensor(args[1]);
+  const at::Tensor& off = tensor(args[2]);
+  const int device = a.is_cuda() ? a.get_device() : -1;
+  if (device < 0)
+    return raise(PyExc_ValueError, "moe_wgrad: a must lie on a CUDA device");
+  if (!moe_rows(a, "moe_wgrad", "a", device) ||
+      !moe_rows(b, "moe_wgrad", "b", device))
+    return nullptr;
+  const int64_t G = off.numel() - 1;
+  if (a.size(0) != b.size(0) || held <= 0 || G <= 0 || G % held != 0 ||
+      G > 65535)
+    return raise(PyExc_ValueError, "moe_wgrad: a %s and b %s must share "
+                 "their rows, and the offsets (%lld groups, at most 65535) "
+                 "fill nodes of %ld held experts", Shape(a).text,
+                 Shape(b).text, (long long)G, held);
+  if (!moe_index(off, G + 1, "moe_wgrad", "offsets", device)) return nullptr;
+  at::Tensor out = at::empty({G / held, (int64_t)held, a.size(1), b.size(1)},
+                             a.options());
+  const int err = g_wgrad(
+      static_cast<float*>(a.data_ptr()), a.stride(0), static_cast<float*>(b.data_ptr()), b.stride(0),
+      static_cast<float*>(out.data_ptr()), out.stride(0), out.stride(1), out.stride(2),
+      static_cast<int*>(off.data_ptr()), (int)a.size(1), (int)b.size(1), (int)G, (int)held,
+      device, stream_of(device));
+  return launched("moe_wgrad", err, THPVariable_Wrap(out));
+  END_HANDLE_TH_ERRORS
+}
+
+// (quantize, dequantize, pack, mix, head, tail, rows_mm, wgrad,
+// error_string) launcher addresses
 PyObject* set_launchers(PyObject*, PyObject* args) {
-  PyObject *q, *d, *p, *m, *h, *t, *e;
-  if (!PyArg_ParseTuple(args, "OOOOOOO", &q, &d, &p, &m, &h, &t, &e))
+  PyObject *q, *d, *p, *m, *h, *t, *r, *w, *e;
+  if (!PyArg_ParseTuple(args, "OOOOOOOOO", &q, &d, &p, &m, &h, &t, &r, &w,
+                        &e))
     return nullptr;
   g_quantize = reinterpret_cast<QuantizeFn>(PyLong_AsVoidPtr(q));
   g_dequantize = reinterpret_cast<DequantizeFn>(PyLong_AsVoidPtr(d));
@@ -610,6 +757,8 @@ PyObject* set_launchers(PyObject*, PyObject* args) {
   g_mix = reinterpret_cast<MixFn>(PyLong_AsVoidPtr(m));
   g_head = reinterpret_cast<HeadFn>(PyLong_AsVoidPtr(h));
   g_tail = reinterpret_cast<TailFn>(PyLong_AsVoidPtr(t));
+  g_rows_mm = reinterpret_cast<RowsMmFn>(PyLong_AsVoidPtr(r));
+  g_wgrad = reinterpret_cast<WgradFn>(PyLong_AsVoidPtr(w));
   g_error = reinterpret_cast<ErrorFn>(PyLong_AsVoidPtr(e));
   if (PyErr_Occurred()) return nullptr;
   Py_RETURN_NONE;
@@ -633,6 +782,10 @@ PyMethodDef kMethods[] = {
      METH_FASTCALL, nullptr},
     {"proxlead_tail", (PyCFunction)(void (*)(void))proxlead_tail,
      METH_FASTCALL, nullptr},
+    {"moe_rows_mm", (PyCFunction)(void (*)(void))moe_rows_mm, METH_FASTCALL,
+     nullptr},
+    {"moe_wgrad", (PyCFunction)(void (*)(void))moe_wgrad, METH_FASTCALL,
+     nullptr},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "_qinf_binding", nullptr, -1,

@@ -5,7 +5,10 @@ qinf_wire.cu`` B3 (quantize + wire pack) and B4 (unpack + dequantize +
 mix): the Hopper versions of the Pallas kernels in
 ``repro.kernels.quantize``.  ``csrc/proxlead_update.cu`` holds B5 and B6,
 the neighbor trainer's Prox-LEAD update (their wrappers are
-:mod:`repro_torch.kernels.proxlead`).  All include ``csrc/common.cuh``
+:mod:`repro_torch.kernels.proxlead`), ``csrc/moe_gemm.cu`` M1 and M2, the
+expert-share MoE layer's grouped products (their wrappers are
+:mod:`repro_torch.kernels.moe`, which counts their launches in its own
+``LAUNCHES``).  All include ``csrc/common.cuh``
 and have a plain C interface.  ``csrc/binding.cpp`` is a small CPython
 module (no device code) through which every launch goes: it checks the
 inputs, allocates a kernel's outputs with ``at::empty`` and calls the
@@ -72,6 +75,7 @@ _CSRC = _HERE / "csrc"
 #: the kernel libraries (nvcc) and the binding that launches them (C++)
 SOURCES = {"qinf": _CSRC / "qinf.cu", "qinf_wire": _CSRC / "qinf_wire.cu",
            "proxlead_update": _CSRC / "proxlead_update.cu",
+           "moe_gemm": _CSRC / "moe_gemm.cu",
            "binding": _CSRC / "binding.cpp"}
 HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = _HERE / "_build"
@@ -213,8 +217,8 @@ def _libs() -> Dict[str, object]:
     """Builds what is missing, loads the kernel libraries and the binding,
     and hands the binding the kernels' C launchers."""
     paths = build()
-    q, w, u = (ctypes.CDLL(str(paths[n]))
-               for n in ("qinf", "qinf_wire", "proxlead_update"))
+    q, w, u, m = (ctypes.CDLL(str(paths[n])) for n in
+                  ("qinf", "qinf_wire", "proxlead_update", "moe_gemm"))
     spec = importlib.util.spec_from_file_location("_qinf_binding",
                                                   paths["binding"])
     binding = importlib.util.module_from_spec(spec)
@@ -229,6 +233,8 @@ def _libs() -> Dict[str, object]:
                           addr(w.qinf_unpack_dequant_mix_blocks_launch),
                           addr(u.proxlead_head_launch),
                           addr(u.proxlead_tail_launch),
+                          addr(m.moe_rows_mm_launch),
+                          addr(m.moe_wgrad_launch),
                           addr(q.qinf_error_string))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     q.qinf_quantize_blocks_vector.argtypes = [vp, i32, i64, i64, vp, i32]
@@ -239,7 +245,13 @@ def _libs() -> Dict[str, object]:
     for entry in (*LAUNCHES, *_ENTRIES):
         _LAUNCHERS[entry] = getattr(binding, entry)
     return {"qinf": q, "qinf_wire": w, "proxlead_update": u,
-            "binding": binding}
+            "moe_gemm": m, "binding": binding}
+
+
+def binding():
+    """The loaded binding module (built at first use), for wrappers that
+    count their launches themselves (:mod:`repro_torch.kernels.moe`)."""
+    return _libs()["binding"]
 
 
 #: binding call -> its binding function, filled by the first :func:`_libs`

@@ -19,6 +19,26 @@ k distinct experts, so no (token, expert, position) entry takes two
 contributions, and the values equal the reference's sum of one-hots over
 the slots without its (B, T, k, E, C) intermediate.  Router and experts
 compute in f32 whatever the model dtype, as the reference does.
+
+The expert-share path (``dropless=True``; DeepSeekMoE's layer as an
+expert-parallel chip holds it) routes over the router's E experts and
+computes only the experts it holds, [first, first + held), with no
+capacity: the slots routed to a held expert are sorted by (node, held
+expert) on the device (:func:`repro_torch.kernels.moe.plan`), their rows
+gathered, each group run through its expert's SwiGLU by grouped
+products, and the gated outputs added back to their tokens.  What the
+absent experts would add is left out.  No (..., T, E, C) tensor is made
+and nothing is read back to the host.  Its gates and balance loss are
+DeepSeekMoE's: the top-k softmax probabilities as they are (not
+renormalised), and the sequence-wise loss (per sequence f_i = E / (k T)
+#{t: i in top-k(t)}, P_i = mean_t s_{i,t}, sum_i f_i P_i, averaged over
+a node's sequences).  Its four parts run under the phases ``moe/route``,
+``moe/dispatch``, ``moe/experts`` and ``moe/combine``
+(:func:`repro_torch.obs.trace.phase`), in forward and in backward, and
+each call adds the rows each (node, held expert) computed to the
+``moe/rows`` counter (:func:`repro_torch.obs.trace.count`) and its widths
+(nodes, tokens a node, routed experts a token, D, F; a host tensor) to
+``moe/shape``, all only while a profiler records.
 """
 from __future__ import annotations
 
@@ -26,7 +46,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import moe as kmoe
 from repro_torch.models.tp import NO_TP
+from repro_torch.obs import trace
 
 F32 = torch.float32
 
@@ -46,9 +68,16 @@ def capacity(T: int, top_k: int, n_experts: int,
 def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
             experts_gate: torch.Tensor, experts_up: torch.Tensor,
             experts_down: torch.Tensor, *, top_k: int,
-            capacity_factor: float = 1.25, shared=None, tp=NO_TP):
+            capacity_factor: float = 1.25, shared=None, tp=NO_TP,
+            first_expert: int = 0, dropless: bool = False):
     """x (N, B, T, D); router_w (N, D, E); experts_* (N, E, D, F) /
     (N, E, F, D); ``shared`` None or (gate, up, down) SwiGLU weights.
+
+    ``dropless``: the expert-share path (module docstring), where the
+    experts' leading dim is the ``held`` experts from ``first_expert``
+    (any held <= E); else the capacity path, the reference's layer, which
+    holds all E experts, renormalises the gates and takes the Switch
+    loss.
 
     Under a ``tp`` seam of M > 1 (``repro_torch.models.tp``; the default
     ``NO_TP`` is the identity) the rows are rank-rows and the experts a
@@ -62,6 +91,14 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
 
     Returns (out (N, B, T, D), aux (N,) f32: each node's load-balance
     loss)."""
+    if dropless:
+        return _moe_share(x, router_w, experts_gate, experts_up,
+                          experts_down, top_k=top_k, shared=shared, tp=tp,
+                          first=first_expert)
+    if first_expert or experts_gate.shape[1] != router_w.shape[-1]:
+        raise ValueError(f"the capacity path holds all {router_w.shape[-1]} "
+                         f"experts; a share ({experts_gate.shape[1]} from "
+                         f"{first_expert}) takes dropless=True")
     N, B, T, D = x.shape
     E = router_w.shape[-1]
     xf = x.to(F32)
@@ -98,13 +135,158 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
 
     frac_tokens = dispatch.sum(-1).mean(dim=(1, 2))           # (N, E)
     frac_probs = probs.mean(dim=(1, 2))
-    aux = E * (frac_tokens * frac_probs).sum(-1)
+    loss = E * (frac_tokens * frac_probs).sum(-1)
+    return tp.reduce_out(_add_shared(out, x, shared, tp)), loss
 
-    if shared is not None:
-        sg, su, sd = shared
-        xs = tp.copy_in(x)
-        gsh = torch.einsum("nbtd,ndf->nbtf", xs, sg.to(x.dtype))
-        ush = torch.einsum("nbtd,ndf->nbtf", xs, su.to(x.dtype))
-        out = out + torch.einsum("nbtf,nfd->nbtd", F.silu(gsh) * ush,
-                                 sd.to(x.dtype))
-    return tp.reduce_out(out), aux
+
+def _add_shared(out, x, shared, tp):
+    if shared is None:
+        return out
+    sg, su, sd = shared
+    xs = tp.copy_in(x)
+    gsh = torch.einsum("nbtd,ndf->nbtf", xs, sg.to(x.dtype))
+    ush = torch.einsum("nbtd,ndf->nbtf", xs, su.to(x.dtype))
+    return out + torch.einsum("nbtf,nfd->nbtd", F.silu(gsh) * ush,
+                              sd.to(x.dtype))
+
+
+def balance_coef(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """(N, B, E): DeepSeekMoE's sequence-wise balance loss as sum_{b, t,
+    i} coef[n, b, i] s[n, b, t, i] over the router's softmax s, from the
+    routed experts ``idx`` (N, B, T, k) (the token counts carry no
+    gradient): E / (k T) counts a sequence, mean_t, mean over the
+    sequences."""
+    N, B, T, k = idx.shape
+    cnt = torch.zeros((N, B, E), dtype=F32, device=idx.device).scatter_add_(
+        -1, idx.reshape(N, B, T * k), torch.ones((N, B, T * k), dtype=F32,
+                                                 device=idx.device))
+    return E * cnt / (k * T * T * B)
+
+
+class _Route(torch.autograd.Function):
+    """The router of the expert-share path: f32 logits over all E
+    experts, their softmax, the top k (ties toward the lower index), whose
+    probabilities are the gates, and the balance loss; backward by hand,
+    under the same phase."""
+
+    @staticmethod
+    def forward(ctx, x, w, k: int):
+        N, B, T, D = x.shape
+        E = w.shape[-1]
+        with trace.phase("moe/route", x.device,
+                         bytes=4 * (x.numel() + w.numel() + 2 * N * B * T
+                                    * E)):
+            probs = torch.softmax(torch.einsum("nbtd,nde->nbte", x, w), -1)
+            gates, idx = top_k_lower_index(probs, k)
+            coef = balance_coef(idx, E)
+            loss = (coef * probs.sum(2)).sum((1, 2))
+        ctx.save_for_backward(x, w, probs, idx, coef)
+        ctx.mark_non_differentiable(idx)
+        return gates, idx, loss
+
+    @staticmethod
+    def backward(ctx, d_gates, _d_idx, d_loss):
+        x, w, probs, idx, coef = ctx.saved_tensors
+        with trace.phase("moe/route", x.device,
+                         bytes=4 * (2 * x.numel() + 2 * w.numel()
+                                    + 2 * probs.numel())):
+            dp = torch.zeros_like(probs).scatter_(-1, idx, d_gates)
+            if d_loss is not None:
+                dp = dp + d_loss[:, None, None, None] * coef[:, :, None, :]
+            dl = probs * (dp - (probs * dp).sum(-1, keepdim=True))
+            dx = torch.einsum("nbte,nde->nbtd", dl, w)
+            dw = torch.einsum("nbtd,nbte->nde", x, dl)
+        return dx, dw, None
+
+
+def _live_bytes(p: kmoe.Plan, per_row: int, fixed: int = 0):
+    """A phase's bytes: ``per_row`` for each live row, counted on the
+    device (resolved after the window), plus ``fixed``."""
+    return lambda: p.offsets[-1] * per_row + fixed
+
+
+class _HeldExperts(torch.autograd.Function):
+    """The held experts' part of the layer: dispatch (gather the live
+    rows), experts (each group's SwiGLU by grouped products), combine
+    (the gated rows added back to their tokens), and their transposes in
+    backward, each under its phase."""
+
+    @staticmethod
+    def forward(ctx, x2, gates, wg, wu, wd, p: kmoe.Plan):
+        M, D = x2.shape
+        F_ = wg.shape[-1]
+        dev = x2.device
+        with trace.phase("moe/dispatch", dev, bytes=_live_bytes(p, 8 * D)):
+            xs = kmoe.gather(x2, p.tok, p)
+        with trace.phase("moe/experts", dev, bytes=_live_bytes(
+                p, 4 * (2 * D + 5 * F_), 12 * wg.numel())):
+            a = kmoe.rows_mm(xs, wg, p)
+            b = kmoe.rows_mm(xs, wu, p)
+            del xs
+            y = kmoe.rows_mm(F.silu(a) * b, wd, p)
+        with trace.phase("moe/combine", dev,
+                         bytes=_live_bytes(p, 4 * D, 4 * M * D)):
+            out = kmoe.combine(y, p.pos, gates)
+        ctx.save_for_backward(x2, gates, wg, wu, wd, a, b)
+        ctx.plan = p
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x2, gates, wg, wu, wd, a, b = ctx.saved_tensors
+        p = ctx.plan
+        M, D = x2.shape
+        F_ = wg.shape[-1]
+        dev = x2.device
+        with trace.phase("moe/combine", dev, bytes=_live_bytes(p, 8 * D)):
+            dyu = kmoe.gather(d_out.contiguous(), p.tok, p)
+        with trace.phase("moe/dispatch", dev, bytes=_live_bytes(p, 8 * D)):
+            xs = kmoe.gather(x2, p.tok, p)
+        with trace.phase("moe/experts", dev, bytes=_live_bytes(
+                p, 4 * (4 * D + 12 * F_), 24 * wg.numel())):
+            g = gates.reshape(-1)[p.order][:, None]
+            dhu = kmoe.rows_mm(dyu, wd, p, transpose=True)
+            sa = torch.sigmoid(a)
+            h = a * sa * b
+            d_rows = (dhu * h).sum(-1)
+            dwd = kmoe.wgrad(h * g, dyu, p)
+            del h, dyu
+            dh = dhu * g
+            del dhu
+            da = dh * b * sa * (1 + a * (1 - sa))
+            db = dh * a * sa
+            del dh, sa
+            dwg = kmoe.wgrad(xs, da, p)
+            dwu = kmoe.wgrad(xs, db, p)
+            del xs
+            dxs = kmoe.rows_mm(da, wg, p, transpose=True)
+            kmoe.rows_mm(db, wu, p, transpose=True, out=dxs, accumulate=True)
+            del da, db
+        with trace.phase("moe/dispatch", dev,
+                         bytes=_live_bytes(p, 4 * D, 4 * M * D)):
+            dx2 = kmoe.combine(dxs, p.pos, None)
+        d_gates = torch.where(p.pos >= 0, d_rows[p.pos.clamp(min=0)], 0.0)
+        return dx2, d_gates, dwg, dwu, dwd, None
+
+
+def _moe_share(x, router_w, eg, eu, ed, *, top_k, shared, tp, first):
+    """The expert-share path of :func:`moe_mlp`."""
+    if tp.M > 1:
+        raise ValueError("the expert-share path runs whole nodes (M = 1)")
+    N, B, T, D = x.shape
+    E, held = router_w.shape[-1], eg.shape[1]
+    if not 0 <= first <= E - held:
+        raise ValueError(f"held experts [{first}, {first + held}) lie "
+                         f"outside the router's {E}")
+    xf = x.to(F32)
+    gates, idx, loss = _Route.apply(xf, router_w.to(F32), top_k)
+    with trace.phase("moe/route", x.device):
+        p = kmoe.plan(idx, first, held)
+        trace.count("moe/rows", p.counts)
+        trace.count("moe/shape", lambda: torch.tensor(
+            [N, B * T, top_k, D, eg.shape[-1]]))
+    out = _HeldExperts.apply(xf.reshape(N * B * T, D),
+                             gates.reshape(N * B * T, top_k),
+                             eg.to(F32), eu.to(F32), ed.to(F32), p)
+    out = out.reshape(N, B, T, D).to(x.dtype)
+    return _add_shared(out, x, shared, tp), loss

@@ -5,7 +5,14 @@ The port of ``repro.models.transformer``.  Families:
   dense  -- llama-style decoder (GQA, RoPE, SwiGLU; the qk_norm, qkv-bias
             and sliding-window variants cover qwen3, qwen2, phi4 and yi)
   moe    -- the dense skeleton with MoE FF layers (mixtral, deepseek-moe;
-            :mod:`repro_torch.models.moe`)
+            :mod:`repro_torch.models.moe`).  By default every layer is
+            MoE with the capacity path, as the reference; DeepSeekMoE's
+            published layout is ``first_k_dense`` leading dense SwiGLU
+            layers of width ``dense_d_ff`` (the ``dense_blocks`` group),
+            then MoE layers on the expert-share path (``moe_dropless``:
+            ``n_experts_held`` experts from ``expert_offset`` of the
+            router's ``n_experts``, DeepSeekMoE's gates and sequence-wise
+            balance loss, weighted by the trainer's ``aux_weight``)
   vlm    -- the dense skeleton with a gated cross-attention layer every
             ``cross_attn_every``-th layer (llama-3.2-vision); vision
             embeddings arrive pre-projected (the encoder is a stub)
@@ -105,6 +112,15 @@ class ModelConfig:
     n_shared_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # the port's own MoE options (none in the reference; the defaults are
+    # its layout): leading dense layers and their width (0: d_ff), the
+    # experts held (0: all n_experts) from expert_offset, and the dropless
+    # expert-share path with DeepSeekMoE's gates and balance loss
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    n_experts_held: int = 0
+    expert_offset: int = 0
+    moe_dropless: bool = False
     cross_attn_every: int = 0
     n_vision_tokens: int = 1601
     n_enc_layers: int = 0
@@ -124,6 +140,10 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def held_experts(self) -> int:
+        return self.n_experts_held or self.n_experts
 
     @property
     def padded_vocab(self) -> int:
@@ -220,9 +240,9 @@ def _attn_template(cfg: ModelConfig, Ls: int, biases: bool = False
     return t
 
 
-def _mlp_template(cfg: ModelConfig, Ls: int, gelu: bool = False
-                  ) -> Dict[str, ParamT]:
-    D, F = cfg.d_model, cfg.d_ff
+def _mlp_template(cfg: ModelConfig, Ls: int, gelu: bool = False,
+                  d_ff: int = 0) -> Dict[str, ParamT]:
+    D, F = cfg.d_model, d_ff or cfg.d_ff
     t = {"ln2": ParamT((Ls, D), "ones")}
     if gelu:
         t.update({"w_in": ParamT((Ls, D, F)),
@@ -236,12 +256,16 @@ def _mlp_template(cfg: ModelConfig, Ls: int, gelu: bool = False
 
 
 def _moe_template(cfg: ModelConfig, Ls: int) -> Dict[str, ParamT]:
-    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    D, F, E, Eh = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.held_experts
+    if not 0 <= cfg.expert_offset <= E - Eh:
+        raise ValueError(f"held experts [{cfg.expert_offset}, "
+                         f"{cfg.expert_offset + Eh}) lie outside the "
+                         f"router's {E}")
     t = {"ln2": ParamT((Ls, D), "ones"),
          "router": ParamT((Ls, D, E)),
-         "experts_gate": ParamT((Ls, E, D, F)),
-         "experts_up": ParamT((Ls, E, D, F)),
-         "experts_down": ParamT((Ls, E, F, D), fan=F)}
+         "experts_gate": ParamT((Ls, Eh, D, F)),
+         "experts_up": ParamT((Ls, Eh, D, F)),
+         "experts_down": ParamT((Ls, Eh, F, D), fan=F)}
     if cfg.n_shared_experts:
         Fs = F * cfg.n_shared_experts
         t.update({"shared_gate": ParamT((Ls, D, Fs)),
@@ -272,9 +296,14 @@ def param_template(cfg: ModelConfig):
         blk.update(_mlp_template(cfg, cfg.n_layers, gelu=cfg.act == "gelu"))
         tpl["blocks"] = blk
     elif cfg.family == "moe":
-        blk = _attn_template(cfg, cfg.n_layers)
-        blk.update(_moe_template(cfg, cfg.n_layers))
+        k = cfg.first_k_dense
+        blk = _attn_template(cfg, cfg.n_layers - k)
+        blk.update(_moe_template(cfg, cfg.n_layers - k))
         tpl["blocks"] = blk
+        if k:
+            dense = _attn_template(cfg, k)
+            dense.update(_mlp_template(cfg, k, d_ff=cfg.dense_d_ff))
+            tpl["dense_blocks"] = dense
     elif cfg.family == "vlm":
         k = cfg.cross_attn_every
         if cfg.n_layers % k:
@@ -528,7 +557,8 @@ def mlp_block(cfg: ModelConfig, p, x: torch.Tensor, prefix: str = "",
         return moe_mod.moe_mlp(
             xn, g("router"), g("experts_gate"), g("experts_up"),
             g("experts_down"), top_k=cfg.top_k,
-            capacity_factor=cfg.capacity_factor, shared=shared, tp=tp)
+            capacity_factor=cfg.capacity_factor, shared=shared, tp=tp,
+            first_expert=cfg.expert_offset, dropless=cfg.moe_dropless)
     xn = tp.copy_in(xn)
     if g("w_in") is not None:
         return L.gelu_mlp(xn, g("w_in"), g("w_in_b"), g("w_out"),
@@ -635,14 +665,20 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
 
 
 def _forward_decoder(cfg, params, batch, *, mode, cache, pos, tp=NO_TP):
+    """The decoder: the leading ``dense_blocks`` where the model has
+    them, then ``blocks``."""
     x = embed_tokens(cfg, params, batch["tokens"], tp)
-    x, new_cache, aux = run_stack(
-        cfg, params["blocks"], x, mode=mode, causal=True,
-        window=cfg.sliding_window,
-        cache=None if cache is None else cache["blocks"], pos=pos, tp=tp)
+    new_cache, aux = {}, 0.0
+    for group in ("dense_blocks", "blocks"):
+        if group not in params:
+            continue
+        x, c, a = run_stack(
+            cfg, params[group], x, mode=mode, causal=True,
+            window=cfg.sliding_window,
+            cache=None if cache is None else cache[group], pos=pos, tp=tp)
+        new_cache[group], aux = c, aux + a
     logits = lm_logits(cfg, params, x, tp)
-    return logits, (None if new_cache is None
-                    else {"blocks": new_cache}), aux
+    return logits, (None if cache is None else new_cache), aux
 
 
 def _forward_vlm(cfg, params, batch, *, mode, cache, pos, tp=NO_TP):
@@ -769,6 +805,9 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, n_nodes: int = 1,
     def kv(n, s):
         return {"k": mk((n, B, s, KV, hd)), "v": mk((n, B, s, KV, hd))}
 
+    if cfg.family == "moe" and cfg.first_k_dense:
+        return {"blocks": kv(cfg.n_layers - cfg.first_k_dense, Seff),
+                "dense_blocks": kv(cfg.first_k_dense, Seff)}
     if cfg.family in ("dense", "moe"):
         return {"blocks": kv(cfg.n_layers, Seff)}
     if cfg.family == "vlm":

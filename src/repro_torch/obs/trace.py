@@ -28,7 +28,14 @@ after it has synchronised::
         print(sp.name, sp.parent, sp.step, sp.device_ms, sp.bytes)
 
 A phase never synchronises, reads nothing from the device and allocates
-nothing on it.
+nothing on it, unless its ``bytes`` are counted on the device: a phase
+whose work depends on data the host has not seen (the MoE layer's routed
+rows) gives a zero-dim device tensor, or a callable returning one, which
+:func:`recorded` reads.
+
+:func:`count` keeps a device counter the same way: on only while a
+profiler records, each call's tensor (a clone) kept with the step it
+belongs to, read once by :func:`counted` after the window.
 """
 from __future__ import annotations
 
@@ -95,11 +102,14 @@ def span(name: str, device="cpu"):
 
 
 class Recorder:
-    """The phases' ring, the phases open now (innermost last) and the
-    ordinal of the last root phase (a phase with no parent: a step)."""
+    """The phases' ring, the phases open now (innermost last), the
+    ordinal of the last root phase (a phase with no parent: a step) and
+    the counters' ring of (name, step, device tensor)."""
 
     def __init__(self, size: int = RING_SIZE) -> None:
         self.ring: Deque[Span] = collections.deque(maxlen=size)
+        self.counts: Deque[Tuple[str, int, torch.Tensor]] = \
+            collections.deque(maxlen=size)
         self.open: List[Span] = []
         self.ordinal = 0
 
@@ -110,6 +120,8 @@ class Recorder:
         origin = next((r.events[0] for r in recs if r.events), None)
         still_open = {id(r) for r in self.open}
         for r in recs:
+            if isinstance(r.bytes, torch.Tensor):
+                r.bytes = int(r.bytes)
             if r.events is None or id(r) in still_open \
                     or not r.events[1].query():
                 r.device_t0_ms = r.device_t1_ms = None
@@ -120,6 +132,7 @@ class Recorder:
 
     def clear(self) -> None:
         self.ring.clear()
+        self.counts.clear()
 
 
 RECORDER = Recorder()
@@ -128,8 +141,8 @@ RECORDER = Recorder()
 class _Phase:
     __slots__ = ("sp", "cuda", "rf")
 
-    def __init__(self, name: str, device, nbytes: Optional[int]) -> None:
-        self.sp = Span(name, bytes=nbytes)
+    def __init__(self, name: str, device, nbytes) -> None:
+        self.sp = Span(name, bytes=nbytes() if callable(nbytes) else nbytes)
         self.cuda = (device is not None
                      and torch.device(device).type == "cuda")
 
@@ -162,13 +175,33 @@ class _Phase:
 _OFF = contextlib.nullcontext()
 
 
-def phase(name: str, device=None, bytes: Optional[int] = None):
+def phase(name: str, device=None, bytes=None):
     """A phase of a step named ``name`` (see the module docstring), timed
     on the device where ``device`` is a CUDA device; ``bytes``: what its
-    work must move, by the program's count from tensor sizes."""
+    work must move, by the program's count from tensor sizes: an int, a
+    zero-dim device tensor, or a callable giving either, called only
+    while a profiler records."""
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Phase(name, device, bytes)
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a device tensor, or a callable giving one, called
+    only while a profiler records) to counter ``name`` of the step the
+    innermost open phase belongs to."""
+    if not _profiler._is_profiler_enabled:
+        return
+    rec = RECORDER
+    v = value() if callable(value) else value
+    step = rec.open[-1].step if rec.open else rec.ordinal
+    rec.counts.append((name, step, v.detach().clone()))
+
+
+def counted(name: str) -> List[Tuple[int, torch.Tensor]]:
+    """Counter ``name``'s calls so far, oldest first: (step, the value on
+    the host); call it once the device has run their work."""
+    return [(step, v.cpu()) for n, step, v in RECORDER.counts if n == name]
 
 
 def recorded() -> List[Span]:

@@ -361,6 +361,8 @@ class WireExchange:
                     else:                 # one draw, the same on every shard
                         view.copy_(src.uniform(
                             (n,) + tuple(view.shape[2:])).unsqueeze(1))
+                # a view of a table keeps the whole table alive
+                del view
             with phase("wire/pack", dev):
                 cw, sw = bucket.pack_to_wire(layout, rows.tables,
                                              noise.tables)

@@ -256,6 +256,42 @@ def test_bucketed_equals_per_leaf_in_the_port():
             assert a.dtype == b.dtype == dtype and torch.equal(a, b)
 
 
+def test_bucketed_frees_the_diff_and_noise_tables_before_the_mix(
+        monkeypatch):
+    """Once packed, the diff rows and the noise drawn into their tables
+    are dropped: nothing of the exchange keeps a table alive while B4
+    writes the mixes, which are the size of the tables again."""
+    import weakref
+    n, hops = 4, 2
+    wmat = torch.full((1 + hops, 1, n), 1.0 / 3.0)
+    hop_pairs = [[(i, (i + 1) % n) for i in range(n)],
+                 [(i, (i - 1) % n) for i in range(n)]]
+    diffs = [torch.from_numpy(d) for d in _leaves(_EXCHANGE_SHAPES, seed=3,
+                                                  n=n)]
+    wx = WireExchange(bits=2)
+    layout = wx.layout(wx.local_shapes(diffs), [d.dtype for d in diffs])
+    tables = []
+    init = tbucket.RowTables.__init__
+
+    def tracked(self, *a, **k):
+        init(self, *a, **k)
+        tables.extend(weakref.ref(t) for t in self.tables)
+
+    mix = tbucket.mix_from_wire
+    alive = []
+
+    def checked_mix(*a, **k):
+        alive.append(sum(r() is not None for r in tables))
+        return mix(*a, **k)
+
+    monkeypatch.setattr(tbucket.RowTables, "__init__", tracked)
+    monkeypatch.setattr(tbucket, "mix_from_wire", checked_mix)
+    rows = tbucket.RowTables.from_leaves(layout, diffs)
+    wx.bucketed(rows, ReplayDraws(_noise(layout, n, seed=5), "cpu"), wmat,
+                hop_pairs)
+    assert len(tables) == 2 * len(layout.groups) and alive == [0]
+
+
 def test_flat_pack_mode_matches_lastdim():
     """pack_mode='flat' ships the same codes in another byte order."""
     n = 3

@@ -132,13 +132,21 @@ def test_model_forward_loss_grad_match_reference(dtype):
 
 def test_other_families_name_their_slice():
     """Every architecture id builds, field for field the reference's
-    configuration (the families that once named a later slice included),
-    with the reference's parameter count; no family is refused."""
+    configuration (the families that once named a later slice included;
+    the port's own MoE options, which the reference lacks, at their
+    defaults: the reference's layout), with the reference's parameter
+    count; no family is refused."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    own = {"first_k_dense", "dense_d_ff", "n_experts_held", "expert_offset",
+           "moe_dropless"}
     for arch in tconfigs.ARCH_IDS:
         t, j = tconfigs.get(arch), jconfigs.get(arch)
+        assert {f.name for f in dataclasses.fields(TTR.ModelConfig)
+                if not hasattr(j, f.name)} == own
         for f in dataclasses.fields(TTR.ModelConfig):
-            if f.name != "dtype":
+            if f.name in own:
+                assert getattr(t, f.name) == f.default, (arch, f)
+            elif f.name != "dtype":
                 assert getattr(t, f.name) == getattr(j, f.name), (arch, f)
         assert t.param_count() == j.param_count()
         r = t.reduced()
